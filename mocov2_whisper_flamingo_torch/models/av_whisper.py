@@ -1,0 +1,89 @@
+"""AVWhisperNet: AV fusion trunk + Whisper decoder for beam decoding
+(counterpart of ``models/av_whisper.py``)::
+
+  mel   -> frozen Whisper encoder --\\
+                                      gated fusion -> bridge Linear(d -> d_w)
+  video -> frozen MoCo frontend  ----/         |
+                                               v
+                       Whisper decoder -> greedy / KV-cached beam search
+
+Weights come from the JAX parameter tree through
+``models/convert.py::load_jax_params``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from mocov2_whisper_flamingo_torch.decode.beam import BeamResult, beam_search
+from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
+from mocov2_whisper_flamingo_torch.device import resolve_device
+from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.models.av_net import AVNet
+from mocov2_whisper_flamingo_torch.models.whisper import (
+    WhisperConfig, WhisperDecoder, config_for)
+
+
+class AVWhisperNet(nn.Module):
+    def __init__(
+        self,
+        modal: str = "audiovisual",
+        MoCofile: str | None = None,
+        reqInpLen: int = 96,
+        modelargs: Sequence = (512, 8, 6, 3000, 2048, 0.1),
+        vocab_size: int = 51865,
+        whisper_name: str = "whisper-small",
+        precision: L.Precision = L.FP32,
+        device: str | torch.device | None = "cuda",
+        whisper_config: WhisperConfig | None = None,
+    ):
+        """``whisper_config`` overrides the size named by ``whisper_name``
+        (small test configurations); its vocab is replaced by ``vocab_size``."""
+        super().__init__()
+        device = resolve_device(device)
+        cfg = whisper_config or config_for(whisper_name)
+        if cfg.vocab_size != vocab_size:
+            cfg = dataclasses.replace(cfg, vocab_size=vocab_size)
+        self.whisper_config = cfg
+        self.trunk = AVNet(modal, MoCofile, reqInpLen, modelargs, vocab_size,
+                           precision=precision, device=device, whisper_config=cfg)
+        self.bridge = L.Linear(modelargs[0], cfg.d_model, True, precision, device)
+        self.decoder = WhisperDecoder(cfg, precision, device)
+        self.d_model = modelargs[0]
+        self.precision = precision
+
+    @torch.no_grad()
+    def encode(self, input_batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """AV trunk up to the fused features, bridged to the decoder width.
+        Returns ``(features [B, T, d_w], valid [B, T])``."""
+        out, video_valid = self.trunk.fused_features(input_batch)
+        return self.bridge(out), video_valid
+
+    def ctc_logits(self, input_batch: tuple) -> torch.Tensor:
+        """The trunk's frame-wise linear head."""
+        return self.trunk(input_batch)
+
+    def greedy(self, input_batch: tuple, prefix_ids, max_len: int = 224,
+               eos_id: int = 0, logit_rules=None,
+               weight_quant: str | None = None) -> torch.Tensor:
+        features, valid = self.encode(input_batch)
+        return greedy_decode(self.decoder.prepare_decode_params(weight_quant),
+                             features, prefix_ids, max_len, eos_id,
+                             encoder_valid=valid, logit_rules=logit_rules)
+
+    def beam(self, input_batch: tuple, prefix_ids, beam_size: int = 5,
+             max_len: int = 224, eos_id: int = 0, length_penalty: float = 1.0,
+             logit_rules=None, cache_quant: str | None = None,
+             weight_quant: str | None = None, read_windows=None,
+             cache_layout: str = "rows") -> BeamResult:
+        features, valid = self.encode(input_batch)
+        return beam_search(self.decoder.prepare_decode_params(weight_quant),
+                           features, prefix_ids, beam_size=beam_size,
+                           max_len=max_len, eos_id=eos_id,
+                           length_penalty=length_penalty, encoder_valid=valid,
+                           logit_rules=logit_rules, cache_quant=cache_quant,
+                           read_windows=read_windows, cache_layout=cache_layout)

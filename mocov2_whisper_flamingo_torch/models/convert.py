@@ -1,0 +1,215 @@
+"""Weight bridge from the JAX package's parameter tree to the port.
+
+The JAX models keep their parameters as nested dicts (and lists) of arrays;
+given that tree as numpy arrays, ``from_jax_params`` returns the port's
+``state_dict`` (numpy, fp32) and ``load_jax_params`` installs it. Names
+follow the tree (``trunk.fusion.layers.0.attn.q.kernel``); layouts change
+only where the port applies torch ops:
+
+- linear kernels stay ``[d_in, d_out]``; biases, LayerNorm, embeddings,
+  ``pos_embed`` and the scalar fusion gates are copied as they are;
+- conv1d kernels ``WIO`` become ``[O, I, W]``;
+- every frozen BatchNorm of the MoCo frontend is folded into the conv before
+  it (``fold_bn``): ResNet ``HWIO`` kernels become folded ``OIHW`` weights
+  plus a bias, and the ``DHWIO`` stem becomes the folded 2D kernel of its
+  time-unfolded form (kd-major, c_in-minor input channels).
+
+``random_jax_params`` makes a tree of the JAX layout from a seed with numpy,
+for runs that need full-size random weights without JAX.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.models.visual_frontend import EXPANSION, RESNET50_STAGES
+
+
+def fold_bn(kernel: np.ndarray, bn: dict, eps: float = 1e-5) -> tuple[np.ndarray, np.ndarray]:
+    """Fold a frozen BatchNorm into the conv kernel before it (fp32; the
+    output channel is the kernel's last axis). Returns (kernel, bias)."""
+    f32 = lambda x: np.asarray(x, np.float32)
+    inv = (1.0 / np.sqrt(f32(bn["var"]) + np.float32(eps))).astype(np.float32)
+    s = f32(bn["scale"]) * inv
+    b = f32(bn["bias"]) - f32(bn["mean"]) * s
+    return f32(kernel) * s, b
+
+
+def _hwio_to_oihw(w: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+
+
+def _bottleneck(block: dict, prefix: str, out: dict) -> None:
+    for i in (1, 2, 3):
+        w, b = fold_bn(block[f"conv{i}"]["kernel"], block[f"bn{i}"])
+        out[f"{prefix}conv{i}.weight"], out[f"{prefix}conv{i}.bias"] = _hwio_to_oihw(w), b
+    if "downsample" in block:
+        ds = block["downsample"]
+        w, b = fold_bn(ds["conv"]["kernel"], ds["bn"])
+        out[f"{prefix}downsample.weight"], out[f"{prefix}downsample.bias"] = _hwio_to_oihw(w), b
+
+
+def _frontend(tree: dict, prefix: str, out: dict) -> None:
+    w, b = fold_bn(tree["stem_conv"]["kernel"], tree["stem_bn"])
+    kd, kh, kw, cin, cout = w.shape
+    w2 = w.transpose(1, 2, 0, 3, 4).reshape(kh, kw, kd * cin, cout)
+    out[f"{prefix}stem.weight"], out[f"{prefix}stem.bias"] = _hwio_to_oihw(w2), b
+    _convert(tree["body"], f"{prefix}body.", out)
+
+
+def _convert(tree, prefix: str, out: dict) -> None:
+    if isinstance(tree, dict):
+        if "kernel_q" in tree or "embedding_q" in tree:
+            raise NotImplementedError("int8 weights are not ported yet")
+        if "stem_conv" in tree:
+            _frontend(tree, prefix, out)
+        elif "conv1" in tree and "bn1" in tree:
+            _bottleneck(tree, prefix, out)
+        else:
+            for key, val in tree.items():
+                _convert(val, f"{prefix}{key}.", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, val in enumerate(tree):
+            _convert(val, f"{prefix}{i}.", out)
+    elif isinstance(tree, str):
+        return  # metadata entries (e.g. conversion reports) carry no weights
+    else:
+        arr = np.asarray(tree, np.float32)
+        name = prefix[:-1]
+        if arr.ndim == 3 and name.split(".")[-1] == "kernel":  # conv1d WIO -> [O, I, W]
+            out[name[: -len("kernel")] + "weight"] = np.ascontiguousarray(arr.transpose(2, 1, 0))
+        else:
+            out[name] = arr
+
+
+def from_jax_params(np_tree) -> dict[str, np.ndarray]:
+    """The port's state_dict (fp32 numpy) for a JAX parameter tree."""
+    out: dict[str, np.ndarray] = {}
+    _convert(np_tree, "", out)
+    return out
+
+
+def load_jax_params(module: torch.nn.Module, np_tree) -> torch.nn.Module:
+    """Install a JAX parameter tree into a port module of the same structure
+    (strict: every parameter must be given, and nothing else)."""
+    sd = {k: torch.tensor(v) for k, v in from_jax_params(np_tree).items()}
+    module.load_state_dict(sd, strict=True)
+    return module
+
+
+# -- random trees of the JAX layout ---------------------------------------------
+
+
+class _Init:
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def uniform(self, shape, bound):
+        return self.rng.uniform(-bound, bound, shape).astype(np.float32)
+
+    def normal(self, shape, std=1.0):
+        return (self.rng.standard_normal(shape) * std).astype(np.float32)
+
+    def linear(self, d_in, d_out, bias=True):
+        bound = 1.0 / math.sqrt(d_in)
+        p = {"kernel": self.uniform((d_in, d_out), bound)}
+        if bias:
+            p["bias"] = self.uniform((d_out,), bound)
+        return p
+
+    @staticmethod
+    def ln(d):
+        return {"scale": np.ones((d,), np.float32), "bias": np.zeros((d,), np.float32)}
+
+    @staticmethod
+    def bn(c):
+        return {"scale": np.ones((c,), np.float32), "bias": np.zeros((c,), np.float32),
+                "mean": np.zeros((c,), np.float32), "var": np.ones((c,), np.float32)}
+
+    def conv1d(self, c_in, c_out, k):
+        bound = 1.0 / math.sqrt(c_in * k)
+        return {"kernel": self.uniform((k, c_in, c_out), bound),
+                "bias": self.uniform((c_out,), bound)}
+
+    def conv2d(self, k, c_in, c_out):
+        return {"kernel": self.normal((k, k, c_in, c_out), math.sqrt(2.0 / (k * k * c_out)))}
+
+    def attn(self, d, k_bias=True):
+        return {"q": self.linear(d, d), "k": self.linear(d, d, bias=k_bias),
+                "v": self.linear(d, d), "out": self.linear(d, d)}
+
+    def mlp(self, d, d_ff):
+        return {"fc1": self.linear(d, d_ff), "fc2": self.linear(d_ff, d)}
+
+
+def _random_frontend(init: _Init) -> dict:
+    body, c_in = {}, 64
+    for idx, (blocks, mid, stride) in enumerate(RESNET50_STAGES, start=1):
+        stage = []
+        for i in range(blocks):
+            c_out = mid * EXPANSION
+            block = {"conv1": init.conv2d(1, c_in, mid), "bn1": init.bn(mid),
+                     "conv2": init.conv2d(3, mid, mid), "bn2": init.bn(mid),
+                     "conv3": init.conv2d(1, mid, c_out), "bn3": init.bn(c_out)}
+            if i == 0 and (stride != 1 or c_in != c_out):
+                block["downsample"] = {"conv": init.conv2d(1, c_in, c_out), "bn": init.bn(c_out)}
+            stage.append(block)
+            c_in = c_out
+        body[f"layer{idx}"] = stage
+    return {"stem_conv": {"kernel": init.normal((5, 3, 3, 3, 64), math.sqrt(2.0 / (5 * 3 * 3 * 64)))},
+            "stem_bn": init.bn(64), "body": body}
+
+
+def random_jax_params(net, seed: int = 0) -> dict:
+    """A random parameter tree in the JAX ``AVWhisperNet`` layout for the
+    port model ``net`` (its configuration decides the shapes), drawn from
+    the same distributions as the JAX ``init``. Fusion gates start at 0."""
+    init = _Init(seed)
+    cfg = net.whisper_config
+    d, trunk = net.d_model, net.trunk
+    enc = {
+        "conv1": init.conv1d(cfg.n_mels, cfg.d_model, 3),
+        "conv2": init.conv1d(cfg.d_model, cfg.d_model, 3),
+        "pos_embed": L.sinusoid_position_encoding(cfg.max_source_positions, cfg.d_model),
+        "layers": [{"self_attn": init.attn(cfg.d_model, k_bias=False),
+                    "self_attn_ln": init.ln(cfg.d_model),
+                    "mlp": init.mlp(cfg.d_model, cfg.d_ff),
+                    "mlp_ln": init.ln(cfg.d_model)} for _ in range(cfg.encoder_layers)],
+        "ln_post": init.ln(cfg.d_model),
+    }
+    fusion = {
+        "audio_proj": init.linear(d, d),
+        "video_proj": init.linear(d, d),
+        "layers": [{"attn": init.attn(d), "attn_ln": init.ln(d), "ff_ln": init.ln(d),
+                    "ff1": init.linear(d, 4 * d), "ff2": init.linear(4 * d, d),
+                    "attn_gate": np.zeros((), np.float32),
+                    "ff_gate": np.zeros((), np.float32)}
+                   for _ in range(len(trunk.fusion.layers))],
+        "ln_post": init.ln(d),
+    }
+    tree_trunk = {
+        "whisper_encoder": enc,
+        "audio_proj": init.linear(cfg.d_model, d),
+        "audio_ln": init.ln(d),
+        "visual_frontend": _random_frontend(init),
+        "video_proj": init.linear(2048, d),
+        "video_ln": init.ln(d),
+        "fusion": fusion,
+        "decoder": init.linear(d, trunk.vocab_size),
+    }
+    decoder = {
+        "embed_tokens": {"embedding": init.normal((cfg.vocab_size, cfg.d_model))},
+        "pos_embed": init.normal((cfg.max_target_positions, cfg.d_model), 0.01),
+        "layers": [{"self_attn": init.attn(cfg.d_model, k_bias=False),
+                    "self_attn_ln": init.ln(cfg.d_model),
+                    "cross_attn": init.attn(cfg.d_model, k_bias=False),
+                    "cross_attn_ln": init.ln(cfg.d_model),
+                    "mlp": init.mlp(cfg.d_model, cfg.d_ff),
+                    "mlp_ln": init.ln(cfg.d_model)} for _ in range(cfg.decoder_layers)],
+        "ln_post": init.ln(cfg.d_model),
+    }
+    return {"trunk": tree_trunk, "bridge": init.linear(d, cfg.d_model), "decoder": decoder}

@@ -1,0 +1,124 @@
+"""Layer library of the port (counterpart of ``models/layers.py``).
+
+Parameters are held in fp32 and cast to the policy's compute dtype at use;
+LayerNorm stays an fp32 island. Linear weights keep the JAX ``[d_in, d_out]``
+storage and are applied as ``x @ W``. Parameters are created zero-filled:
+the values come from the weight bridge (``models/convert.py``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class Precision:
+    compute_dtype: torch.dtype = torch.float32
+
+    def cast(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.compute_dtype)
+
+
+FP32 = Precision()
+BF16 = Precision(compute_dtype=torch.bfloat16)
+
+
+def zeros_param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.float32, device=device),
+                        requires_grad=False)
+
+
+class Linear(nn.Module):
+    """``y = cast(x) @ cast(kernel) + cast(bias)``, kernel ``[d_in, d_out]``."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 precision: Precision = FP32, device=None):
+        super().__init__()
+        self.precision = precision
+        self.kernel = zeros_param((d_in, d_out), device)
+        self.bias = zeros_param((d_out,), device) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        prec = self.precision
+        y = torch.matmul(prec.cast(x), prec.cast(self.kernel))
+        if self.bias is not None:
+            y = y + prec.cast(self.bias)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm computed in fp32 and cast back to the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = zeros_param((dim,), device)
+        self.bias = zeros_param((dim,), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+        y = (x32 - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.scale.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class Conv1d(nn.Module):
+    """Conv over ``[B, T, C_in] -> [B, T', C_out]``; weight in torch's
+    ``[C_out, C_in, K]`` layout (the bridge transposes JAX's ``WIO``)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
+                 padding: int = 0, precision: Precision = FP32, device=None):
+        super().__init__()
+        self.precision = precision
+        self.stride = stride
+        self.padding = padding
+        self.weight = zeros_param((c_out, c_in, kernel), device)
+        self.bias = zeros_param((c_out,), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        prec = self.precision
+        y = F.conv1d(prec.cast(x).transpose(1, 2), prec.cast(self.weight),
+                     prec.cast(self.bias), stride=self.stride,
+                     padding=self.padding)
+        return y.transpose(1, 2)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, dim: int, device=None):
+        super().__init__()
+        self.embedding = zeros_param((vocab, dim), device)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding[ids]
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf-based) GELU."""
+    return F.gelu(x, approximate="none")
+
+
+def sinusoid_position_encoding(length: int, dim: int, base: float = 10000.0) -> np.ndarray:
+    """Whisper-style sinusoids: ``[sin | cos]`` over the feature dim."""
+    half = dim // 2
+    log_timescale = math.log(base) / (half - 1)
+    inv_timescales = np.exp(-log_timescale * np.arange(half))
+    scaled = np.arange(length)[:, None] * inv_timescales[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def interleaved_position_encoding(length: int, dim: int, base: float = 10000.0) -> np.ndarray:
+    """Transformer PE with sin/cos interleaved over even/odd features."""
+    pe = np.zeros((length, dim), dtype=np.float32)
+    position = np.arange(length, dtype=np.float64)[:, None]
+    denom = np.exp(np.arange(0, dim, 2, dtype=np.float64) * (-math.log(base) / dim))
+    pe[:, 0::2] = np.sin(position * denom)
+    pe[:, 1::2] = np.cos(position * denom)
+    return pe

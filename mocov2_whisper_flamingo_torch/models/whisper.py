@@ -1,0 +1,286 @@
+"""Whisper encoder and KV-cached decoder (counterpart of ``models/whisper.py``).
+
+Pre-LN transformer with HF ``WhisperModel`` structure. The encoder's
+self-attention runs the hand-written flash-attention kernel
+(``ops/flash_attention.py``); the decoder's single-query step uses the plain
+attention, as the JAX package forces its XLA path there.
+
+Decode cache (``init_cache``): the self K/V of all layers are two stacked
+tensors ``[layers, rows, max_len, H, Dh]`` written in place at the step
+index; the cross K/V are ``[layers, B, T_enc, H, Dh]``, computed once per
+example and kept B-major however many beams share them. Beam search reorders
+the self cache physically (one ``index_select`` per step) instead of the JAX
+package's ancestry-mask attention, which exists to avoid TPU relayouts.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+from torch import nn
+
+from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.ops.attention import NEG_INF, multi_head_attention
+
+
+@dataclasses.dataclass(frozen=True)
+class WhisperConfig:
+    n_mels: int = 80
+    d_model: int = 768
+    encoder_layers: int = 12
+    decoder_layers: int = 12
+    n_heads: int = 12
+    d_ff: int = 3072
+    vocab_size: int = 51865
+    max_source_positions: int = 1500
+    max_target_positions: int = 448
+    activation: str = "gelu"
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+
+WHISPER_SIZES = {
+    "whisper-tiny": WhisperConfig(d_model=384, encoder_layers=4, decoder_layers=4, n_heads=6, d_ff=1536),
+    "whisper-base": WhisperConfig(d_model=512, encoder_layers=6, decoder_layers=6, n_heads=8, d_ff=2048),
+    "whisper-small": WhisperConfig(d_model=768, encoder_layers=12, decoder_layers=12, n_heads=12, d_ff=3072),
+    "whisper-medium": WhisperConfig(d_model=1024, encoder_layers=24, decoder_layers=24, n_heads=16, d_ff=4096),
+    "whisper-large-v2": WhisperConfig(d_model=1280, encoder_layers=32, decoder_layers=32, n_heads=20, d_ff=5120),
+}
+
+
+def config_for(name: str) -> WhisperConfig:
+    key = name.split("/")[-1]
+    if key not in WHISPER_SIZES:
+        raise ValueError(f"Unknown whisper size {name!r}; known: {sorted(WHISPER_SIZES)}")
+    return WHISPER_SIZES[key]
+
+
+class Attention(nn.Module):
+    """q/k/v/out projections (K has no bias in Whisper)."""
+
+    def __init__(self, d_model: int, precision: L.Precision, device=None):
+        super().__init__()
+        self.q = L.Linear(d_model, d_model, True, precision, device)
+        self.k = L.Linear(d_model, d_model, False, precision, device)
+        self.v = L.Linear(d_model, d_model, True, precision, device)
+        self.out = L.Linear(d_model, d_model, True, precision, device)
+        self.qkv: L.Linear | None = None  # fused by prepare_decode_params
+
+
+class MLP(nn.Module):
+    def __init__(self, d_model: int, d_ff: int, precision: L.Precision, device=None):
+        super().__init__()
+        self.fc1 = L.Linear(d_model, d_ff, True, precision, device)
+        self.fc2 = L.Linear(d_ff, d_model, True, precision, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(L.gelu(self.fc1(x)))
+
+
+def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, t, d = x.shape
+    return x.reshape(b, t, n_heads, d // n_heads)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, t, h, dh = x.shape
+    return x.reshape(b, t, h * dh)
+
+
+class EncoderLayer(nn.Module):
+    def __init__(self, cfg: WhisperConfig, precision: L.Precision, device=None):
+        super().__init__()
+        self.n_heads = cfg.n_heads
+        self.self_attn = Attention(cfg.d_model, precision, device)
+        self.self_attn_ln = L.LayerNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, precision, device)
+        self.mlp_ln = L.LayerNorm(cfg.d_model, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, h = self.self_attn, self.n_heads
+        y = self.self_attn_ln(x)
+        out = multi_head_attention(_split_heads(a.q(y), h), _split_heads(a.k(y), h),
+                                   _split_heads(a.v(y), h), backend="flash")
+        x = x + a.out(_merge_heads(out))
+        return x + self.mlp(self.mlp_ln(x))
+
+
+class WhisperEncoder(nn.Module):
+    """``forward(mel [B, n_mels, T]) -> [B, T // 2, D]``."""
+
+    def __init__(self, config: WhisperConfig, precision: L.Precision = L.FP32,
+                 device=None):
+        super().__init__()
+        cfg = self.config = config
+        self.precision = precision
+        self.conv1 = L.Conv1d(cfg.n_mels, cfg.d_model, 3, 1, 1, precision, device)
+        self.conv2 = L.Conv1d(cfg.d_model, cfg.d_model, 3, 2, 1, precision, device)
+        self.pos_embed = L.zeros_param((cfg.max_source_positions, cfg.d_model), device)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, precision, device)
+                                    for _ in range(cfg.encoder_layers))
+        self.ln_post = L.LayerNorm(cfg.d_model, device=device)
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        x = mel.transpose(-1, -2)
+        x = L.gelu(self.conv1(x))
+        x = L.gelu(self.conv2(x))
+        x = x + self.precision.cast(self.pos_embed[: x.shape[1]])
+        for layer in self.layers:
+            x = layer(x)
+        return self.ln_post(x)
+
+
+class DecoderLayer(nn.Module):
+    def __init__(self, cfg: WhisperConfig, precision: L.Precision, device=None):
+        super().__init__()
+        self.self_attn = Attention(cfg.d_model, precision, device)
+        self.self_attn_ln = L.LayerNorm(cfg.d_model, device=device)
+        self.cross_attn = Attention(cfg.d_model, precision, device)
+        self.cross_attn_ln = L.LayerNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, precision, device)
+        self.mlp_ln = L.LayerNorm(cfg.d_model, device=device)
+
+
+class WhisperDecoder(nn.Module):
+    """Whisper decoder with an explicit KV cache for incremental decoding.
+
+    Call ``prepare_decode_params`` once per decode: it returns a copy with
+    fused self-attention QKV weights and every weight cast to the compute
+    dtype, which is the module ``init_cache``/``decode_step`` run on.
+    """
+
+    def __init__(self, config: WhisperConfig, precision: L.Precision = L.FP32,
+                 device=None):
+        super().__init__()
+        cfg = self.config = config
+        self.precision = precision
+        self.embed_tokens = L.Embedding(cfg.vocab_size, cfg.d_model, device)
+        self.pos_embed = L.zeros_param((cfg.max_target_positions, cfg.d_model), device)
+        self.layers = nn.ModuleList(DecoderLayer(cfg, precision, device)
+                                    for _ in range(cfg.decoder_layers))
+        self.ln_post = L.LayerNorm(cfg.d_model, device=device)
+        self.vocab_table: torch.Tensor | None = None  # set by prepare_decode_params
+
+    # -- decode preparation ---------------------------------------------------
+
+    def fuse_decode_params(self) -> "WhisperDecoder":
+        """A copy whose self-attention layers carry one fused ``[D, 3D]``
+        QKV projection (zero bias block for K, which has none)."""
+        dec = copy.deepcopy(self)
+        for layer in dec.layers:
+            sa = layer.self_attn
+            d_in, d = sa.q.kernel.shape
+            fused = L.Linear(d_in, 3 * d, True, sa.q.precision, sa.q.kernel.device)
+            with torch.no_grad():
+                fused.kernel.copy_(torch.cat([sa.q.kernel, sa.k.kernel, sa.v.kernel], dim=1))
+                fused.bias.copy_(torch.cat([sa.q.bias, torch.zeros_like(sa.q.bias),
+                                            sa.v.bias]))
+            sa.qkv = fused
+        return dec
+
+    def prepare_decode_params(self, weight_quant: str | None = None) -> "WhisperDecoder":
+        """Fused QKV, then every float parameter cast to the compute dtype
+        (LayerNorm parameters included, as in the JAX package). The vocab
+        projection keeps an fp32 copy of the cast table so that logits are
+        fp32 products of compute-dtype operands."""
+        if weight_quant is not None:
+            raise NotImplementedError("int8 decode weights are not ported yet")
+        dec = self.fuse_decode_params()
+        dt = self.precision.compute_dtype
+        with torch.no_grad():
+            for p in dec.parameters():
+                p.data = p.data.to(dt)
+        dec.vocab_table = dec.embed_tokens.embedding.float()
+        return dec
+
+    # -- incremental decode ---------------------------------------------------
+
+    def init_cache(self, encoder_out: torch.Tensor, max_len: int | None = None,
+                   beam_groups: int = 1) -> dict:
+        """Allocate the self caches (compute dtype) for ``B * beam_groups``
+        rows and compute the cross K/V once per example from the un-repeated
+        encoder output."""
+        cfg, prec = self.config, self.precision
+        b = encoder_out.shape[0]
+        max_len = max_len or cfg.max_target_positions
+        dtype = prec.compute_dtype
+        enc = prec.cast(encoder_out)
+        cross_k = torch.stack([_split_heads(lyr.cross_attn.k(enc), cfg.n_heads)
+                               for lyr in self.layers]).to(dtype)
+        cross_v = torch.stack([_split_heads(lyr.cross_attn.v(enc), cfg.n_heads)
+                               for lyr in self.layers]).to(dtype)
+        shape = (len(self.layers), b * beam_groups, max_len, cfg.n_heads, cfg.head_dim)
+        return {
+            "self_k": torch.zeros(shape, dtype=dtype, device=enc.device),
+            "self_v": torch.zeros(shape, dtype=dtype, device=enc.device),
+            "cross_k": cross_k,
+            "cross_v": cross_v,
+        }
+
+    def _self_step(self, li: int, layer: DecoderLayer, x: torch.Tensor,
+                   cache: dict, index: int) -> torch.Tensor:
+        cfg, sa = self.config, layer.self_attn
+        y = layer.self_attn_ln(x)
+        if sa.qkv is not None:
+            q, k, v = sa.qkv(y).chunk(3, dim=-1)
+        else:
+            q, k, v = sa.q(y), sa.k(y), sa.v(y)
+        q = _split_heads(q, cfg.n_heads)
+        ck, cv = cache["self_k"][li], cache["self_v"][li]
+        ck[:, index] = _split_heads(k, cfg.n_heads)[:, 0].to(ck.dtype)
+        cv[:, index] = _split_heads(v, cfg.n_heads)[:, 0].to(cv.dtype)
+        # Positions past ``index`` are masked to exact zeros in the JAX
+        # package; here they are simply not read.
+        out = multi_head_attention(q, ck[:, : index + 1].to(q.dtype),
+                                   cv[:, : index + 1].to(q.dtype))
+        return sa.out(_merge_heads(out))
+
+    def _cross_step(self, layer: DecoderLayer, x: torch.Tensor, cross_k: torch.Tensor,
+                    cross_v: torch.Tensor,
+                    encoder_valid: torch.Tensor | None) -> torch.Tensor:
+        """Single-query cross-attention; the ``rows = B * groups`` queries
+        are grouped per example so each example's K/V is read once."""
+        cfg = self.config
+        h, dh = cfg.n_heads, cfg.head_dim
+        rows = x.shape[0]
+        b_enc = cross_k.shape[0]
+        groups = rows // b_enc
+        q = layer.cross_attn.q(layer.cross_attn_ln(x))[:, 0]
+        q = q.reshape(b_enc, groups, h, dh)
+        s = torch.einsum("bghd,bthd->bght", q.float(), cross_k.float()) * (dh ** -0.5)
+        if encoder_valid is not None:
+            ev = encoder_valid if encoder_valid.shape[0] == b_enc else encoder_valid[::groups]
+            s = s.masked_fill(~ev[:, None, None, :], NEG_INF)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        a = torch.einsum("bght,bthd->bghd", p, cross_v.to(q.dtype))
+        return layer.cross_attn.out(a.reshape(rows, 1, h * dh))
+
+    def _vocab_logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding projection to fp32 logits: fp32 products of
+        compute-dtype operands (the JAX dot's fp32 accumulation)."""
+        table = self.vocab_table if self.vocab_table is not None \
+            else self.embed_tokens.embedding.float()
+        return torch.matmul(x.float(), table.T)
+
+    @torch.no_grad()
+    def decode_step(self, tokens: torch.Tensor, cache: dict, index: int,
+                    encoder_valid: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, dict]:
+        """One step. ``tokens [rows, 1]``; ``index`` is the (Python int)
+        position. Writes the step's K/V into ``cache`` in place and returns
+        ``(logits [rows, V] fp32, cache)``."""
+        prec = self.precision
+        x = self.embed_tokens(tokens) + self.pos_embed[index]
+        x = prec.cast(x)
+        for li, layer in enumerate(self.layers):
+            x = x + self._self_step(li, layer, x, cache, index)
+            x = x + self._cross_step(layer, x, cache["cross_k"][li],
+                                     cache["cross_v"][li], encoder_valid)
+            x = x + layer.mlp(layer.mlp_ln(x))
+        x = self.ln_post(x)
+        logits = self._vocab_logits(prec.cast(x))
+        return logits[:, 0], cache

@@ -1,0 +1,52 @@
+"""The port stands alone: no file of ``mocov2_whisper_flamingo_torch`` (nor
+``chip_smoke.py``, nor the card-only kernel tests) imports JAX or the JAX
+package, and its entry points default to the CUDA card, refusing to fall
+back to the CPU silently."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "mocov2_whisper_flamingo_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+FORBIDDEN = ("jax", "jaxlib", "mocov2_whisper_flamingo_tpu")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.append(node.module)
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            names.append(str(node.args[0].value))
+    return names
+
+
+def test_port_has_files():
+    assert len(PORT_FILES) > 10
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from mocov2_whisper_flamingo_torch import resolve_device
+    from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        AVWhisperNet(modelargs=(32, 4, 2, 3000, 128, 0.0), vocab_size=64,
+                     whisper_name="whisper-tiny")
+    assert resolve_device("cpu").type == "cpu"
