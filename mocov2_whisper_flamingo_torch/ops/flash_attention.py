@@ -8,6 +8,13 @@ launches the hand-written kernel in ``csrc/flash_attention.cu``; on CPU
 tensors it runs ``plain_flash_attention``, the same function in plain
 PyTorch. There is no fallback from one to the other.
 
+``route`` picks the CUDA kernel by dtype and head dim: bf16 at Dh 64 and 128
+(every Whisper size and the fusion) takes the Hopper kernel (TMA ring,
+warp-specialised ``wgmma``), bf16 at Dh 32 the ``mma.sync`` kernel, fp32 the
+scalar kernel. The Hopper kernel's block holds 2 or 3 consumer warpgroups
+of 64 query rows; ``consumer_groups`` picks the count per shape. The key
+mask goes to the kernel as the ``[B, Tk]`` bool tensor's own bytes.
+
 Masked-row behaviour is pinned to the Pallas kernel: a query row with no
 valid key returns **0**. (The JAX XLA path returns mean(V) there instead;
 no such row occurs on the serving path, where every example has at least one
@@ -20,12 +27,13 @@ training port.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {"fma_f32": 0, "mma_sync": 1, "wgmma_tma": 2}  # as csrc/flash_attention.cu numbers them
 
 launches = 0  # kernel launches since the last reset_launches()
 
@@ -35,14 +43,46 @@ def reset_launches() -> None:
     launches = 0
 
 
-def _bias(kv_valid: torch.Tensor | None, b: int, tk: int,
-          device) -> torch.Tensor | None:
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The CUDA kernel that a call with this dtype and head dim launches."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"head dim {head_dim} not supported; expected one of {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "fma_f32"
+    if dtype == torch.bfloat16:
+        return "mma_sync" if head_dim == 32 else "wgmma_tma"
+    raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+
+
+def consumer_groups(head_dim: int, tq: int, bh: int, sms: int) -> int:
+    """Consumer warpgroups (64 query rows each) per block of the Hopper
+    kernel for ``tq`` queries and ``bh`` = B*H heads on ``sms`` SMs: the
+    count whose grid, one block per SM, leaves each SM the fewest query rows
+    to walk, the last, partial wave of blocks counted as a full one. A tie
+    goes to the larger block, which reads K and V from L2 fewer times. Three
+    groups do not fit the registers at Dh 128."""
+    def rows_per_sm(n: int) -> int:
+        blocks = -(-tq // (64 * n)) * bh
+        return -(-blocks // sms) * 64 * n
+
+    return min((3, 2) if head_dim == 64 else (2,), key=rows_per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _mask_bytes(kv_valid: torch.Tensor | None, b: int, tk: int,
+                device) -> torch.Tensor | None:
+    """The key mask as the kernel reads it: ``[B, Tk]`` contiguous bytes on
+    ``device``, 1 for a valid key. No copy when the mask is already there."""
     if kv_valid is None:
         return None
     if kv_valid.dtype != torch.bool or tuple(kv_valid.shape) != (b, tk):
         raise ValueError(f"kv_valid must be bool [{b}, {tk}], got "
                          f"{kv_valid.dtype} {tuple(kv_valid.shape)}")
-    return torch.where(kv_valid.to(device), 0.0, NEG_INF).to(torch.float32).contiguous()
+    return kv_valid.to(device).contiguous().view(torch.uint8)
 
 
 def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -71,14 +111,14 @@ def plain_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float = 1.0) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention takes [B, T, H, Dh] tensors")
     b, _, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes float32 or bfloat16 q/k/v of one "
                         f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
@@ -87,22 +127,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"head dim {d} not supported; expected one of {HEAD_DIMS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("flash_attention needs the head dim contiguous")
+    # TMA tensor maps (and the 16-byte row loads of the Dh 32 kernel) take 16-byte
+    # aligned base addresses and byte strides that are multiples of 16.
     if q.dtype == torch.bfloat16 and any(
             x.data_ptr() % 16 or any(s % 8 for s in x.stride()[:3]) for x in (q, k, v)):
-        raise ValueError("bf16 flash_attention loads 16-byte rows: q/k/v need 16-byte "
-                         "aligned storage and strides that are multiples of 8")
+        raise ValueError("bf16 flash_attention copies 16-byte rows (TMA): q/k/v need "
+                         "16-byte aligned storage and strides that are multiples of 8")
     if b * h > 65535:
         raise ValueError(f"B*H = {b * h} exceeds the kernel's grid limit 65535")
+    if not scale > 0:  # the Hopper kernel takes each row's max before it scales
+        raise ValueError(f"flash_attention's kernels take scale > 0, got {scale}")
 
 
-def _launch(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
+def _launch(q, k, v, mask, scale: float, causal: bool,
+            consumers: int | None = None) -> torch.Tensor:
+    """Launch the route's kernel; ``consumers`` overrides the Hopper
+    kernel's ``consumer_groups`` choice (for timing each block size)."""
     from mocov2_whisper_flamingo_torch.ops import kernels
 
     global launches
     lib = kernels.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                        + [ctypes.c_longlong] * 9
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -113,16 +160,24 @@ def _launch(q, k, v, bias, scale: float, causal: bool) -> torch.Tensor:
         return out
     if tk == 0:
         return out.zero_()
+    kernel = route(q.dtype, d)
+    if kernel != "wgmma_tma":
+        consumers = 0
+    elif consumers is None:
+        consumers = consumer_groups(d, tq, b * h, _sm_count(q.device.index))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if bias is None else bias.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, h, tq, tk, d,
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            ROUTES[kernel], consumers, b, h, tq, tk, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             float(scale), int(causal), stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed (CUDA error {rc})")
+        why = {-1: "no kernel for this dtype, head dim and block",
+               -2: "a TMA tensor map cannot describe q/k/v",
+               -3: "the CUDA driver has no cuTensorMapEncodeTiled"}.get(rc, f"CUDA error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed: {why}")
     launches += 1
     return out
 
@@ -141,6 +196,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return plain_flash_attention(q, k, v, kv_valid, scale, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, not {q.device}")
-    _check(q, k, v)
-    return _launch(q, k, v, _bias(kv_valid, q.shape[0], k.shape[1], q.device),
+    _check(q, k, v, scale)
+    return _launch(q, k, v, _mask_bytes(kv_valid, q.shape[0], k.shape[1], q.device),
                    scale, causal)

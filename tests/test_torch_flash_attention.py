@@ -145,6 +145,126 @@ def test_kernel_wrapper_rejects_unsupported_inputs(bad, err):
         fa._check(q, k, v)
 
 
+@pytest.mark.parametrize("dtype,d,expected", [
+    (torch.bfloat16, 64, "wgmma_tma"),   # every Whisper size and the fusion
+    (torch.bfloat16, 128, "wgmma_tma"),
+    (torch.bfloat16, 32, "mma_sync"),
+    (torch.float32, 32, "fma_f32"),
+    (torch.float32, 64, "fma_f32"),
+    (torch.float32, 128, "fma_f32"),
+])
+def test_route_by_dtype_and_head_dim(dtype, d, expected):
+    assert fa.route(dtype, d) == expected
+    assert expected in fa.ROUTES
+
+
+@pytest.mark.parametrize("dtype,d,err", [(torch.bfloat16, 48, ValueError),
+                                         (torch.float16, 64, TypeError)])
+def test_route_rejects_what_no_kernel_takes(dtype, d, err):
+    with pytest.raises(err):
+        fa.route(dtype, d)
+
+
+def test_every_head_dim_has_a_route_for_both_dtypes():
+    routes = {fa.route(dt, d) for dt in (torch.float32, torch.bfloat16) for d in fa.HEAD_DIMS}
+    assert routes == set(fa.ROUTES)
+
+
+@pytest.mark.parametrize("head_dim,tq,bh,expected", [
+    (64, 1500, 48, 3),    # encoder: 384 blocks in 3 waves of 192 rows beat 576 in 5 of 128
+    (64, 400, 32, 2),     # fusion: both grids fit one wave; 128-row blocks walk fewer rows
+    (64, 100, 6, 2),
+    (64, 1, 1, 2),
+    (64, 384, 132, 3),    # a tie (384 rows per SM either way) goes to the larger block
+    (128, 1500, 48, 2),   # three groups do not fit the registers at Dh 128
+])
+def test_consumer_groups_for_serving_and_edge_shapes(head_dim, tq, bh, expected):
+    assert fa.consumer_groups(head_dim, tq, bh, 132) == expected
+
+
+def test_consumer_groups_never_walks_more_rows_than_the_other_choice():
+    def rows_per_sm(n, tq, bh, sms):
+        return -(-(-(-tq // (64 * n)) * bh) // sms) * 64 * n
+
+    for tq in (1, 27, 127, 128, 129, 400, 448, 1500, 3000):
+        for bh in (1, 6, 32, 48, 96, 200):
+            for sms in (114, 132):
+                n = fa.consumer_groups(64, tq, bh, sms)
+                assert rows_per_sm(n, tq, bh, sms) <= rows_per_sm(5 - n, tq, bh, sms)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125, float("nan")])
+def test_check_rejects_a_scale_that_is_not_positive(scale):
+    """The Hopper kernel takes each row's max before it scales the scores."""
+    q = k = v = torch.zeros((1, 8, 2, 32))
+    with pytest.raises(ValueError, match="scale > 0"):
+        fa._check(q, k, v, scale)
+
+
+@pytest.mark.parametrize("noncontig", [False, True])
+def test_mask_bytes_are_the_bool_mask(noncontig):
+    valid = torch.from_numpy(np.random.default_rng(0).random((6, 3)) > 0.4)
+    if noncontig:
+        valid = valid.t()  # [3, 6], not contiguous
+    b, tk = valid.shape
+    packed = fa._mask_bytes(valid, b, tk, torch.device("cpu"))
+    assert packed.dtype == torch.uint8 and packed.is_contiguous()
+    assert packed.tolist() == valid.to(torch.uint8).tolist()
+    if not noncontig:  # a contiguous mask on the device is read in place
+        assert packed.data_ptr() == valid.data_ptr()
+
+
+@pytest.mark.parametrize("mask,err", [
+    (torch.ones((2, 40)), ValueError),                   # not bool
+    (torch.ones((2, 39), dtype=torch.bool), ValueError),  # not [B, Tk]
+    (torch.ones((40,), dtype=torch.bool), ValueError),
+])
+def test_mask_bytes_reject_bad_masks(mask, err):
+    with pytest.raises(err):
+        fa._mask_bytes(mask, 2, 40, torch.device("cpu"))
+
+
+def test_mask_bytes_keep_the_bias_semantics(rng):
+    """The kernels read the mask as bytes where they read an fp32 bias
+    (0 valid / -1e30 masked) before: the same keys drop out, and a row with
+    no valid key still gives 0."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng, b=3, tq=9, tk=21))
+    valid = torch.from_numpy(np.arange(21)[None, :] < np.array([21, 5, 0])[:, None])
+    packed = fa._mask_bytes(valid, 3, 21, torch.device("cpu"))
+    ours = fa.plain_flash_attention(q, k, v, kv_valid=packed.bool())
+    bias = torch.where(valid, 0.0, fa.NEG_INF)  # the retired [B, Tk] fp32 bias
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * 16 ** -0.5 + bias[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1) * (bias > fa.NEG_INF).any(-1)[:, None, None, None]
+    ref = torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    torch.testing.assert_close(ours, ref, atol=ATOL, rtol=0)
+    assert bool((ours[2] == 0).all())
+
+
+def test_check_takes_strided_projection_chunks():
+    """q/k/v as chunks of one [B, T, 3*H*Dh] projection: the strides a TMA
+    tensor map reads in place (16-byte aligned, multiples of 8 elements)."""
+    for dt in (torch.float32, torch.bfloat16):
+        proj = torch.zeros((2, 30, 3 * 4 * 64), dtype=dt)
+        q, k, v = (x.view(2, 30, 4, 64) for x in proj.chunk(3, dim=-1))
+        assert q.stride() == (30 * 768, 768, 64, 1)
+        fa._check(q, k, v)
+
+
+@pytest.mark.parametrize("dtype,ok", [(torch.float32, True), (torch.bfloat16, False)])
+def test_check_row_stride_rule_applies_to_bf16_only(dtype, ok):
+    """A row stride that is no multiple of 8 elements cannot be a TMA stride
+    (multiple of 16 bytes); the scalar fp32 kernel reads any stride."""
+    buf = torch.zeros((2, 24, 2 * 32 + 4), dtype=dtype)
+    q = buf[..., : 2 * 32].unflatten(-1, (2, 32))
+    k = v = torch.zeros((2, 40, 2, 32), dtype=dtype)
+    assert q.stride(1) == 68
+    if ok:
+        fa._check(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            fa._check(q, k, v)
+
+
 def test_attention_dropout_is_not_ported(rng):
     q, k, v = (torch.from_numpy(x) for x in _qkv(rng))
     with pytest.raises(NotImplementedError):
