@@ -9,16 +9,27 @@ serving shapes (device time per call from ``torch.profiler``, beside the wall
 time per call), checks the port end to end against its own CPU run, then
 times the serving path: full audio-visual beam-5 decoding (whisper-small +
 MoCo ResNet-50 + gated fusion, BF16, B=4, 30 s mel, 400 uint8 88x88 lip
-frames, 160 tokens) with random weights made from ``--seed``. Every phase
-raises on failure. The last two lines of stdout are the ``kernels`` JSON line
-and ``{"ok": true, "device": {...}}``. Exits non-zero without a CUDA card.
+frames, 160 tokens) with random weights made from ``--seed``.
+
+Then the training path: the kernel's gradients through its autograd wrapper
+against autograd through the plain version; three fp32 optimizer steps on
+the card against the same steps on the CPU; and ``Trainer.fit`` at full
+width (BF16, B=4, 400 frames, 64 target tokens) with the config's dropout,
+with dropout 0, with activation checkpointing and with on-device
+augmentation, each timed per step, with one step split into its parts.
+
+Every phase raises on failure. The last two lines of stdout are the
+``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
+without a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -27,12 +38,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mocov2_whisper_flamingo_torch import train as train_entry
+from mocov2_whisper_flamingo_torch.config import get_config
 from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.models.av_net import AVNet
 from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
-from mocov2_whisper_flamingo_torch.models.convert import load_jax_params, random_jax_params
+from mocov2_whisper_flamingo_torch.models.convert import (
+    load_jax_params, random_avnet_params, random_jax_params)
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import kernels
-from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
+from mocov2_whisper_flamingo_torch.ops import losses
+from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline, resize_bilinear
+from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
+from mocov2_whisper_flamingo_torch.training.task import AVSRTask
+from mocov2_whisper_flamingo_torch.training.trainer import Trainer
+from mocov2_whisper_flamingo_torch.utils.tokenizer import ByteTokenizer
 
 # The serving path's headline configuration.
 B, T_VIDEO, BEAM, MAX_TOKENS, SECONDS_PER_CLIP = 4, 400, 5, 160, 30.0
@@ -54,6 +74,18 @@ TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # fp32 encoder features, card vs CPU: cuDNN and cuBLAS sum in other orders
 # than the CPU through 12 encoder layers, ResNet-50 and fusion.
 FEATURE_ATOL = 2e-3
+# dq/dk/dv through the autograd wrapper against autograd through the plain
+# version, as a share of the largest reference gradient (or of 1). fp32: two
+# fp32 recomputes in other summation orders. bf16: each gradient is rounded to
+# bf16 (2^-8 relative), and the recompute multiplies bf16 P by bf16 V where
+# the plain version multiplies them in fp32.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# fp32 train steps, card vs CPU: losses of size ~20 and parameters that three
+# AdamW updates move by up to ~2e-3.
+TRAIN_LOSS_ATOL = 2e-3
+TRAIN_PARAM_ATOL = 5e-5
+# The training path's headline configuration.
+TRAIN_STEPS, TRAIN_WARMUP, TARGET_TOKENS, AUDIO_FRAMES = 8, 2, 64, 400
 
 
 def log(msg: str) -> None:
@@ -403,6 +435,444 @@ def profile(fn, top: int = 6) -> dict:
     return out
 
 
+# -- phase 5: K1 under autograd ------------------------------------------------------
+
+
+def check_kernel_gradient(gen) -> dict:
+    """The autograd wrapper on the card: its forward is the kernel's, bit
+    for bit, and dq, dk, dv agree with autograd through the plain version.
+    Returns the fusion call's forward and forward+backward device times."""
+    dev = torch.device("cuda")
+    cases = [("fusion", (4, 400, 400, 8, 64), (400, 317, 64, 1), False),
+             ("causal_130x400", (2, 130, 400, 2, 64), (400, 300), True)]
+    for name, (b, tq, tk, h, d), lens, causal in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"{name}/{str(dtype).split('.')[-1]}"
+            q, k, v = qkv(gen, b, tq, tk, h, d, dtype, dev)
+            mask = valid_mask(lens, tk, dev)
+            cot = torch.randn((b, tq, h, d), generator=gen).to(dev, dtype)
+            direct = fa.flash_attention(q, k, v, kv_valid=mask, causal=causal)
+            leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            before = fa.launches
+            out = fa.flash_attention(*leaves, kv_valid=mask, causal=causal)
+            if fa.launches != before + 1:
+                raise AssertionError(f"K1 grad {tag}: the wrapper's forward launched "
+                                     f"{fa.launches - before} kernels, expected 1")
+            if not torch.equal(out, direct):
+                raise AssertionError(f"K1 grad {tag}: forward through the autograd wrapper "
+                                     "differs from the kernel's forward")
+            # the cotangent arrives as a non-contiguous view
+            grads = torch.autograd.grad(out.transpose(1, 2), leaves, cot.transpose(1, 2))
+            ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+            ref_out = fa.plain_flash_attention(*ref_leaves, kv_valid=mask, causal=causal)
+            ref_grads = torch.autograd.grad(ref_out, ref_leaves, cot)
+            for which, g, ref in zip("qkv", grads, ref_grads):
+                if g.dtype != dtype or g.shape != ref.shape:
+                    raise AssertionError(f"K1 grad {tag} d{which}: {g.dtype} {tuple(g.shape)}")
+                scale = max(1.0, ref.float().abs().max().item())
+                err = (g.float() - ref.float()).abs().max().item()
+                log(f"K1 grad {tag} d{which}: max_abs_err {err:.3e} (atol "
+                    f"{GRAD_TOL[dtype] * scale:.3g} = {GRAD_TOL[dtype]:g} x {scale:.3g})")
+                if not err <= GRAD_TOL[dtype] * scale:
+                    raise AssertionError(f"K1 grad {tag} d{which} disagrees with autograd "
+                                         f"through the plain version: {err}")
+
+    b, t, h, d = 4, 400, 8, 64
+    q, k, v = (x.requires_grad_() for x in qkv(gen, b, t, t, h, d, torch.bfloat16, dev))
+    mask = valid_mask((400, 317, 64, 1), t, dev)
+    cot = torch.randn((b, t, h, d), generator=gen).to(dev, torch.bfloat16)
+
+    def through(fn):
+        return lambda: torch.autograd.grad(fn(q, k, v, kv_valid=mask), (q, k, v), cot)
+
+    fwd_ms, _ = device_ms(lambda: fa.flash_attention(q.detach(), k.detach(), v.detach(),
+                                                     kv_valid=mask))
+    both_ms, n_kernels = device_ms(through(fa.flash_attention))
+    plain_both_ms, _ = device_ms(through(fa.plain_flash_attention))
+    out = {"shape": [b, t, h, d], "dtype": "bfloat16", "forward_device_ms": fwd_ms,
+           "forward_backward_device_ms": both_ms,
+           "backward_device_ms": both_ms - fwd_ms,
+           "backward_share": (both_ms - fwd_ms) / both_ms,
+           "device_kernels_per_forward_backward": n_kernels,
+           "plain_forward_backward_device_ms": plain_both_ms}
+    log("K1 fusion forward+backward bf16: " + json.dumps(out))
+    return out
+
+
+# -- phase 6: fp32 train steps, card against CPU --------------------------------------
+
+
+def synthetic_train_batch(rng, b: int, frames: int, dev, augmentable: bool = False) -> dict:
+    """One training batch with the reference collate keys on ``dev``: 30 s
+    mel, ``frames`` lip frames made from raw uint8 88x88 as ``preprocess``
+    makes them, ``TARGET_TOKENS`` random target ids. ``augmentable``: the
+    layout the on-device augmentation takes (raw mel, uint8 64x64 frames)."""
+    mel, raw = make_batch(rng, b, frames, dev)
+    if augmentable:
+        video = resize_bilinear(raw, 64).round().clamp(0, 255).to(torch.uint8)
+    else:
+        video = eval_video_pipeline(raw, resize=64)
+    ids = torch.from_numpy(rng.integers(1, VOCAB, (b, TARGET_TOKENS))).to(dev)
+    return {
+        "audio": mel, "audio_mask": torch.ones((b, 3000), dtype=torch.bool, device=dev),
+        "audio_lengths": torch.full((b,), AUDIO_FRAMES, dtype=torch.int32, device=dev),
+        "video": video, "video_mask": torch.ones((b, frames), dtype=torch.bool, device=dev),
+        "video_lengths": torch.full((b,), frames, dtype=torch.int32, device=dev),
+        "target_ids": ids,
+        "target_lengths": torch.full((b,), TARGET_TOKENS, dtype=torch.int32, device=dev),
+    }
+
+
+def check_train_steps(seed: int) -> dict:
+    """Three fp32 optimizer steps through ``AVSRTask`` on the card and on the
+    CPU from the same weights (whisper-small width and depth, B=2, 32
+    frames, dropout 0, gates at 0.5 so that every trainable parameter has a
+    gradient): losses and trainable parameters agree, frozen parameters do
+    not move, and K1 launches 15 times a step on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    modelargs = MODELARGS[:5] + (0.0,)
+    training = {"max_lr": 1e-3, "warmup_ratio": 0.1, "weight_decay": 0.01,
+                "gradient_clip_val": 1.0, "accumulate_grad_batches": 1}
+    rng = np.random.default_rng(seed + 2)
+    cpu_batches = [synthetic_train_batch(rng, 2, 32, "cpu") for _ in range(3)]
+    tree = None
+    results = {}
+    for dev in ("cuda", "cpu"):
+        net = AVNet("audiovisual", None, 96, modelargs, VOCAB, whisper_name="whisper-small",
+                    precision=L.FP32, device=dev)
+        if tree is None:
+            tree = random_avnet_params(net, seed)
+            for layer in tree["fusion"]["layers"]:
+                layer["attn_gate"] = layer["ff_gate"] = np.float32(GATE)
+        load_jax_params(net, tree)
+        frozen = {n: p.detach().clone() for n, p in net.named_parameters()
+                  if not AVNet.trainable_filter(n)}
+        task = AVSRTask(net)
+        opt, _ = make_optimizer(training, 10, net.trainable_parameters())
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        step_losses = []
+        for batch in cpu_batches:
+            fa.reset_launches()
+            out = task.train_step(opt, {k: v.to(dev) for k, v in batch.items()}, gen)
+            if dev == "cuda" and fa.launches != 15:
+                raise AssertionError(f"fp32 train step launched K1 {fa.launches} times, "
+                                     "expected 15 (12 encoder + 3 fusion)")
+            if float(out["skipped"]):
+                raise AssertionError(f"fp32 train step on {dev} had a non-finite loss")
+            step_losses.append({k: float(v) for k, v in out.items()})
+        for name, param in net.named_parameters():
+            if name in frozen and not torch.equal(param, frozen[name]):
+                raise AssertionError(f"frozen parameter {name} changed on {dev}")
+        results[dev] = (step_losses, {n: p.detach().cpu() for n, p in net.trainable_parameters()},
+                        {n: (p.detach().cpu() - torch.from_numpy(np.asarray(
+                            _leaf(tree, n)))).abs().max().item()
+                         for n, p in net.trainable_parameters()})
+        del net, opt, task, frozen
+    (l_gpu, p_gpu, moved), (l_cpu, p_cpu, _) = results["cuda"], results["cpu"]
+    loss_err = max(abs(a[k] - b[k]) for a, b in zip(l_gpu, l_cpu)
+                   for k in ("ctc_loss", "ce_loss", "loss"))
+    param_err = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_gpu)
+    still = [n for n, d in moved.items() if d == 0.0]
+    log(f"train fp32 whisper-small B=2 32 frames, 3 steps: losses card "
+        f"{[round(x['loss'], 5) for x in l_gpu]} cpu {[round(x['loss'], 5) for x in l_cpu]}; "
+        f"max loss diff {loss_err:.3e} (atol {TRAIN_LOSS_ATOL:g}); max trainable parameter diff "
+        f"{param_err:.3e} (atol {TRAIN_PARAM_ATOL:g}); largest move {max(moved.values()):.3e}; "
+        f"frozen parameters bit-identical; K1 launches per step 15")
+    if still:
+        raise AssertionError(f"trainable parameters that did not move in 3 steps: {still}")
+    if not loss_err <= TRAIN_LOSS_ATOL:
+        raise AssertionError(f"fp32 train losses card vs CPU differ by {loss_err}")
+    if not param_err <= TRAIN_PARAM_ATOL:
+        raise AssertionError(f"fp32 trainable parameters card vs CPU differ by {param_err}")
+    return {"losses_card": [x["loss"] for x in l_gpu], "losses_cpu": [x["loss"] for x in l_cpu],
+            "max_loss_diff": loss_err, "max_param_diff": param_err,
+            "largest_param_move": max(moved.values()), "k1_launches_per_step": 15}
+
+
+def _leaf(tree, dotted: str):
+    node = tree
+    for key in dotted.split("."):
+        node = node[int(key)] if isinstance(node, list) else node[key]
+    return node
+
+
+# -- phase 7: the timed train path ------------------------------------------------------
+
+
+class _RecordingWriter:
+    """Stands in for the trainer's TensorBoard writer: keeps the scalars."""
+
+    def __init__(self, path: str):
+        self.path, self.scalars = path, []
+
+    def add_scalar(self, tag, value, step):
+        self.scalars.append((tag, float(value), step))
+
+    def flush(self):
+        pass
+
+
+class _SyntheticDataModule:
+    """The same batch ``steps`` times; the train loader notes the K1 launch
+    count each time the trainer comes back for a batch."""
+
+    def __init__(self, batch: dict, steps: int):
+        self.batch, self.steps, self.launch_marks = batch, steps, []
+
+    def train_dataloader(self):
+        dm = self
+
+        class Loader:
+            def __len__(self):
+                return dm.steps
+
+            def __iter__(self):
+                for _ in range(dm.steps):
+                    dm.launch_marks.append(fa.launches)
+                    yield dict(dm.batch)
+                dm.launch_marks.append(fa.launches)
+
+        return Loader()
+
+    def val_dataloader(self):
+        return [dict(self.batch, target_text=["synthetic"] * len(self.batch["target_ids"]))]
+
+    test_dataloader = val_dataloader
+
+
+def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
+              expected_launches: int) -> tuple[dict, Trainer]:
+    """``Trainer.fit`` for ``TRAIN_STEPS`` steps on one repeated batch at
+    full width; ms per step over the steps after the warm-up."""
+    config = get_config({
+        "training.epochs": 1, "training.accumulate_grad_batches": 1, "training.seed": seed,
+        "output.log_every_n_steps": 1, "precision.rematerialize": False,
+        "output.checkpoint_dir": os.path.join(workdir, name, "checkpoints"),
+        "output.log_dir": os.path.join(workdir, name, "logs"), **overrides})
+    net = train_entry.build_net(config, VOCAB, "cuda")
+    with torch.no_grad():
+        for layer in net.fusion.layers:
+            layer.attn_gate.fill_(GATE)
+            layer.ff_gate.fill_(GATE)
+    trainer = Trainer(config, net, ByteTokenizer())
+    trainer.writer = _RecordingWriter(trainer.writer.path)
+    trainer.step_timestamps = []
+    dm = _SyntheticDataModule(batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(dm, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    per_step = sorted({b - a for a, b in zip(dm.launch_marks, dm.launch_marks[1:])})
+    if per_step != [expected_launches]:
+        raise AssertionError(f"train path {name}: K1 launches per step {per_step}, expected "
+                             f"{expected_launches}")
+    step_loss = {step: v for tag, v, step in trainer.writer.scalars if tag == "train/loss"}
+    step_losses = [step_loss[i] for i in range(1, TRAIN_STEPS + 1)]
+    if not all(np.isfinite(step_losses)):
+        raise AssertionError(f"train path {name}: non-finite loss in {step_losses}")
+    if any(tag == "train/skipped_steps" for tag, _, _ in trainer.writer.scalars):
+        raise AssertionError(f"train path {name}: a step was skipped")
+    val = {tag: v for tag, v, _ in trainer.writer.scalars if tag.startswith("val/")}
+    if not np.isfinite(val["val/loss"]):
+        raise AssertionError(f"train path {name}: validation loss {val}")
+    if not os.path.exists(os.path.join(config["output"]["checkpoint_dir"],
+                                       f"step_{TRAIN_STEPS}.pt")):
+        raise AssertionError(f"train path {name}: no checkpoint was written")
+    ts = trainer.step_timestamps
+    ms = (ts[-1] - ts[TRAIN_WARMUP - 1]) * 1e3 / (TRAIN_STEPS - TRAIN_WARMUP)
+    b = len(batch["target_ids"])
+    out = {"train_ms_per_step": ms, "train_clips_per_sec": b / (ms * 1e-3),
+           "step_ms_each": [(y - x) * 1e3 for x, y in zip(ts, ts[1:])],
+           "peak_mem_gib": peak, "losses": step_losses, "val": val,
+           "k1_launches_per_step": expected_launches, "k1_launches_in_fit": launches,
+           "fit_s": fit_s}
+    log(f"train path {name} bf16 B={b}: " + json.dumps(out))
+    return out, trainer
+
+
+def step_breakdown(trainer: Trainer, batch: dict, iters: int = 3) -> dict:
+    """One train step taken apart on the card, part by part: the frozen
+    forward, the trainable forward, the losses, the backward and the
+    optimizer. ``between_events_ms`` and ``host_ms`` time the parts in the
+    flow of a whole step (CUDA events on the device timeline, idle gaps
+    included, and the host's clock; mean of ``iters`` steps).
+    ``device_busy_ms`` and ``device_ops`` are the summed kernel time and the
+    kernel count of each part run alone under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    net, task, opt, gen = trainer.net, trainer.task, trainer.optimizer, trainer.generator
+    inputs = (batch["audio"], batch["audio_mask"], batch["video"], batch["video_mask"],
+              batch["video_lengths"])
+    state = {}
+
+    def frozen_forward():
+        state["frozen"] = net.frozen_features(inputs)
+
+    def trainable_forward():
+        fused = net.fuse(*state["frozen"], batch["video_lengths"], train=True, generator=gen)
+        state["logits"] = net.decoder(fused["features"]).float()
+
+    def compute_losses():
+        state["loss"] = task.compute_losses(state["logits"], batch)["loss"]
+
+    def backward():
+        state["grads"] = list(torch.autograd.grad(state["loss"], opt.params))
+
+    def optimizer():
+        with torch.no_grad():
+            opt.step(state["grads"])
+
+    parts = {"frozen_forward": frozen_forward, "trainable_forward": trainable_forward,
+             "losses": compute_losses, "backward": backward, "optimizer": optimizer}
+    out = {key: {name: 0.0 for name in parts} for key in ("between_events_ms", "host_ms")}
+    for _ in range(iters):
+        marks = []
+
+        def mark():
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((ev, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        mark()
+        for part in parts.values():
+            part()
+            mark()
+        torch.cuda.synchronize()
+        for name, (e0, h0), (e1, h1) in zip(parts, marks, marks[1:]):
+            out["between_events_ms"][name] += e0.elapsed_time(e1) / iters
+            out["host_ms"][name] += (h1 - h0) * 1e3 / iters
+
+    def parts_alone():
+        """(kernel ms, kernel count) of each part; None when a profiler
+        window came back without device events (see ``traced``)."""
+        alone = {}
+        for name, part in parts.items():
+            torch.cuda.synchronize()
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                part()
+                torch.cuda.synchronize()
+            kernels_us = [ev.device_time for ev in prof.events()
+                          if ev.device_type == DeviceType.CUDA]
+            if not sum(kernels_us) > 0:
+                return None
+            alone[name] = (sum(kernels_us) / 1e3, len(kernels_us))
+        return alone
+
+    alone = parts_alone() or parts_alone() or parts_alone()
+    if alone is None:
+        raise AssertionError("torch.profiler recorded no device time for a part of the step "
+                             "in 3 runs")
+    out["device_busy_ms"] = {name: ms for name, (ms, _) in alone.items()}
+    out["device_ops"] = {name: n for name, (_, n) in alone.items()}
+    log("train step parts: " + json.dumps(out))
+    return out
+
+
+def time_ctc(seed: int) -> dict:
+    """The CTC recursion in torch ops against ``F.ctc_loss`` on the card at
+    the train path's shape, forward and backward: agreement and wall time."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((B, T_VIDEO, VOCAB), generator=gen).to(dev)
+    labels = torch.randint(1, VOCAB, (B, TARGET_TOKENS), generator=gen).to(dev)
+    in_len = torch.full((B,), AUDIO_FRAMES, device=dev)
+    lab_len = torch.tensor([TARGET_TOKENS, TARGET_TOKENS - 9, 17, 0], device=dev)
+    out = {}
+    results = {}
+    for name, fn in (("library", lambda lp: losses.ctc_native_nll(lp, labels, in_len, lab_len,
+                                                                  zero_infinity=True)),
+                     ("recursion", lambda lp: losses.ctc_forward_log_probs(lp, labels, in_len,
+                                                                           lab_len))):
+        def run():
+            x = logits.clone().requires_grad_()
+            nll = fn(torch.log_softmax(x, dim=-1))
+            (grad,) = torch.autograd.grad(nll.sum(), x)
+            return nll.detach(), grad
+
+        results[name] = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iters = 10 if name == "library" else 1
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    nll_err = (results["library"][0] - results["recursion"][0]).abs().max().item()
+    grad_err = (results["library"][1] - results["recursion"][1]).abs().max().item()
+    out.update(shape=[B, T_VIDEO, VOCAB], nll=results["library"][0].tolist(),
+               max_nll_diff=nll_err, max_grad_diff=grad_err)
+    log("CTC forward+backward on the card: " + json.dumps(out))
+    # Random logits over 51 865 classes: NLL ~4000, so alpha and beta are of
+    # that size in fp32 (ulp 2.4e-4 to 4.9e-4) and an occupancy exp(alpha +
+    # beta - ll) of size 1 carries their rounding, ~1e-3, into the gradient.
+    if not nll_err <= 2e-2 or not grad_err <= 1e-2:
+        raise AssertionError(f"F.ctc_loss and the recursion disagree: nll {nll_err}, "
+                             f"gradient {grad_err}")
+    return out
+
+
+def run_train_path(seed: int) -> dict:
+    dev = torch.device("cuda")
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_train")
+    shutil.rmtree(workdir, ignore_errors=True)
+    rng = np.random.default_rng(seed + 3)
+    batch = synthetic_train_batch(rng, B, T_VIDEO, dev)
+    raw_batch = synthetic_train_batch(rng, B, T_VIDEO, dev, augmentable=True)
+    out = {"shape": {"batch": B, "mel": [B, 3000, 80], "video": list(batch["video"].shape),
+                     "target_tokens": TARGET_TOKENS, "audio_lengths": AUDIO_FRAMES,
+                     "steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP, "precision": "bf16",
+                     "accumulate_grad_batches": 1}}
+    try:
+        out["dropout_0.1"], _ = fit_timed("dropout_0.1", seed, batch, workdir, {}, 12)
+        out["dropout_0"], trainer = fit_timed("dropout_0", seed, batch, workdir,
+                                              {"model.dropout": 0.0}, 15)
+        first, last = out["dropout_0"]["losses"][0], out["dropout_0"]["losses"][5]
+        if not last < first:
+            raise AssertionError(f"dropout 0 on a repeated batch: loss {last} at step 6 is not "
+                                 f"below {first} at step 1")
+        out["step_parts"] = step_breakdown(trainer, batch)
+        fa.reset_launches()
+        out["profile"] = profile(lambda: trainer.task.train_step(trainer.optimizer, batch,
+                                                                 trainer.generator), top=10)
+        if sum(out["profile"]["k1_launches_by_kernel"].values()) != 15:
+            raise AssertionError(f"profiled train step ran K1 "
+                                 f"{out['profile']['k1_launches_by_kernel']}, expected 15")
+        # the guard's synchronisation: the same step with and without it
+        guard = {}
+        for label, skip in (("guarded", True), ("unguarded", False), ("guarded_again", True)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(6):
+                trainer.task.train_step(trainer.optimizer, batch, trainer.generator,
+                                        skip_nonfinite=skip)
+            torch.cuda.synchronize()
+            guard[label + "_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 6
+        out["nonfinite_guard"] = guard
+        log("train step with and without the non-finite guard: " + json.dumps(guard))
+        del trainer
+        out["dropout_0_remat"], _ = fit_timed("dropout_0_remat", seed, batch, workdir,
+                                              {"model.dropout": 0.0,
+                                               "precision.rematerialize": True}, 18)
+        out["dropout_0.1_augment"], _ = fit_timed("dropout_0.1_augment", seed, raw_batch,
+                                                  workdir, {"augmentation.on_device": True}, 12)
+        out["augment_ms_per_step"] = (out["dropout_0.1_augment"]["train_ms_per_step"]
+                                      - out["dropout_0.1"]["train_ms_per_step"])
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["ctc"] = time_ctc(seed)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -430,6 +900,10 @@ def main() -> int:
               (("bfloat16", torch.bfloat16), ("float32", torch.float32)) for d in fa.HEAD_DIMS}
     check_end_to_end(args.seed)
     main_path = run_main_path(args.seed)
+    k1_grad = check_kernel_gradient(gen)
+    train_check = check_train_steps(args.seed)
+    train_path = run_train_path(args.seed)
+    train_path["fp32_card_vs_cpu"] = train_check
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -448,8 +922,13 @@ def main() -> int:
           **{key: enc[key] for key in ("max_abs_err", "ms", "device_ms", "tflops",
                                        "bound_share", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "library_device_ms")},
-          "route_by_head_dim": routes, "encoder": enc, "fusion": rows["fusion"]}
-    print(json.dumps({"kernels": [k1], "main_path": main_path, "card": smi}), flush=True)
+          "route_by_head_dim": routes, "encoder": enc, "fusion": rows["fusion"],
+          "launches_per_train_step": {name: train_path[name]["k1_launches_per_step"]
+                                      for name in ("dropout_0.1", "dropout_0",
+                                                   "dropout_0_remat")},
+          "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
+    print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
+                      "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -63,6 +63,7 @@ class AVWhisperNet(nn.Module):
         out, video_valid = self.trunk.fused_features(input_batch)
         return self.bridge(out), video_valid
 
+    @torch.no_grad()
     def ctc_logits(self, input_batch: tuple) -> torch.Tensor:
         """The trunk's frame-wise linear head."""
         return self.trunk(input_batch)

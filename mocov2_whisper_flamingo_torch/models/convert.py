@@ -164,13 +164,9 @@ def _random_frontend(init: _Init) -> dict:
             "stem_bn": init.bn(64), "body": body}
 
 
-def random_jax_params(net, seed: int = 0) -> dict:
-    """A random parameter tree in the JAX ``AVWhisperNet`` layout for the
-    port model ``net`` (its configuration decides the shapes), drawn from
-    the same distributions as the JAX ``init``. Fusion gates start at 0."""
-    init = _Init(seed)
-    cfg = net.whisper_config
-    d, trunk = net.d_model, net.trunk
+def _random_trunk(trunk, init: _Init) -> dict:
+    cfg = trunk.whisper_config
+    d = trunk.d_model
     enc = {
         "conv1": init.conv1d(cfg.n_mels, cfg.d_model, 3),
         "conv2": init.conv1d(cfg.d_model, cfg.d_model, 3),
@@ -191,7 +187,7 @@ def random_jax_params(net, seed: int = 0) -> dict:
                    for _ in range(len(trunk.fusion.layers))],
         "ln_post": init.ln(d),
     }
-    tree_trunk = {
+    return {
         "whisper_encoder": enc,
         "audio_proj": init.linear(cfg.d_model, d),
         "audio_ln": init.ln(d),
@@ -201,6 +197,23 @@ def random_jax_params(net, seed: int = 0) -> dict:
         "fusion": fusion,
         "decoder": init.linear(d, trunk.vocab_size),
     }
+
+
+def random_avnet_params(net, seed: int = 0) -> dict:
+    """A random parameter tree in the JAX ``AVNet`` layout for the port's
+    ``AVNet`` ``net``, drawn from the same distributions as the JAX ``init``.
+    Fusion gates start at 0."""
+    return _random_trunk(net, _Init(seed))
+
+
+def random_jax_params(net, seed: int = 0) -> dict:
+    """A random parameter tree in the JAX ``AVWhisperNet`` layout for the
+    port model ``net`` (its configuration decides the shapes), drawn from
+    the same distributions as the JAX ``init``. Fusion gates start at 0."""
+    init = _Init(seed)
+    cfg = net.whisper_config
+    d = net.d_model
+    tree_trunk = _random_trunk(net.trunk, init)
     decoder = {
         "embed_tokens": {"embedding": init.normal((cfg.vocab_size, cfg.d_model))},
         "pos_embed": init.normal((cfg.max_target_positions, cfg.d_model), 0.01),
@@ -213,3 +226,31 @@ def random_jax_params(net, seed: int = 0) -> dict:
         "ln_post": init.ln(cfg.d_model),
     }
     return {"trunk": tree_trunk, "bridge": init.linear(d, cfg.d_model), "decoder": decoder}
+
+
+# -- the other direction, for the trainable leaves ---------------------------------
+
+
+def trainable_to_jax_tree(net) -> dict:
+    """The trainable parameters of a port ``AVNet`` as a nested tree of numpy
+    arrays in the JAX layout (lists for ``layers``, scalar gates): the
+    trainable part of the JAX ``AVNet`` parameter tree. Every trainable leaf
+    is a linear kernel ``[d_in, d_out]``, a bias, a LayerNorm vector or a
+    scalar gate, all of which the two packages store alike."""
+    tree: dict = {}
+    for name, param in net.trainable_parameters():
+        node = tree
+        *path, leaf = name.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = param.detach().float().cpu().numpy()
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return listify(tree)

@@ -3,7 +3,9 @@
 Parameters are held in fp32 and cast to the policy's compute dtype at use;
 LayerNorm stays an fp32 island. Linear weights keep the JAX ``[d_in, d_out]``
 storage and are applied as ``x @ W``. Parameters are created zero-filled:
-the values come from the weight bridge (``models/convert.py``).
+the values come from the weight bridge (``models/convert.py``). They are
+created with ``requires_grad=False``; a model that trains turns it on for
+its trainable parameters (``AVNet``).
 """
 
 from __future__ import annotations
@@ -98,6 +100,17 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embedding[ids]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with an explicit generator (which must live on x's
+    device): ``x / (1 - rate)`` where kept, 0 elsewhere. The identity when
+    ``deterministic``, at rate 0 or without a generator."""
+    if deterministic or rate == 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

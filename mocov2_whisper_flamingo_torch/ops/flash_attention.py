@@ -20,8 +20,14 @@ valid key returns **0**. (The JAX XLA path returns mean(V) there instead;
 no such row occurs on the serving path, where every example has at least one
 valid video frame.)
 
-Eval only: the recompute backward of the JAX ``custom_vjp`` belongs to the
-training port.
+Under autograd the call goes through ``_FlashAttention``, the counterpart of
+the JAX ``custom_vjp``: the forward is the kernel, the backward recomputes
+the attention in plain torch ops (``_reference_attention``) from the saved
+q, k, v and mask and differentiates that. The recompute's softmax gives a
+row with no valid key uniform weights, so that row's dV (and dq, dk through
+the additive bias) is not zero although its forward output is: the JAX
+package has the same mismatch, and the port keeps it. A call whose q, k and
+v need no gradient launches the kernel directly.
 """
 
 from __future__ import annotations
@@ -182,16 +188,7 @@ def _launch(q, k, v, mask, scale: float, causal: bool,
     return out
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    kv_valid: torch.Tensor | None = None,
-                    scale: float | None = None,
-                    causal: bool = False) -> torch.Tensor:
-    """Attention over ``[B, Tq, H, Dh]`` queries and ``[B, Tk, H, Dh]``
-    keys/values; ``kv_valid`` is an optional ``[B, Tk]`` bool (True = valid).
-    Runs the CUDA kernel on CUDA tensors and the plain version on CPU
-    tensors; a row with no valid key returns 0."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _forward(q, k, v, kv_valid, scale: float, causal: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return plain_flash_attention(q, k, v, kv_valid, scale, causal)
     if q.device.type != "cuda":
@@ -199,3 +196,58 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, scale)
     return _launch(q, k, v, _mask_bytes(kv_valid, q.shape[0], k.shape[1], q.device),
                    scale, causal)
+
+
+def _reference_attention(q, k, v, kv_valid, scale: float, causal: bool) -> torch.Tensor:
+    """The function the backward differentiates (twin of the JAX package's
+    ``_reference_attention``): fp32 scores, the key mask as an additive
+    ``-1e30`` bias, causal offset ``tk - tq``, fp32 softmax, probabilities
+    cast to v's dtype before P.V."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if kv_valid is not None:
+        bias = torch.where(kv_valid.to(q.device), 0.0, NEG_INF).to(torch.float32)
+        logits = logits + bias[:, None, None, :]
+    if causal:
+        tq, tk = q.shape[1], k.shape[1]
+        row = torch.arange(tq, device=q.device)[:, None]
+        col = torch.arange(tk, device=q.device)[None, :]
+        logits = logits.masked_fill(~(col <= row + (tk - tq)), NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward, recompute backward; saves q, k, v and the mask only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, scale, causal):
+        ctx.save_for_backward(q, k, v, kv_valid)
+        ctx.scale, ctx.causal = scale, causal
+        return _forward(q, k, v, kv_valid, scale, causal)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        *qkv, kv_valid = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [x.detach().requires_grad_(need)
+                   for x, need in zip(qkv, ctx.needs_input_grad[:3])]
+            out = _reference_attention(*qkv, kv_valid, ctx.scale, ctx.causal)
+            wanted = [x for x in qkv if x.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
+        return (*(next(grads) if x.requires_grad else None for x in qkv), None, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_valid: torch.Tensor | None = None,
+                    scale: float | None = None,
+                    causal: bool = False) -> torch.Tensor:
+    """Attention over ``[B, Tq, H, Dh]`` queries and ``[B, Tk, H, Dh]``
+    keys/values; ``kv_valid`` is an optional ``[B, Tk]`` bool (True = valid).
+    Runs the CUDA kernel on CUDA tensors and the plain version on CPU
+    tensors; a row with no valid key returns 0. Differentiable in q, k and v
+    (recompute backward)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_valid, float(scale), causal)
+    return _forward(q, k, v, kv_valid, scale, causal)

@@ -1,0 +1,343 @@
+"""Training loop (counterpart of ``training/trainer.py``), on one device.
+
+- bf16 compute with fp32 parameters (the net's precision policy);
+- AdamW + OneCycle per-update schedule, clip 1.0, accumulation
+  (``training/optim.py``);
+- scalar streams with the reference's names: ``train/{ctc_loss,ce_loss,loss}``,
+  ``val/{ctc_loss,ce_loss,loss,wer}``, ``test/wer``, ``lr``, and per-layer
+  fusion gate values ``train_attn_gate_i`` / ``train_ff_gate_i``;
+- checkpoints: top-k on the validation loss plus a ``last`` pointer, written
+  with ``torch.save``; resume through ``fit(resume=...)``;
+- early stopping on the validation loss with the reference's patience;
+- a hyperparameter snapshot (``hparams.json`` / ``hparams.yaml``).
+
+Data and tensor parallelism are not ported yet: ``mesh.data`` or
+``mesh.model`` above 1 raises.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import time
+
+import numpy as np
+import torch
+
+from mocov2_whisper_flamingo_torch.device import resolve_device
+from mocov2_whisper_flamingo_torch.training.optim import make_optimizer, no_decay_mask
+from mocov2_whisper_flamingo_torch.training.task import AVSRTask
+from mocov2_whisper_flamingo_torch.utils.tb_writer import SummaryWriter
+from mocov2_whisper_flamingo_torch.utils.wer import wer as corpus_wer
+
+logger = logging.getLogger(__name__)
+
+
+class EarlyStopping:
+    """min-mode monitor with patience."""
+
+    def __init__(self, patience: int = 10, mode: str = "min"):
+        self.patience = patience
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.best = float("inf")
+        self.count = 0
+
+    def update(self, value: float) -> bool:
+        """Returns True when training should stop: at the patience-th
+        consecutive validation that did not improve."""
+        if self.sign * value < self.best:
+            self.best = self.sign * value
+            self.count = 0
+            return False
+        self.count += 1
+        return self.count >= self.patience
+
+
+class CheckpointManager:
+    """Top-k (on a monitored metric) + last checkpointing. A checkpoint is
+    one ``step_N.pt`` file holding ``{"params", "opt_state", "step"}``."""
+
+    def __init__(self, directory: str, save_top_k: int = 3, mode: str = "min"):
+        self.dir = os.path.abspath(directory)
+        os.makedirs(self.dir, exist_ok=True)
+        self.save_top_k = save_top_k
+        self.sign = 1.0 if mode == "min" else -1.0
+        self.kept: list[tuple[float, str]] = []
+        # An evicted checkpoint that was still the "last" pointer when it was
+        # evicted: its deletion waits until "last" moves on.
+        self._deferred_delete: str | None = None
+
+    def _last(self) -> dict:
+        with open(os.path.join(self.dir, "last.json")) as f:
+            return json.load(f)
+
+    def save(self, state: dict, step: int, metric: float | None = None) -> str:
+        path = os.path.join(self.dir, f"step_{step}.pt")
+        torch.save(state, path)
+        with open(os.path.join(self.dir, "last.json"), "w") as f:
+            json.dump({"path": path, "step": step}, f)
+        if (self._deferred_delete and self._deferred_delete != path
+                and not any(p == self._deferred_delete for _, p in self.kept)):
+            if os.path.exists(self._deferred_delete):
+                os.remove(self._deferred_delete)
+            self._deferred_delete = None
+        if metric is not None:
+            self.kept.append((self.sign * metric, path))
+            self.kept.sort(key=lambda kv: kv[0])
+            while len(self.kept) > self.save_top_k:
+                _, worst = self.kept.pop()
+                if worst == self._last()["path"]:
+                    self._deferred_delete = worst
+                elif os.path.exists(worst):
+                    os.remove(worst)
+        return path
+
+    def restore(self, path: str | None = None, map_location=None) -> dict:
+        """The state saved at ``path`` (default: the last one)."""
+        if path is None:
+            path = self._last()["path"]
+        return torch.load(path, map_location=map_location, weights_only=True)
+
+
+class Trainer:
+    """Compact trainer: ``fit(datamodule)`` then ``test(datamodule)``.
+
+    The datamodule provides ``train_dataloader()/val_dataloader()/
+    test_dataloader()`` yielding dict batches (numpy arrays or tensors) with
+    the reference collate keys. ``net`` must already live on ``device``,
+    which is the CUDA card unless the caller asks for the CPU.
+    """
+
+    def __init__(self, config, net, tokenizer, device: str | torch.device | None = "cuda"):
+        self.device = resolve_device(device)
+        if any(p.device.type != self.device.type for p in net.parameters()):
+            raise ValueError(f"the net does not live on the trainer's device {self.device}")
+        mesh = config.get("mesh", {})
+        if (mesh.get("data", -1) or 1) > 1 or (mesh.get("model", 1) or 1) > 1:
+            raise NotImplementedError(
+                "mesh.data / mesh.model above 1 (data parallelism as DDP, the tensor-parallel "
+                "rules of parallel/mesh.py) belong to the multi-card slice of the port and "
+                "are not ported yet; the trainer runs on one device")
+        if config["training"].get("frozen_weight_quant") == "int8":
+            raise NotImplementedError("training.frozen_weight_quant='int8' belongs to the int8 "
+                                      "slice of the port and is not ported yet")
+        self.config = config
+        self.net = net
+        self.tokenizer = tokenizer
+        augment_fn = None
+        if config.get("augmentation", {}).get("on_device"):
+            from mocov2_whisper_flamingo_torch.ops.augment import make_batch_augment
+
+            augment_fn = make_batch_augment(config, device=self.device)
+            logger.info("on-device train augmentation enabled "
+                        "(host loader emits raw mel / raw resized frames)")
+        self.task = AVSRTask(
+            net,
+            label_smoothing=config["training"]["label_smoothing"],
+            pad_to_ignore=bool(config["training"].get("pad_to_ignore", False)),
+            loss_mode=config["training"].get("loss_mode", "ctc_ce"),
+            augment_fn=augment_fn,
+        )
+        self.log_every = config["output"].get("log_every_n_steps", 100)
+        self.log_gates = bool(config["output"].get("log_gates", True))
+
+        out_cfg = config["output"]
+        os.makedirs(out_cfg["log_dir"], exist_ok=True)
+        run_dir = self._next_version_dir(os.path.join(out_cfg["log_dir"], "avsr_logs"))
+        self.writer = SummaryWriter(run_dir)
+        self._dump_hparams(run_dir)
+        self.ckpt = CheckpointManager(
+            out_cfg["checkpoint_dir"], out_cfg.get("save_top_k", 3),
+            out_cfg.get("monitor_mode", "min"))
+        self.early_stopping = EarlyStopping(
+            patience=config["training"].get("early_stopping_patience", 10),
+            mode=out_cfg.get("monitor_mode", "min"))
+
+        self.optimizer = None
+        self.schedule = None
+        self.generator = None
+        self.global_step = 0
+        # Optional per-step wall-clock trace (set to [] before fit to
+        # enable): one timestamp after each step. With the task's
+        # non-finite guard on, a step ends in a synchronisation, so the gaps
+        # are whole steps, data preparation included.
+        self.step_timestamps: list[float] | None = None
+
+    @staticmethod
+    def _next_version_dir(base: str) -> str:
+        os.makedirs(base, exist_ok=True)
+        existing = [int(d.split("_")[1]) for d in os.listdir(base)
+                    if d.startswith("version_") and d.split("_")[1].isdigit()]
+        version = max(existing, default=-1) + 1
+        path = os.path.join(base, f"version_{version}")
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def _dump_hparams(self, run_dir: str) -> None:
+        flat = {}
+        for section, params in self.config.items():
+            if isinstance(params, dict):
+                for k, v in params.items():
+                    if isinstance(v, (int, float, str, bool, type(None))):
+                        flat[f"{section}_{k}"] = v
+            elif isinstance(params, (int, float, str, bool)):
+                flat[section] = params
+        with open(os.path.join(run_dir, "hparams.json"), "w") as f:
+            json.dump(flat, f, indent=2, default=str)
+        # Lightning-style hparams.yaml twin: flat scalars only, so the
+        # hand-rolled emitter needs no yaml dependency.
+        with open(os.path.join(run_dir, "hparams.yaml"), "w") as f:
+            for key in sorted(flat):
+                value = flat[key]
+                if value is None:
+                    value = "null"
+                elif isinstance(value, bool):
+                    value = "true" if value else "false"
+                elif isinstance(value, str):
+                    value = json.dumps(value)
+                f.write(f"{key}: {value}\n")
+
+    # -- setup --------------------------------------------------------------------
+
+    def setup(self, total_steps: int) -> None:
+        """Build the optimizer over the trainable parameters and the
+        generator of the train-mode draws."""
+        training = self.config["training"]
+        if training.get("frozen_param_dtype") == "bf16":
+            self.net.cast_frozen_params(torch.bfloat16)
+        accum = int(training.get("accumulate_grad_batches", 1) or 1)
+        self.optimizer, self.schedule = make_optimizer(
+            training, max(total_steps // accum, 1), self.net.trainable_parameters(),
+            decay_mask=no_decay_mask if training.get("no_decay_groups") else None)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(training.get("seed", 0)))
+
+    def _put_batch(self, batch: dict) -> dict:
+        """Host batch -> tensors on the trainer's device (``target_text``
+        stays a list)."""
+        placed = {}
+        for key, value in batch.items():
+            if key == "target_text":
+                continue
+            if isinstance(value, np.ndarray):
+                value = torch.from_numpy(value)
+            placed[key] = value.to(self.device, non_blocking=True)
+        placed["target_text"] = batch.get("target_text", [])
+        return placed
+
+    def _state(self) -> dict:
+        return {"params": self.net.state_dict(), "opt_state": self.optimizer.state_dict(),
+                "step": self.global_step}
+
+    # -- loops ---------------------------------------------------------------------
+
+    def fit(self, datamodule, max_epochs: int | None = None, max_steps: int | None = None,
+            resume: str | None = None):
+        """Train ``self.net`` in place and return it. ``resume``: a
+        checkpoint path, or ``"last"``."""
+        train_loader = datamodule.train_dataloader()
+        epochs = max_epochs or self.config["training"]["epochs"]
+        steps_per_epoch = getattr(train_loader, "__len__", lambda: 100)()
+        total = max_steps or epochs * max(steps_per_epoch, 1)
+
+        self.setup(total)
+        if resume:
+            restored = self.ckpt.restore(None if resume == "last" else resume,
+                                         map_location=self.device)
+            self.net.load_state_dict(restored["params"])
+            self.optimizer.load_state_dict(restored["opt_state"])
+            self.global_step = int(restored["step"])
+            logger.info("resumed at step %d", self.global_step)
+
+        losses = None
+        for epoch in range(epochs):
+            if hasattr(train_loader, "set_epoch"):
+                train_loader.set_epoch(epoch)
+            t_epoch = time.time()
+            for batch in train_loader:
+                placed = self._put_batch(batch)
+                placed.pop("target_text", None)
+                losses = self.task.train_step(self.optimizer, placed, self.generator)
+                self.global_step += 1
+                if self.step_timestamps is not None:
+                    self.step_timestamps.append(time.perf_counter())
+                if max_steps and self.global_step >= max_steps:
+                    break
+                if self.global_step % self.log_every == 0:
+                    self._log_train(losses)
+            logger.info("epoch %d done in %.1fs (step %d)",
+                        epoch, time.time() - t_epoch, self.global_step)
+            if losses is not None:
+                self._log_train(losses)
+
+            val_metrics = self.validate(datamodule)
+            for name, value in val_metrics.items():
+                self.writer.add_scalar(f"val/{name}", value, self.global_step)
+            self.writer.flush()
+
+            # Full resumable state: params + optimizer state + step.
+            self.ckpt.save(self._state(), self.global_step, metric=val_metrics["loss"])
+            if self.early_stopping.update(val_metrics["loss"]):
+                logger.info("early stopping at epoch %d", epoch)
+                break
+            if max_steps and self.global_step >= max_steps:
+                break
+        return self.net
+
+    def _log_train(self, losses: dict) -> None:
+        for name in ("ctc_loss", "ce_loss", "loss"):
+            if name in losses:
+                self.writer.add_scalar(f"train/{name}", float(losses[name]), self.global_step)
+        if "skipped" in losses and float(losses["skipped"]):
+            self.writer.add_scalar("train/skipped_steps", 1.0, self.global_step)
+            logger.warning("step %d skipped (non-finite loss)", self.global_step)
+        accum = int(self.config["training"].get("accumulate_grad_batches", 1) or 1)
+        self.writer.add_scalar(
+            "lr", float(self.schedule(self.global_step // accum)), self.global_step)
+        if self.log_gates:
+            for i, layer in enumerate(self.net.fusion.layers):
+                self.writer.add_scalar(
+                    f"train_attn_gate_{i}", float(torch.tanh(layer.attn_gate.detach())), self.global_step)
+                self.writer.add_scalar(
+                    f"train_ff_gate_{i}", float(torch.tanh(layer.ff_gate.detach())), self.global_step)
+        self.writer.flush()
+
+    def _evaluate(self, loader) -> tuple[dict, list[str], list[str]]:
+        """Per-sample weighted loss totals, references and hypotheses."""
+        totals: dict[str, float] = {}
+        refs: list[str] = []
+        hyps: list[str] = []
+        n = 0
+        for batch in loader:
+            placed = self._put_batch(batch)
+            texts = placed.pop("target_text", [])
+            losses, preds = self.task.eval_step(placed)
+            # Per-sample weighting: batches vary in size, so a 1-row batch
+            # must not carry the weight of a 16-row one.
+            bs = len(texts) or int(placed["target_ids"].shape[0])
+            for k, v in losses.items():
+                totals[k] = totals.get(k, 0.0) + float(v) * bs
+            hyps.extend(self.task.decode_predictions(preds, self.tokenizer))
+            refs.extend(texts)
+            n += bs
+        return {k: v / max(n, 1) for k, v in totals.items()}, refs, hyps
+
+    def validate(self, datamodule) -> dict:
+        metrics, refs, hyps = self._evaluate(datamodule.val_dataloader())
+        metrics["wer"] = corpus_wer(refs, hyps) if refs else 1.0
+        return metrics
+
+    def test(self, datamodule) -> dict:
+        _, refs, hyps = self._evaluate(datamodule.test_dataloader())
+        metrics = {"wer": corpus_wer(refs, hyps) if refs else 1.0}
+        self.writer.add_scalar("test/wer", metrics["wer"], self.global_step)
+        self.writer.flush()
+        if self.config["output"].get("save_predictions") and refs:
+            # Pred:/Target: dump, one pair per sample.
+            path = os.path.join(os.path.dirname(self.writer.path), "predictions.txt")
+            with open(path, "w", encoding="utf-8") as f:
+                for pred, ref in zip(hyps, refs):
+                    f.write(f"Pred: {pred}\nTarget: {ref}\n")
+            logger.info("wrote %d predictions to %s", len(refs), path)
+        return metrics

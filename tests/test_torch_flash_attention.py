@@ -265,7 +265,169 @@ def test_check_row_stride_rule_applies_to_bf16_only(dtype, ok):
             fa._check(q, k, v)
 
 
-def test_attention_dropout_is_not_ported(rng):
+# -- attention-probability dropout (plain path) ----------------------------------------
+
+
+def _dropout_probe(rate, seed=3, b=2, tq=24, tk=40, h=2, d=16):
+    """Attention with v = identity columns reads the dropped probabilities back:
+    out[b, q, h, :] = probs[b, h, q, :d] when v[b, k, h, :] = e_k for k < d."""
+    rng = np.random.default_rng(1)
+    q, k, _ = (torch.from_numpy(x) for x in _qkv(rng, b, tq, tk, h, d))
+    v = torch.zeros((b, tk, h, d))
+    v[:, :d] = torch.eye(d)[None, :, None, :]
+    gen = torch.Generator().manual_seed(seed)
+    dropped = multi_head_attention(q, k, v, dropout_rate=rate, generator=gen)
+    clean = multi_head_attention(q, k, v)
+    return dropped, clean, gen
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_attention_dropout_keep_rate_and_scaling(rate):
+    dropped, clean, _ = _dropout_probe(rate, b=4, tq=64)
+    kept = dropped != 0
+    assert abs(kept.float().mean().item() - (1 - rate)) < 0.02  # 8192 draws: 3 sigma < 0.02
+    torch.testing.assert_close(dropped[kept], clean[kept] / (1 - rate), atol=1e-6, rtol=1e-6)
+
+
+def test_attention_dropout_draws_follow_the_generator_state():
+    a, _, gen = _dropout_probe(0.3, seed=3)
+    b, _, _ = _dropout_probe(0.3, seed=3)
+    c, _, _ = _dropout_probe(0.3, seed=4)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    state = gen.get_state()
+    assert not torch.equal(state, torch.Generator().manual_seed(3).get_state())  # it advanced
+
+
+@pytest.mark.parametrize("backend", ["plain", "flash"])
+def test_attention_dropout_needs_a_generator_and_a_rate(rng, backend):
+    """Without a generator (eval) or at rate 0 the call is deterministic, and
+    ``backend="flash"`` with active dropout takes the plain path (K1 never
+    materialises the probabilities), as the JAX package's does."""
     q, k, v = (torch.from_numpy(x) for x in _qkv(rng))
-    with pytest.raises(NotImplementedError):
-        multi_head_attention(q, k, v, dropout_rate=0.1)
+    clean = multi_head_attention(q, k, v, backend=backend)
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(multi_head_attention(q, k, v, backend=backend, dropout_rate=0.1), clean)
+    assert torch.equal(multi_head_attention(q, k, v, backend=backend, dropout_rate=0.0,
+                                            generator=gen), clean)
+    dropped = multi_head_attention(q, k, v, backend=backend, dropout_rate=0.5, generator=gen)
+    gen2 = torch.Generator().manual_seed(0)
+    plain = multi_head_attention(q, k, v, backend="plain", dropout_rate=0.5, generator=gen2)
+    assert torch.equal(dropped, plain) and not torch.equal(dropped, clean)
+
+
+def test_unknown_backend_is_refused(rng):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng))
+    with pytest.raises(ValueError, match="unknown attention backend"):
+        multi_head_attention(q, k, v, backend="xla")
+
+
+# -- K1 under autograd -------------------------------------------------------------------
+
+GRAD_ATOL = 2e-5  # fp32: the same recompute, other summation orders
+# bf16: dq/dk/dv are rounded to bf16 (ulp 2^-8 at 1, gradients here reach ~4) and
+# the recompute's P is rounded to bf16 before P.V in both packages.
+GRAD_BF16_ATOL = 6e-2
+
+GRAD_CASES = {
+    "unmasked": dict(shape=(2, 24, 40, 2, 16), lens=None, causal=False),
+    "key_padding": dict(shape=(2, 24, 40, 2, 16), lens=(25, 10), causal=False),
+    "causal": dict(shape=(2, 16, 16, 2, 16), lens=None, causal=True),
+    "causal_masked": dict(shape=(2, 13, 27, 2, 16), lens=(27, 20), causal=True),
+    "fully_masked_row": dict(shape=(2, 8, 12, 2, 16), lens=(12, 0), causal=False),
+}
+
+
+def _jax_grads(q, k, v, valid, causal, cot, dtype=jnp.float32):
+    import jax
+    from mocov2_whisper_flamingo_tpu.ops.flash_attention import flash_attention as jflash
+
+    def loss(q_, k_, v_):
+        out = jflash(q_, k_, v_, kv_valid=None if valid is None else jnp.asarray(valid),
+                     causal=causal, block_q=8, block_k=8)
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(cot))
+
+    with pltpu.force_tpu_interpret_mode():
+        grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x, dtype) for x in (q, k, v)))
+    return [np.asarray(g, np.float32) for g in grads]
+
+
+def _port_grads(q, k, v, valid, causal, cot, dtype=torch.float32, permuted=False):
+    leaves = [torch.from_numpy(x).to(dtype).requires_grad_() for x in (q, k, v)]
+    mask = None if valid is None else torch.from_numpy(valid)
+    out = fa.flash_attention(*leaves, kv_valid=mask, causal=causal)
+    assert out.grad_fn is not None and type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    if permuted:  # the cotangent reaches the Function as a non-contiguous view
+        loss = (out.permute(0, 2, 1, 3).float() * torch.from_numpy(cot).permute(0, 2, 1, 3)).sum()
+    else:
+        loss = (out.float() * torch.from_numpy(cot)).sum()
+    loss.backward()
+    return out, [x.grad.float().numpy() for x in leaves]
+
+
+@pytest.mark.parametrize("case", sorted(GRAD_CASES))
+def test_gradients_match_jax_custom_vjp(rng, case):
+    spec = GRAD_CASES[case]
+    b, tq, tk, h, d = spec["shape"]
+    q, k, v = _qkv(rng, b, tq, tk, h, d)
+    cot = rng.standard_normal((b, tq, h, d)).astype(np.float32)
+    valid = None
+    if spec["lens"] is not None:
+        valid = np.arange(tk)[None, :] < np.asarray(spec["lens"])[:, None]
+    out, ours = _port_grads(q, k, v, valid, spec["causal"], cot)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  _port(q, k, v, valid, spec["causal"]).numpy())
+    for g, ref in zip(ours, _jax_grads(q, k, v, valid, spec["causal"], cot)):
+        np.testing.assert_allclose(g, ref, atol=GRAD_ATOL, rtol=0)
+
+
+def test_fully_masked_row_has_zero_output_but_nonzero_dv(rng):
+    """Pinned mismatch, as in the JAX package: the forward returns 0 for a row
+    with no valid key, the recompute's softmax gives that row uniform weights,
+    so its dV is the mean cotangent, not 0."""
+    q, k, v = _qkv(rng, 2, 8, 12, 2, 16)
+    valid = np.arange(12)[None, :] < np.array([12, 0])[:, None]
+    cot = rng.standard_normal((2, 8, 2, 16)).astype(np.float32)
+    out, (dq, dk, dv) = _port_grads(q, k, v, valid, False, cot)
+    assert bool((out[1] == 0).all())
+    np.testing.assert_allclose(dv[1], np.broadcast_to(cot[1].sum(0) / 12, dv[1].shape),
+                               atol=GRAD_ATOL, rtol=0)
+    jdq, jdk, jdv = _jax_grads(q, k, v, valid, False, cot)
+    assert np.abs(jdv[1]).max() > 1e-2
+    np.testing.assert_allclose(dv, jdv, atol=GRAD_ATOL, rtol=0)
+
+
+def test_gradients_bf16(rng):
+    q, k, v = _qkv(rng, 2, 16, 24, 2, 16)
+    rnd = lambda x: np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+    q, k, v = rnd(q), rnd(k), rnd(v)
+    cot = rnd(rng.standard_normal((2, 16, 2, 16)).astype(np.float32))
+    valid = np.arange(24)[None, :] < np.array([24, 9])[:, None]
+    out, ours = _port_grads(q, k, v, valid, False, cot, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    for g, ref in zip(ours, _jax_grads(q, k, v, valid, False, cot, jnp.bfloat16)):
+        np.testing.assert_allclose(g, ref, atol=GRAD_BF16_ATOL, rtol=0)
+
+
+def test_gradients_with_a_noncontiguous_cotangent(rng):
+    q, k, v = _qkv(rng, 2, 24, 40, 2, 16)
+    cot = rng.standard_normal((2, 24, 2, 16)).astype(np.float32)
+    _, direct = _port_grads(q, k, v, None, False, cot)
+    _, permuted = _port_grads(q, k, v, None, False, cot, permuted=True)
+    for a, b in zip(direct, permuted):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+
+
+def test_only_the_inputs_that_need_it_get_a_gradient(rng):
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng))
+    v.requires_grad_()
+    fa.flash_attention(q, k, v).sum().backward()
+    assert q.grad is None and k.grad is None and v.grad is not None
+
+
+def test_no_autograd_node_without_a_gradient_to_take(rng):
+    """The serving path pays for no autograd bookkeeping."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv(rng))
+    assert fa.flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``mocov2_whisper_flamingo_torch`` (nor
-``chip_smoke.py``, nor the card-only kernel tests) imports JAX or the JAX
+``chip_smoke.py``, ``k1_ablation.py``, nor the card-only kernel tests) imports JAX or the JAX
 package, and its entry points default to the CUDA card, refusing to fall
 back to the CPU silently."""
 
@@ -11,7 +11,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mocov2_whisper_flamingo_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_kernels_cuda.py"]
+    ROOT / "chip_smoke.py", ROOT / "k1_ablation.py",
+    ROOT / "tests" / "test_torch_kernels_cuda.py"]
 FORBIDDEN = ("jax", "jaxlib", "mocov2_whisper_flamingo_tpu")
 
 
@@ -50,3 +51,21 @@ def test_entry_points_default_to_cuda():
         AVWhisperNet(modelargs=(32, 4, 2, 3000, 128, 0.0), vocab_size=64,
                      whisper_name="whisper-tiny")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_trainer_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from mocov2_whisper_flamingo_torch.config import get_config
+    from mocov2_whisper_flamingo_torch.models.av_net import AVNet
+    from mocov2_whisper_flamingo_torch.training.trainer import Trainer
+    from mocov2_whisper_flamingo_torch.utils.tokenizer import ByteTokenizer
+
+    net = AVNet("audiovisual", None, 96, (32, 4, 2, 3000, 128, 0.0), 64,
+                whisper_name="whisper-tiny", device="cpu")
+    config = get_config({"output.checkpoint_dir": str(tmp_path / "ckpt"),
+                         "output.log_dir": str(tmp_path / "logs")})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(config, net, ByteTokenizer())
+    assert not (tmp_path / "logs").exists()  # refused before anything was written
+    assert Trainer(config, net, ByteTokenizer(), device="cpu").device.type == "cpu"

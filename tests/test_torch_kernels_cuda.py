@@ -134,3 +134,48 @@ def test_causal_rows_before_the_first_key_are_zero():
     assert bool((out[:, :200] == 0).all())
     ref = fa.plain_flash_attention(q, k, v, causal=True)
     assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("shape,lens,causal", [
+    ((4, 400, 400, 8, 64), (400, 317, 64, 1), False),
+    ((2, 130, 400, 2, 64), (400, 300), True),
+    ((2, 70, 90, 3, 32), None, False),
+])
+def test_autograd_wrapper_on_the_card(shape, lens, causal, dtype, tol):
+    """Through the autograd wrapper the forward is the kernel's, bit for
+    bit, one launch; dq, dk, dv (recompute in torch ops, from a
+    non-contiguous cotangent) agree with autograd through the plain version
+    within ``tol`` of the largest reference gradient (or of 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, tq, tk, h, d = shape
+    q, k, v = _cuda_qkv(shape, dtype)
+    mask = _cuda_mask(lens, tk)
+    cot = torch.randn((b, h, tq, d), generator=torch.Generator().manual_seed(1)).to("cuda", dtype)
+    direct = fa.flash_attention(q, k, v, kv_valid=mask, causal=causal)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = fa.launches
+    out = fa.flash_attention(*leaves, kv_valid=mask, causal=causal)
+    assert fa.launches == before + 1 and torch.equal(out, direct)
+    grads = torch.autograd.grad(out.transpose(1, 2), leaves, cot)
+    assert fa.launches == before + 1  # the backward launches no kernel of the port
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref = fa.plain_flash_attention(*ref_leaves, kv_valid=mask, causal=causal)
+    for g, r in zip(grads, torch.autograd.grad(ref, ref_leaves, cot.transpose(1, 2))):
+        assert g.dtype == dtype
+        scale = max(1.0, r.float().abs().max().item())
+        assert (g.float() - r.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.cuda
+def test_cuda_call_without_a_gradient_builds_no_graph():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = _cuda_qkv((2, 130, 130, 4, 64), torch.bfloat16)
+    assert fa.flash_attention(q, k, v).grad_fn is None
+    q.requires_grad_()
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v).grad_fn is None
+    assert fa.flash_attention(q, k, v).grad_fn is not None

@@ -210,3 +210,70 @@ def test_gated_fusion_matches_jax_with_nonzero_gates(rng):
         gated_off = port(torch.from_numpy(audio), torch.from_numpy(video),
                          torch.from_numpy(valid))
     assert (gated_off - ours).abs().max().item() > 1e-3
+
+
+# -- dropout -------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_dropout_keep_rate_and_scaling(rate):
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 256)).astype(np.float32))
+    gen = torch.Generator().manual_seed(1)
+    y = TL.dropout(x, rate, gen, deterministic=False)
+    kept = y != 0
+    assert abs(kept.float().mean().item() - (1 - rate)) < 0.015  # 16384 draws: 3 sigma < 0.012
+    torch.testing.assert_close(y[kept], x[kept] / (1 - rate), atol=1e-6, rtol=1e-6)
+    assert y.dtype == x.dtype
+    # inverted dropout keeps the expectation
+    assert abs(y.mean().item() - x.mean().item()) < 0.05
+
+
+def test_dropout_is_the_identity_when_deterministic_at_rate_0_or_without_a_generator(rng):
+    x = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
+    gen = torch.Generator().manual_seed(1)
+    start = gen.get_state()
+    assert TL.dropout(x, 0.5, gen, deterministic=True) is x
+    assert TL.dropout(x, 0.0, gen, deterministic=False) is x
+    assert TL.dropout(x, 0.5, None, deterministic=False) is x
+    assert torch.equal(gen.get_state(), start)  # nothing was drawn
+    ref = JL.dropout(jnp.asarray(x.numpy()), 0.5, None, deterministic=False)
+    np.testing.assert_array_equal(np.asarray(ref), x.numpy())
+
+
+def test_dropout_draws_follow_the_generator_state(rng):
+    x = torch.ones((16, 16))
+    gen = torch.Generator().manual_seed(7)
+    first = TL.dropout(x, 0.5, gen, deterministic=False)
+    second = TL.dropout(x, 0.5, gen, deterministic=False)
+    again = TL.dropout(x, 0.5, torch.Generator().manual_seed(7), deterministic=False)
+    assert torch.equal(first, again) and not torch.equal(first, second)
+    bf16 = TL.dropout(x.bfloat16(), 0.5, torch.Generator().manual_seed(7), deterministic=False)
+    assert bf16.dtype == torch.bfloat16 and torch.equal(bf16.float(), first)
+
+
+def test_gated_fusion_train_mode_without_draws_matches_jax_and_returns_gates(rng):
+    """``train=True`` with no generator (or at rate 0) is the eval function;
+    ``return_gates`` gives tanh of each gate under the JAX names."""
+    d, heads, layers = 32, 4, 2
+    tree = _np_tree(JFusion(d, heads, layers, dropout=0.1).init(jax.random.PRNGKey(5)))
+    for i, layer in enumerate(tree["layers"]):
+        layer["attn_gate"] = np.float32(0.5 + 0.2 * i)
+        layer["ff_gate"] = np.float32(-0.4)
+    audio = rng.standard_normal((3, 10, d)).astype(np.float32)
+    video = rng.standard_normal((3, 10, d)).astype(np.float32)
+    valid = np.arange(10)[None, :] < np.array([10, 7, 1])[:, None]
+    ref, ref_gates = JFusion(d, heads, layers, dropout=0.1).apply(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(audio), jnp.asarray(video),
+        jnp.asarray(valid), train=True, rng=None, return_gates=True)
+    port = load_jax_params(TFusion(d, heads, layers, dropout=0.1), tree)
+    args = (torch.from_numpy(audio), torch.from_numpy(video), torch.from_numpy(valid))
+    with torch.no_grad():
+        ours, gates = port(*args, train=True, generator=None, return_gates=True)
+        eval_out = port(*args)
+        dropped = port(*args, train=True, generator=torch.Generator().manual_seed(0))
+    _close(ours, ref)
+    assert torch.equal(ours, eval_out) and not torch.equal(dropped, eval_out)
+    assert sorted(gates) == sorted(ref_gates) == ["attn_gate_0", "attn_gate_1", "ff_gate_0",
+                                                  "ff_gate_1"]
+    for name in gates:
+        assert float(gates[name]) == pytest.approx(float(ref_gates[name]), abs=1e-6)
