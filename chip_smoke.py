@@ -18,6 +18,15 @@ width (BF16, B=4, 400 frames, 64 target tokens) with the config's dropout,
 with dropout 0, with activation checkpointing and with on-device
 augmentation, each timed per step, with one step split into its parts.
 
+Then the request server: the AV engine (``make_av_engine``, buckets 1 and 4)
+answers nine requests at full width and its rows are held against direct
+decodes of the same padded buckets, and an fp32 engine on the card against
+one on the CPU; the audio server (``WhisperASR`` behind ``TranscriptionServer``
+on a loopback port, logit rules on) answers sequential and concurrent HTTP
+requests; and the teacher-forced ``AVWhisperNet.decoder_logits`` runs the
+kernel's causal and cross-attention instantiations and is held against the
+cached decode step.
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -26,12 +35,16 @@ without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import base64
+import dataclasses
+import http.client
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -40,15 +53,21 @@ import torch.nn.functional as F
 
 from mocov2_whisper_flamingo_torch import train as train_entry
 from mocov2_whisper_flamingo_torch.config import get_config
+from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
 from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet
 from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
 from mocov2_whisper_flamingo_torch.models.convert import (
-    load_jax_params, random_avnet_params, random_jax_params)
+    load_jax_params, random_asr_params, random_avnet_params, random_jax_params)
+from mocov2_whisper_flamingo_torch.models.whisper import config_for
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import kernels
 from mocov2_whisper_flamingo_torch.ops import losses
 from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline, resize_bilinear
+from mocov2_whisper_flamingo_torch.serving import (
+    TranscriptionServer, canonical_wav, make_audio_engine, make_av_engine, pad_rows,
+    trim_at_eos)
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.training.trainer import Trainer
@@ -86,6 +105,18 @@ TRAIN_LOSS_ATOL = 2e-3
 TRAIN_PARAM_ATOL = 5e-5
 # The training path's headline configuration.
 TRAIN_STEPS, TRAIN_WARMUP, TARGET_TOKENS, AUDIO_FRAMES = 8, 2, 64, 400
+# The request server: the AV engine's bucket ladder and traffic, the audio
+# server's budget and ladder, the teacher-forced target length.
+AV_BUCKETS, AV_REQUESTS = (1, 4), 9
+ASR_BUCKETS, ASR_MAX_TOKENS, ASR_SEQUENTIAL, ASR_CONCURRENT = (1, 2, 4), 64, 3, 6
+ASR_PREFIX = [50258, 50278, 50359]  # sot, vi, transcribe: timestamps on
+NO_TIMESTAMPS, TIMESTAMP_BEGIN = 50363, 50364
+FORCED_TOKENS = 160
+# Teacher-forced fp32 logits against the cached decode step's, as a share of
+# the largest logit: the same fp32 products summed by other kernels (one
+# [T, Tk] attention against T single-query ones).
+FORCED_LOGIT_RTOL = 1e-4
+WAIT_S = 300  # every future, join and HTTP call of the serving phases
 
 
 def log(msg: str) -> None:
@@ -140,17 +171,24 @@ def device_ms(fn, iters: int = 20) -> tuple[float, float]:
     return sum(kernels_us) / iters / 1e3, len(kernels_us) / iters
 
 
-def attention_flops(b, tq, tk, h, d) -> int:
-    return 4 * b * h * tq * tk * d
+def attention_flops(b, tq, tk, h, d, causal: bool = False) -> int:
+    """4*B*H*Dh operations for every (query, key) pair the function needs:
+    all Tq*Tk of them, or under the causal mask (offset Tk - Tq) the pairs
+    with key <= query + Tk - Tq."""
+    pairs = tq * tk
+    if causal:
+        pairs = sum(min(max(row + tk - tq + 1, 0), tk) for row in range(tq))
+    return 4 * b * h * pairs * d
 
 
-def attention_bound_ms(b, tq, tk, h, d, dtype, masked: bool) -> tuple[float, str]:
+def attention_bound_ms(b, tq, tk, h, d, dtype, masked: bool,
+                       causal: bool = False) -> tuple[float, str]:
     """Least time for the call: q, k, v read once and o written once (plus
-    the [B, Tk] mask bytes), against 4*B*H*Tq*Tk*Dh operations at the
-    dtype's peak. Returns (ms, 'bytes' | 'operations')."""
+    the [B, Tk] mask bytes), against the operations of ``attention_flops``
+    at the dtype's peak. Returns (ms, 'bytes' | 'operations')."""
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * tq * h * d + 2 * b * tk * h * d) * elt + (b * tk if masked else 0)
-    flops = attention_flops(b, tq, tk, h, d)
+    flops = attention_flops(b, tq, tk, h, d, causal)
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS[dtype] * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
@@ -189,6 +227,13 @@ def check_kernel(gen) -> dict:
             ("dh32", (2, 70, 90, 3, 32), dtype, (90, 5), False),
             ("dh128_causal", (2, 100, 130, 2, 128), dtype, None, True),
             ("dh128_masked", (2, 300, 257, 2, 128), dtype, (257, 0), False),
+            # the request server's shapes: the encoder at the smallest and the
+            # widest bucket, the teacher-forced causal and cross attentions
+            ("encoder_b1", (1, 1500, 1500, 12, 64), dtype, None, False),
+            ("encoder_b16", (16, 1500, 1500, 12, 64), dtype, None, False),
+            ("forced_causal", (4, 160, 160, 12, 64), dtype, None, True),
+            ("forced_cross_audio", (4, 160, 1500, 12, 64), dtype, None, False),
+            ("forced_cross_av", (4, 160, 400, 12, 64), dtype, (400, 317, 64, 1), False),
         ]
     errs = {}
     for name, (b, tq, tk, h, d), dtype, lens, causal in cases:
@@ -217,30 +262,39 @@ def check_kernel(gen) -> dict:
             errs[tag] = err
 
     rows = {}
-    for name, (b, t, h, d), lens in (("encoder", (4, 1500, 12, 64), None),
-                                     ("fusion", (4, 400, 8, 64), (400, 317, 64, 1))):
-        q, k, v = qkv(gen, b, t, t, h, d, torch.bfloat16, dev)
-        mask = None if lens is None else valid_mask(lens, t, dev)
+    for name, (b, tq, tk, h, d), lens, causal in (
+            ("encoder", (4, 1500, 1500, 12, 64), None, False),
+            ("fusion", (4, 400, 400, 8, 64), (400, 317, 64, 1), False),
+            ("encoder_b1", (1, 1500, 1500, 12, 64), None, False),
+            ("encoder_b16", (16, 1500, 1500, 12, 64), None, False),
+            ("forced_causal", (4, 160, 160, 12, 64), None, True),
+            ("forced_cross_audio", (4, 160, 1500, 12, 64), None, False),
+            ("forced_cross_av", (4, 160, 400, 12, 64), (400, 317, 64, 1), False)):
+        q, k, v = qkv(gen, b, tq, tk, h, d, torch.bfloat16, dev)
+        mask = None if lens is None else valid_mask(lens, tk, dev)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa_mask = None if mask is None else mask[:, None, None, :]
-        kernel = lambda: fa.flash_attention(q, k, v, kv_valid=mask)
-        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask)
+        kernel = lambda: fa.flash_attention(q, k, v, kv_valid=mask, causal=causal)
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask,
+                                                         is_causal=causal)
         wall_ms = cuda_ms(kernel, 50)
         dev_ms, per_call = device_ms(kernel)
         if per_call != 1:
             raise AssertionError(f"K1 {name}: {per_call} device kernels per call, expected 1")
         # The Hopper kernel with each block size it can take, beside the one chosen.
-        mask_bytes = fa._mask_bytes(mask, b, t, dev)
-        by_consumers = {n: device_ms(lambda: fa._launch(q, k, v, mask_bytes, d ** -0.5, False,
+        mask_bytes = fa._mask_bytes(mask, b, tk, dev)
+        by_consumers = {n: device_ms(lambda: fa._launch(q, k, v, mask_bytes, d ** -0.5, causal,
                                                         consumers=n))[0] for n in (2, 3)}
-        plain_ms = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, kv_valid=mask), 10)
+        plain_ms = cuda_ms(lambda: fa.plain_flash_attention(q, k, v, kv_valid=mask,
+                                                            causal=causal), 10)
         library_ms = cuda_ms(library, 50)
         library_dev_ms, library_kernels = device_ms(library)
-        bound_ms, bound_by = attention_bound_ms(b, t, t, h, d, torch.bfloat16, mask is not None)
-        tflops = attention_flops(b, t, t, h, d) / (dev_ms * 1e-3) / 1e12
-        consumers = fa.consumer_groups(d, t, b * h, torch.cuda.get_device_properties(dev)
+        bound_ms, bound_by = attention_bound_ms(b, tq, tk, h, d, torch.bfloat16,
+                                                mask is not None, causal)
+        tflops = attention_flops(b, tq, tk, h, d, causal) / (dev_ms * 1e-3) / 1e12
+        consumers = fa.consumer_groups(d, tq, b * h, torch.cuda.get_device_properties(dev)
                                        .multi_processor_count)
-        rows[name] = {"shape": [b, t, h, d], "dtype": "bfloat16",
+        rows[name] = {"shape": [b, tq, tk, h, d], "causal": causal, "dtype": "bfloat16",
                       "kernel": fa.route(torch.bfloat16, d), "consumers": consumers,
                       "device_ms_by_consumers": by_consumers, "ms": wall_ms,
                       "device_ms": dev_ms, "tflops": tflops,
@@ -249,7 +303,8 @@ def check_kernel(gen) -> dict:
                       "library_device_ms": library_dev_ms,
                       "library_kernels_per_call": library_kernels,
                       "max_abs_err": errs[f"{name}/bfloat16"]}
-        log(f"K1 {name} [{b},{t},{h},{d}] bf16 ({rows[name]['kernel']}, {consumers} consumer "
+        log(f"K1 {name} [{b},{tq},{tk},{h},{d}]{' causal' if causal else ''} bf16 "
+            f"({rows[name]['kernel']}, {consumers} consumer "
             f"warpgroups): device_ms {dev_ms:.4f} ({tflops:.1f} TFLOP/s, "
             f"{100 * bound_ms / dev_ms:.1f} % of the bound {bound_ms * 1e3:.2f} us by "
             f"{bound_by}) wall_ms/call {wall_ms:.4f}; device_ms by consumer warpgroups "
@@ -872,6 +927,316 @@ def run_train_path(seed: int) -> dict:
     out["ctc"] = time_ctc(seed)
     return out
 
+# -- phase 8: the AV engine ------------------------------------------------------------------
+
+
+def av_payload(rng) -> tuple:
+    """One request in the AV engine's convention, on the host: 30 s of
+    log-mel, 400 raw uint8 88x88 lip frames, masks, the frame count."""
+    return (rng.standard_normal((3000, 80)).astype(np.float32), np.ones(3000, bool),
+            rng.integers(0, 255, (T_VIDEO, 3, 88, 88), dtype=np.uint8),
+            np.ones(T_VIDEO, bool), np.int32(T_VIDEO))
+
+
+def direct_av_rows(net, payloads, bucket: int, max_len: int) -> list[np.ndarray]:
+    """The engine's decode of one padded bucket, made by hand: the same
+    collate, preprocessing and ``net.beam`` call on the caller's stream."""
+    dev = next(net.parameters()).device
+    audio, audio_mask, video_u8, video_mask, video_len = (
+        torch.as_tensor(x).to(dev) for x in pad_rows(payloads, bucket))
+    video = eval_video_pipeline(video_u8, resize=64)
+    rows = net.beam((audio, audio_mask, video, video_mask, video_len), PREFIX,
+                    beam_size=BEAM, max_len=max_len, eos_id=EOS).sequences[:, 0].cpu().numpy()
+    return [trim_at_eos(row, EOS, len(PREFIX)) for row in rows[:len(payloads)]]
+
+
+def percentiles(values) -> dict:
+    return {"p50": float(np.median(values)), "max": float(np.max(values))}
+
+
+def launches_by_mask(counter) -> dict:
+    """K1 launches by (key mask, causal) over every block size, from the
+    wrapper's per-instantiation counts."""
+    out: dict[str, int] = {}
+    for name, n in counter.items():
+        mask, causal = re.search(r"(true|false), (true|false)>$", name).groups()
+        key = ("masked" if mask == "true" else "unmasked") + ("_causal" if causal == "true"
+                                                              else "")
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def run_av_engine(seed: int) -> dict:
+    """``make_av_engine`` at full width on the card: warm-up, nine requests
+    submitted at once, every row against a direct decode of its padded
+    bucket; then three requests in fp32 through a shallow engine on the card
+    and one on the CPU."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 4)
+    payloads = [av_payload(rng) for _ in range(AV_REQUESTS)]
+    net = build(seed, L.BF16, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' pools, so that "reserved" is this phase's
+    torch.cuda.reset_peak_memory_stats()
+    out = {"buckets": list(AV_BUCKETS), "requests": AV_REQUESTS, "max_len": MAX_TOKENS,
+           "reserved_gib_before_warmup": torch.cuda.memory_reserved() / 2**30}
+    with make_av_engine(net, PREFIX, beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS,
+                        buckets=AV_BUCKETS, max_wait_s=0.05) as eng:
+        t0 = time.perf_counter()
+        eng.warmup(payloads[0])
+        out["warmup_s"] = time.perf_counter() - t0
+        out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
+        eng.batch_log.clear()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        futures = [eng.submit(*p) for p in payloads]
+        results = [f.result(timeout=WAIT_S) for f in futures]
+        wall_s = time.perf_counter() - t0
+        launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
+        stats, batches = eng.stats(), list(eng.batch_log)
+    out["reserved_gib_after_traffic"] = torch.cuda.memory_reserved() / 2**30
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+
+    expected_batches = [4, 4, 1]
+    if [b["bucket"] for b in batches] != expected_batches or stats["batches"] != 3:
+        raise AssertionError(f"AV engine batched {[b['bucket'] for b in batches]}, expected "
+                             f"{expected_batches}; stats {stats}")
+    if stats["requests"] != AV_REQUESTS or sum(stats["bucket_counts"].values()) != 3:
+        raise AssertionError(f"AV engine stats do not add up: {stats}")
+    if stats["compiled_buckets"] != sorted(AV_BUCKETS):
+        raise AssertionError(f"warm-up marked {stats['compiled_buckets']}")
+    by_mask = launches_by_mask(by_kernel)
+    if launches != 45 or by_mask != {"unmasked": 36, "masked": 9}:
+        raise AssertionError(f"AV engine launched K1 {launches} times over 3 batches "
+                             f"({by_kernel}), expected 3 x (12 encoder + 3 fusion)")
+    # Each row against a direct decode of the same padded bucket (timed, as
+    # this run's yardstick for the engine's decode_ms).
+    start = 0
+    direct_ms: dict[str, list] = {}
+    for count in expected_batches:
+        group = payloads[start:start + count]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        direct = direct_av_rows(net, group, count, MAX_TOKENS)
+        direct_ms.setdefault(str(count), []).append((time.perf_counter() - t0) * 1e3)
+        for i, want in enumerate(direct):
+            got = results[start + i]
+            if got.bucket != count or not np.array_equal(got.tokens, want):
+                raise AssertionError(f"AV engine request {start + i} (bucket {got.bucket}) "
+                                     f"differs from a direct decode of its bucket:\n"
+                                     f"{got.tokens}\n{want}")
+        start += count
+    hidden = [max(0.0, min(nxt["t_dispatch"], cur["t_ready"]) - nxt["t_collate"]) * 1e3
+              for cur, nxt in zip(batches, batches[1:])]
+    out.update({
+        "wall_s": wall_s, "audio_seconds_per_second": AV_REQUESTS * SECONDS_PER_CLIP / wall_s,
+        "queue_ms": percentiles([r.queue_ms for r in results]),
+        "decode_ms": percentiles([r.decode_ms for r in results]),
+        "total_ms": percentiles([r.total_ms for r in results]),
+        "decode_ms_by_bucket": {str(b["bucket"]): [] for b in batches},
+        "direct_decode_ms_by_bucket": direct_ms,
+        "collate_ms_per_batch": [(b["t_dispatch"] - b["t_collate"]) * 1e3 for b in batches],
+        "h2d_host_ms_per_batch": [(b["t_copied"] - b["t_dispatch"]) * 1e3 for b in batches],
+        "h2d_device_ms_per_batch": [b["h2d_device_ms"] for b in batches],
+        "launch_ms_per_batch": [(b["t_launched"] - b["t_copied"]) * 1e3 for b in batches],
+        "device_tail_ms_per_batch": [(b["t_ready"] - b["t_launched"]) * 1e3 for b in batches],
+        "collate_ms_hidden_under_previous_batch": hidden,
+        "k1_launches_per_batch": launches // 3, "k1_launches_by_kernel": by_kernel,
+        "bucket_counts": stats["bucket_counts"], "rows_equal_direct_decode": True})
+    for b in batches:
+        out["decode_ms_by_bucket"][str(b["bucket"])].append((b["t_ready"] - b["t_dispatch"]) * 1e3)
+    log("AV engine bf16 buckets (1, 4), 9 requests: " + json.dumps(out))
+    del net
+
+    # fp32, shallow, three requests: the card's engine against the CPU's.
+    cfg = dataclasses.replace(config_for("whisper-small"), encoder_layers=2, decoder_layers=2)
+    rows = {}
+    tree = None
+    for device in ("cuda", "cpu"):
+        net = AVWhisperNet(modelargs=MODELARGS, vocab_size=VOCAB, precision=L.FP32,
+                           device=device, whisper_config=cfg)
+        if tree is None:
+            tree = random_jax_params(net, seed)
+            for layer in tree["trunk"]["fusion"]["layers"]:
+                layer["attn_gate"] = layer["ff_gate"] = np.float32(GATE)
+        load_jax_params(net, tree).eval()
+        fa.reset_launches()
+        with make_av_engine(net, PREFIX, beam_size=BEAM, max_len=24, eos_id=EOS, buckets=(4,),
+                            max_wait_s=0.2) as eng:
+            futures = [eng.submit(*p) for p in payloads[:3]]
+            rows[device] = [f.result(timeout=WAIT_S) for f in futures]
+        if device == "cuda" and fa.launches != 5:
+            raise AssertionError(f"the shallow fp32 engine launched K1 {fa.launches} times, "
+                                 "expected 5 (2 encoder + 3 fusion)")
+        del net
+    same = all(a.bucket == b.bucket == 4 and np.array_equal(a.tokens, b.tokens)
+               for a, b in zip(rows["cuda"], rows["cpu"]))
+    log(f"AV engine fp32 (2 + 2 Whisper layers, bucket 4, 24 tokens), 3 requests: tokens "
+        f"identical card vs CPU: {same}")
+    if not same:
+        raise AssertionError("fp32 AV engine tokens differ card vs CPU:\n"
+                             f"{[r.tokens for r in rows['cuda']]}\n"
+                             f"{[r.tokens for r in rows['cpu']]}")
+    out["fp32_card_vs_cpu_tokens_identical"] = True
+    return out
+
+
+# -- phase 9: the audio server over HTTP ----------------------------------------------------
+
+
+def http_json(address, method: str, path: str, body: dict | None = None) -> tuple[int, dict]:
+    conn = http.client.HTTPConnection(*address, timeout=WAIT_S)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def run_audio_server(seed: int) -> dict:
+    """``WhisperASR`` behind ``make_audio_engine`` and ``TranscriptionServer``
+    on a loopback port of this machine: health, three sequential requests
+    against direct B=1 decodes under the same logit rules, six concurrent
+    ones, the metrics."""
+    rng = np.random.default_rng(seed + 5)
+    asr = WhisperASR("whisper-small", precision=L.BF16, device="cuda")
+    load_jax_params(asr, random_asr_params(asr, seed)).eval()
+    rules = LogitRules(vocab_size=VOCAB, suppress=(1, 2, 7, 8, 9, 10, 14, 25, 50257 + 1),
+                       begin_suppress=(220, EOS), timestamp_begin=TIMESTAMP_BEGIN,
+                       no_timestamps_id=NO_TIMESTAMPS, eos_id=EOS)
+    n_req = ASR_SEQUENTIAL + ASR_CONCURRENT
+    wavs = [(0.1 * rng.standard_normal(16_000 * (2 + i))).astype(np.float32)
+            for i in range(n_req)]
+    out = {"buckets": list(ASR_BUCKETS), "max_len": ASR_MAX_TOKENS}
+    with make_audio_engine(asr, ASR_PREFIX, beam_size=BEAM, max_len=ASR_MAX_TOKENS, eos_id=EOS,
+                           logit_rules=rules, buckets=ASR_BUCKETS, max_wait_s=0.05) as eng:
+        t0 = time.perf_counter()
+        eng.warmup((canonical_wav(wavs[0]),))
+        out["warmup_s"] = time.perf_counter() - t0
+        with TranscriptionServer(eng, host="127.0.0.1", port=0) as srv:
+            address = srv.address
+            status, body = http_json(address, "GET", "/healthz")
+            if (status, body) != (200, {"ok": True}):
+                raise AssertionError(f"/healthz answered {status} {body}")
+            sequential = []
+            for i in range(ASR_SEQUENTIAL):
+                payload = ({"audio": wavs[i].tolist()} if i % 2 == 0 else
+                           {"audio_b64": base64.b64encode(wavs[i].tobytes()).decode()})
+                fa.reset_launches()
+                t0 = time.perf_counter()
+                status, body = http_json(address, "POST", "/v1/transcribe", payload)
+                http_ms = (time.perf_counter() - t0) * 1e3
+                if status != 200 or body["bucket"] != 1:
+                    raise AssertionError(f"request {i}: {status} {body}")
+                by_mask = launches_by_mask(fa.launches_by_kernel)
+                if fa.launches != 12 or by_mask != {"unmasked": 12}:
+                    raise AssertionError(f"an audio batch launched K1 {fa.launches} times "
+                                         f"({dict(fa.launches_by_kernel)}), expected 12")
+                want = asr.transcribe_tokens(
+                    canonical_wav(wavs[i])[None], ASR_PREFIX, beam_size=BEAM,
+                    max_len=ASR_MAX_TOKENS, eos_id=EOS, logit_rules=rules)[0].cpu().numpy()
+                want = trim_at_eos(want, EOS, len(ASR_PREFIX))
+                if body["tokens"] != [int(t) for t in want]:
+                    raise AssertionError(f"request {i} over HTTP differs from a direct B=1 "
+                                         f"decode:\n{body['tokens']}\n{want.tolist()}")
+                first = body["tokens"][len(ASR_PREFIX)]
+                if not TIMESTAMP_BEGIN <= first <= TIMESTAMP_BEGIN + 1:
+                    raise AssertionError(f"request {i}: the first generated token {first} "
+                                         "breaks the timestamp grammar")
+                if set(body["tokens"][len(ASR_PREFIX):]) & set(rules.suppress):
+                    raise AssertionError(f"request {i} emitted a suppressed token")
+                sequential.append({"http_ms": http_ms, **{k: body[k] for k in
+                                                           ("queue_ms", "decode_ms", "total_ms")}})
+            answers: dict[int, tuple] = {}
+
+            def client(i):
+                answers[i] = http_json(address, "POST", "/v1/transcribe",
+                                       {"audio_b64": base64.b64encode(wavs[i].tobytes()).decode()})
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(ASR_SEQUENTIAL, n_req)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=WAIT_S)
+            concurrent_s = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads) or len(answers) != ASR_CONCURRENT:
+                raise AssertionError("a concurrent HTTP request did not come back")
+            bad = {i: a for i, a in answers.items() if a[0] != 200}
+            if bad:
+                raise AssertionError(f"concurrent requests failed: {bad}")
+            status, metrics = http_json(address, "GET", "/metrics")
+            if status != 200 or metrics["requests"] != n_req:
+                raise AssertionError(f"/metrics counts {metrics}, expected {n_req} requests")
+            status, err = http_json(address, "POST", "/v1/transcribe", {"nope": 1})
+            if status != 400:
+                raise AssertionError(f"a bad body answered {status} {err}")
+    out.update({"sequential": sequential, "concurrent_wall_s": concurrent_s,
+                "concurrent_total_ms": percentiles([a[1]["total_ms"] for a in answers.values()]),
+                "concurrent_buckets": sorted(a[1]["bucket"] for a in answers.values()),
+                "bucket_counts": metrics["bucket_counts"], "latency_ms": metrics["latency_ms"],
+                "k1_launches_per_batch": 12})
+    log("audio server bf16 beam 5, 64 tokens, logit rules, over HTTP: " + json.dumps(out))
+    return out
+
+
+# -- phase 10: teacher forcing -----------------------------------------------------------------
+
+
+def run_teacher_forcing(seed: int) -> dict:
+    """``AVWhisperNet.decoder_logits`` at B=4 with 160 target tokens: K1's
+    launches by instantiation and the time per call in bf16; in fp32 the
+    logits at every position against the cached ``decode_step``'s."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 6)
+    mel, raw = make_batch(rng, B, T_VIDEO, dev)
+    target = torch.from_numpy(rng.integers(0, VOCAB, (B, FORCED_TOKENS))).to(dev)
+    net = build(seed, L.BF16, dev)
+    batch = preprocess(mel, raw)
+    net.decoder_logits(batch, target)  # warm-up
+    fa.reset_launches()
+    logits = net.decoder_logits(batch, target)
+    torch.cuda.synchronize()
+    launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
+    by_mask = launches_by_mask(by_kernel)
+    if launches != 39 or by_mask != {"unmasked": 12, "masked": 15, "unmasked_causal": 12}:
+        raise AssertionError(f"decoder_logits launched K1 {launches} times ({by_kernel}), "
+                             "expected 12 encoder + 3 fusion + 12 causal + 12 cross")
+    if tuple(logits.shape) != (B, FORCED_TOKENS, VOCAB) or logits.dtype != torch.float32 \
+            or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad teacher-forced logits: {logits.dtype} {tuple(logits.shape)}")
+    features, valid = net.encode(batch)
+    forward = lambda: net.decoder(target, features, encoder_valid=valid)
+    decoder_ms = cuda_ms(forward, 5)
+    decoder_device_ms, decoder_kernels = device_ms(forward, iters=5)
+    total_ms = cuda_ms(lambda: net.decoder_logits(batch, target), 5)
+    out = {"shape": [B, FORCED_TOKENS], "k1_launches": launches, "k1_launches_by_kernel": by_kernel,
+           "decoder_logits_ms": total_ms, "decoder_forward_ms": decoder_ms,
+           "decoder_forward_device_ms": decoder_device_ms,
+           "decoder_forward_kernels": decoder_kernels}
+    del net, logits, features
+
+    net = build(seed, L.FP32, dev)
+    features, valid = net.encode(batch)
+    decoder = net.decoder.prepare_decode_params()
+    full = decoder(target, features, encoder_valid=valid)
+    cache = decoder.init_cache(features, max_len=FORCED_TOKENS)
+    err = 0.0
+    for i in range(FORCED_TOKENS):
+        step, cache = decoder.decode_step(target[:, i:i + 1], cache, i, valid)
+        err = max(err, (step - full[:, i]).abs().max().item())
+    scale = full.abs().max().item()
+    out.update({"fp32_max_abs_err_vs_decode_step": err, "fp32_largest_logit": scale,
+                "fp32_atol": FORCED_LOGIT_RTOL * scale})
+    log("teacher forcing B=4, 160 tokens: " + json.dumps(out))
+    if not err <= FORCED_LOGIT_RTOL * scale:
+        raise AssertionError(f"fp32 teacher-forced logits differ from decode_step's by {err} "
+                             f"(atol {FORCED_LOGIT_RTOL * scale:.3g})")
+    return out
+
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -904,15 +1269,19 @@ def main() -> int:
     train_check = check_train_steps(args.seed)
     train_path = run_train_path(args.seed)
     train_path["fp32_card_vs_cpu"] = train_check
+    serve_path = {"av_engine": run_av_engine(args.seed),
+                  "audio_server": run_audio_server(args.seed),
+                  "teacher_forcing": run_teacher_forcing(args.seed)}
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
     by_kernel = main_path["profile"]["encode"]["k1_launches_by_kernel"]
     if sum(by_kernel.values()) != 15:
         raise AssertionError(f"profiled encode ran K1 {by_kernel}, expected 15 launches")
-    for name, row in rows.items():
+    for name in ("encoder", "fusion"):
+        row = rows[name]
         row["launches_per_batch"] = by_kernel.get(
-            f"attention_fwd_wgmma<{row['shape'][3]}, {row['consumers']}, "
+            f"attention_fwd_wgmma<{row['shape'][4]}, {row['consumers']}, "
             f"{'true' if name == 'fusion' else 'false'}, false>", 0)
     enc = rows["encoder"]
     k1 = {"name": "flash_attention", "route": "cuda",
@@ -922,13 +1291,16 @@ def main() -> int:
           **{key: enc[key] for key in ("max_abs_err", "ms", "device_ms", "tflops",
                                        "bound_share", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "library_device_ms")},
-          "route_by_head_dim": routes, "encoder": enc, "fusion": rows["fusion"],
+          "route_by_head_dim": routes, **rows,
+          "launches_per_audio_batch": serve_path["audio_server"]["k1_launches_per_batch"],
+          "launches_per_av_batch": serve_path["av_engine"]["k1_launches_per_batch"],
+          "launches_per_decoder_logits": serve_path["teacher_forcing"]["k1_launches"],
           "launches_per_train_step": {name: train_path[name]["k1_launches_per_step"]
                                       for name in ("dropout_0.1", "dropout_0",
                                                    "dropout_0_remat")},
           "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
     print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
-                      "card": smi}), flush=True)
+                      "serve_path": serve_path, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -45,6 +45,17 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def _length_denominators(max_len: int, length_penalty: float, device) -> list[torch.Tensor]:
+    """``gen_len ** length_penalty`` for ``gen_len`` in ``range(max_len)`` as
+    0-d fp32 tensors on ``device``, made from one ``arange`` so that no step
+    of the search copies a host scalar to the card. Each entry is the 0-d
+    power a step would take by itself (a vector power rounds some entries
+    differently)."""
+    lp = torch.tensor(float(length_penalty), dtype=torch.float32, device=device)
+    gen_lens = torch.arange(max_len, dtype=torch.float32, device=device)
+    return [gen_lens[g] ** lp for g in range(max_len)]
+
+
 @torch.no_grad()
 def beam_search(
     decoder,
@@ -57,6 +68,7 @@ def beam_search(
     encoder_valid: torch.Tensor | None = None,
     early_stopping: bool = False,
     logit_rules=None,
+    renorm_after_rules: bool = False,
     cache_quant: str | None = None,
     read_windows=None,
     cache_layout: str = "rows",
@@ -69,13 +81,20 @@ def beam_search(
     accepted for API compatibility and ignored: in the JAX package they
     choose how the TPU reads and lays out the self cache and leave the
     results unchanged, and this search always reads exactly the live prefix
-    of a row-aligned cache. ``logit_rules`` and ``cache_quant`` are not
-    ported yet.
+    of a row-aligned cache.
+
+    ``logit_rules``: an optional ``decode.logit_rules.LogitRules``, applied
+    to the log-softmaxed scores of each step where HF's logits processors
+    run in its beam loop. HF never renormalises after them, so accumulated
+    scores are deflated wherever a rule masked probability mass;
+    ``renorm_after_rules=True`` takes the log-softmax again after the rules
+    (openai's convention), which makes the scores true log probabilities
+    over the allowed set and can change the ranking across beams.
+    ``cache_quant`` is not ported yet (``ROADMAP.md`` Queue 1 item 11).
     """
-    if logit_rules is not None:
-        raise NotImplementedError("logit_rules are not ported yet")
     if cache_quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet")
+        raise NotImplementedError("quantized KV caches are not ported yet "
+                                  "(ROADMAP.md Queue 1 item 11)")
     if cache_layout not in ("rows", "bhjtd"):
         raise ValueError(f"unknown cache_layout {cache_layout!r}; expected 'rows' or 'bhjtd'")
     del read_windows
@@ -84,7 +103,7 @@ def beam_search(
     k2 = 2 * k
     prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
     n_prefix = int(prefix.shape[0])
-    lp = torch.tensor(float(length_penalty), dtype=torch.float32, device=dev)
+    denoms = _length_denominators(max_len, length_penalty, dev)
 
     cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=k)
     run_tokens = torch.full((b, k, max_len), eos_id, dtype=torch.long, device=dev)
@@ -104,6 +123,10 @@ def beam_search(
         cur = run_tokens.reshape(b * k, max_len)[:, i:i + 1]
         logits, cache = decoder.decode_step(cur, cache, i, encoder_valid)
         logp = torch.log_softmax(logits.float(), dim=-1)
+        if logit_rules is not None:
+            logp = logit_rules(logp, run_tokens.reshape(b * k, max_len), i + 1, n_prefix)
+            if renorm_after_rules:
+                logp = torch.log_softmax(logp, dim=-1)
         # Per-beam top-2K, then top-2K of the K*2K union: exact, since every
         # global top-2K candidate is inside its own beam's top-2K.
         s1, t1 = torch.topk(logp, k2, dim=-1)
@@ -117,7 +140,7 @@ def beam_search(
         cand_tokens[:, :, i + 1] = tok2k
 
         # ---- bank finished candidates into the hypothesis pool ----
-        denom = torch.tensor(float(i + 2 - n_prefix), device=dev) ** lp
+        denom = denoms[i + 2 - n_prefix]
         bank_ok = hits & can_bank & heur_ok[:, None]
         if early_stopping:
             pool_full = (pool_scores > NEG_INF / 2).all(dim=-1)

@@ -19,11 +19,13 @@ def greedy_decode(
     cache_quant: str | None = None,
 ) -> torch.Tensor:
     """Token ids ``[B, max_len]`` (prefix included, EOS-padded).
-    ``decoder`` is a prepared ``WhisperDecoder``."""
-    if logit_rules is not None:
-        raise NotImplementedError("logit_rules are not ported yet")
+    ``decoder`` is a prepared ``WhisperDecoder``. ``logit_rules``: an
+    optional ``decode.logit_rules.LogitRules`` applied to the step's logits
+    before the argmax (masking and forcing commute with it, so one rules
+    object serves greedy and beam decoding)."""
     if cache_quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet")
+        raise NotImplementedError("quantized KV caches are not ported yet "
+                                  "(ROADMAP.md Queue 1 item 11)")
     dev = encoder_out.device
     b = encoder_out.shape[0]
     prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
@@ -37,6 +39,8 @@ def greedy_decode(
         logits, cache = decoder.decode_step(tokens[:, i:i + 1], cache, i, encoder_valid)
         if i + 1 < n_prefix:  # within the forced prefix the next token is given
             continue
+        if logit_rules is not None:
+            logits = logit_rules(logits, tokens, i + 1, n_prefix)
         nxt = torch.where(done, eos_id, torch.argmax(logits, dim=-1))
         done = done | (nxt == eos_id)
         tokens[:, i + 1] = nxt

@@ -68,6 +68,13 @@ class AVWhisperNet(nn.Module):
         """The trunk's frame-wise linear head."""
         return self.trunk(input_batch)
 
+    def decoder_logits(self, input_batch: tuple, target_ids: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced decoder logits ``[B, L, V]`` (fp32) over the fused
+        features: the decoder's causal self-attention and its cross-attention
+        under the video validity mask run the flash-attention kernel."""
+        features, valid = self.encode(input_batch)
+        return self.decoder(target_ids, features, encoder_valid=valid)
+
     def greedy(self, input_batch: tuple, prefix_ids, max_len: int = 224,
                eos_id: int = 0, logit_rules=None,
                weight_quant: str | None = None) -> torch.Tensor:

@@ -14,13 +14,20 @@ only where the port applies torch ops:
   plus a bias, and the ``DHWIO`` stem becomes the folded 2D kernel of its
   time-unfolded form (kd-major, c_in-minor input channels).
 
-``random_jax_params`` makes a tree of the JAX layout from a seed with numpy,
-for runs that need full-size random weights without JAX.
+``random_jax_params`` (``AVWhisperNet``), ``random_avnet_params`` (``AVNet``)
+and ``random_asr_params`` (``WhisperASR``) make a tree of the JAX layout from a
+seed with numpy, for runs that need full-size random weights without JAX.
+
+``whisper_encoder_from_torch`` / ``whisper_decoder_from_torch`` turn an HF
+``WhisperModel`` state dict into the same JAX-layout numpy trees (the port's
+own copy of the JAX package's converters), so one tree loads into the JAX
+models and, through ``load_jax_params``, into the port's.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -164,10 +171,8 @@ def _random_frontend(init: _Init) -> dict:
             "stem_bn": init.bn(64), "body": body}
 
 
-def _random_trunk(trunk, init: _Init) -> dict:
-    cfg = trunk.whisper_config
-    d = trunk.d_model
-    enc = {
+def _random_whisper_encoder(cfg, init: _Init) -> dict:
+    return {
         "conv1": init.conv1d(cfg.n_mels, cfg.d_model, 3),
         "conv2": init.conv1d(cfg.d_model, cfg.d_model, 3),
         "pos_embed": L.sinusoid_position_encoding(cfg.max_source_positions, cfg.d_model),
@@ -177,6 +182,26 @@ def _random_trunk(trunk, init: _Init) -> dict:
                     "mlp_ln": init.ln(cfg.d_model)} for _ in range(cfg.encoder_layers)],
         "ln_post": init.ln(cfg.d_model),
     }
+
+
+def _random_whisper_decoder(cfg, init: _Init) -> dict:
+    return {
+        "embed_tokens": {"embedding": init.normal((cfg.vocab_size, cfg.d_model))},
+        "pos_embed": init.normal((cfg.max_target_positions, cfg.d_model), 0.01),
+        "layers": [{"self_attn": init.attn(cfg.d_model, k_bias=False),
+                    "self_attn_ln": init.ln(cfg.d_model),
+                    "cross_attn": init.attn(cfg.d_model, k_bias=False),
+                    "cross_attn_ln": init.ln(cfg.d_model),
+                    "mlp": init.mlp(cfg.d_model, cfg.d_ff),
+                    "mlp_ln": init.ln(cfg.d_model)} for _ in range(cfg.decoder_layers)],
+        "ln_post": init.ln(cfg.d_model),
+    }
+
+
+def _random_trunk(trunk, init: _Init) -> dict:
+    cfg = trunk.whisper_config
+    d = trunk.d_model
+    enc = _random_whisper_encoder(cfg, init)
     fusion = {
         "audio_proj": init.linear(d, d),
         "video_proj": init.linear(d, d),
@@ -214,18 +239,90 @@ def random_jax_params(net, seed: int = 0) -> dict:
     cfg = net.whisper_config
     d = net.d_model
     tree_trunk = _random_trunk(net.trunk, init)
-    decoder = {
-        "embed_tokens": {"embedding": init.normal((cfg.vocab_size, cfg.d_model))},
-        "pos_embed": init.normal((cfg.max_target_positions, cfg.d_model), 0.01),
-        "layers": [{"self_attn": init.attn(cfg.d_model, k_bias=False),
-                    "self_attn_ln": init.ln(cfg.d_model),
-                    "cross_attn": init.attn(cfg.d_model, k_bias=False),
-                    "cross_attn_ln": init.ln(cfg.d_model),
-                    "mlp": init.mlp(cfg.d_model, cfg.d_ff),
-                    "mlp_ln": init.ln(cfg.d_model)} for _ in range(cfg.decoder_layers)],
-        "ln_post": init.ln(cfg.d_model),
-    }
+    decoder = _random_whisper_decoder(cfg, init)
     return {"trunk": tree_trunk, "bridge": init.linear(d, cfg.d_model), "decoder": decoder}
+
+
+def random_asr_params(model, seed: int = 0) -> dict:
+    """A random parameter tree in the JAX ``WhisperASR`` layout
+    (``{"encoder": ..., "decoder": ...}``) for the port's ``WhisperASR``
+    ``model``, drawn from the same distributions as the JAX ``init``."""
+    init = _Init(seed)
+    return {"encoder": _random_whisper_encoder(model.config, init),
+            "decoder": _random_whisper_decoder(model.config, init)}
+
+
+# -- HF Whisper state dicts -> trees of the JAX layout ---------------------------
+
+
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _hf_linear(sd: Mapping, prefix: str) -> dict:
+    p = {"kernel": _np(sd[f"{prefix}.weight"]).T}
+    if f"{prefix}.bias" in sd:
+        p["bias"] = _np(sd[f"{prefix}.bias"])
+    return p
+
+
+def _hf_layer_norm(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _hf_conv1d(sd: Mapping, prefix: str) -> dict:
+    # torch Conv1d weight [out, in, k] -> the JAX layout [k, in, out]
+    return {"kernel": _np(sd[f"{prefix}.weight"]).transpose(2, 1, 0),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _hf_attn(sd: Mapping, prefix: str) -> dict:
+    # HF Whisper's k_proj has no bias
+    return {name: _hf_linear(sd, f"{prefix}.{name}_proj") for name in ("q", "k", "v", "out")}
+
+
+def _hf_layers(sd: Mapping, num_layers: int, cross: bool) -> list[dict]:
+    layers = []
+    for i in range(num_layers):
+        p = f"layers.{i}"
+        layer = {"self_attn": _hf_attn(sd, f"{p}.self_attn"),
+                 "self_attn_ln": _hf_layer_norm(sd, f"{p}.self_attn_layer_norm")}
+        if cross:
+            layer["cross_attn"] = _hf_attn(sd, f"{p}.encoder_attn")
+            layer["cross_attn_ln"] = _hf_layer_norm(sd, f"{p}.encoder_attn_layer_norm")
+        layer["mlp"] = {"fc1": _hf_linear(sd, f"{p}.fc1"), "fc2": _hf_linear(sd, f"{p}.fc2")}
+        layer["mlp_ln"] = _hf_layer_norm(sd, f"{p}.final_layer_norm")
+        layers.append(layer)
+    return layers
+
+
+def whisper_encoder_from_torch(state_dict: Mapping, num_layers: int) -> dict:
+    """HF ``WhisperModel`` (or its ``.encoder``) state dict -> the JAX
+    ``WhisperEncoder`` parameter tree (numpy)."""
+    sd = {k.removeprefix("model.").removeprefix("encoder."): v
+          for k, v in state_dict.items() if "decoder." not in k}
+    return {
+        "conv1": _hf_conv1d(sd, "conv1"),
+        "conv2": _hf_conv1d(sd, "conv2"),
+        "pos_embed": _np(sd["embed_positions.weight"]),
+        "layers": _hf_layers(sd, num_layers, cross=False),
+        "ln_post": _hf_layer_norm(sd, "layer_norm"),
+    }
+
+
+def whisper_decoder_from_torch(state_dict: Mapping, num_layers: int) -> dict:
+    """HF ``WhisperModel`` (or its ``.decoder``) state dict -> the JAX
+    ``WhisperDecoder`` parameter tree (numpy)."""
+    sd = {k.removeprefix("model.").removeprefix("decoder."): v
+          for k, v in state_dict.items() if "encoder." not in k or k.startswith("decoder.")}
+    return {
+        "embed_tokens": {"embedding": _np(sd["embed_tokens.weight"])},
+        "pos_embed": _np(sd["embed_positions.weight"]),
+        "layers": _hf_layers(sd, num_layers, cross=True),
+        "ln_post": _hf_layer_norm(sd, "layer_norm"),
+    }
 
 
 # -- the other direction, for the trainable leaves ---------------------------------

@@ -2,8 +2,10 @@
 
 Pre-LN transformer with HF ``WhisperModel`` structure. The encoder's
 self-attention runs the hand-written flash-attention kernel
-(``ops/flash_attention.py``); the decoder's single-query step uses the plain
-attention, as the JAX package forces its XLA path there.
+(``ops/flash_attention.py``), and so do the causal self-attention and the
+rectangular cross-attention of the decoder's teacher-forced ``forward``; the
+decoder's single-query step uses the plain attention, as the JAX package
+forces its XLA path there.
 
 Decode cache (``init_cache``): the self K/V of all layers are two stacked
 tensors ``[layers, rows, max_len, H, Dh]`` written in place at the step
@@ -165,6 +167,66 @@ class WhisperDecoder(nn.Module):
         self.ln_post = L.LayerNorm(cfg.d_model, device=device)
         self.vocab_table: torch.Tensor | None = None  # set by prepare_decode_params
 
+    # -- full-sequence (teacher forcing) ------------------------------------------
+
+    def _cross_attention_probs(self, layer: DecoderLayer, x: torch.Tensor, enc: torch.Tensor,
+                               encoder_valid: torch.Tensor | None
+                               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Cross-attention that materialises its probabilities: ``(output
+        [B, Tq, D], probs [B, H, Tq, Tk] fp32)``, an fp32 softmax over fp32
+        scores, for callers that need the weights themselves."""
+        ca, h = layer.cross_attn, self.config.n_heads
+        q, k, v = _split_heads(ca.q(x), h), _split_heads(ca.k(enc), h), _split_heads(ca.v(enc), h)
+        s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (q.shape[-1] ** -0.5)
+        if encoder_valid is not None:
+            s = s.masked_fill(~encoder_valid[:, None, None, :], NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        a = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v)
+        return ca.out(_merge_heads(a)), p
+
+    def forward(self, tokens: torch.Tensor, encoder_out: torch.Tensor,
+                encoder_valid: torch.Tensor | None = None,
+                return_cross_weights: bool = False):
+        """Teacher-forced pass: ``tokens [B, T]`` -> fp32 logits ``[B, T, V]``
+        (causal, no cache). The causal self-attention and the cross-attention
+        over ``encoder_out [B, Tk, D]`` (``encoder_valid [B, Tk]`` masks its
+        keys) both go through the flash-attention kernel.
+
+        ``return_cross_weights``: also return every layer's cross-attention
+        probabilities as ``[layers, B, heads, T, Tk]`` (fp32), the alignment
+        signal for word timestamps; that pass takes the explicit cross path,
+        whose output is the kernel path's up to rounding. Works on a decoder
+        with or without ``fuse_decode_params`` / ``prepare_decode_params``."""
+        cfg, prec = self.config, self.precision
+        x = self.embed_tokens(tokens) + self.pos_embed[: tokens.shape[1]]
+        x = prec.cast(x)
+        enc = prec.cast(encoder_out)
+        cross_ws = []
+        for layer in self.layers:
+            sa, ca = layer.self_attn, layer.cross_attn
+            y = layer.self_attn_ln(x)
+            q, k, v = sa.qkv(y).chunk(3, dim=-1) if sa.qkv is not None \
+                else (sa.q(y), sa.k(y), sa.v(y))
+            out = multi_head_attention(*(_split_heads(t, cfg.n_heads) for t in (q, k, v)),
+                                       causal=True, backend="flash")
+            x = x + sa.out(_merge_heads(out))
+            y = layer.cross_attn_ln(x)
+            if return_cross_weights:
+                h, w = self._cross_attention_probs(layer, y, enc, encoder_valid)
+                cross_ws.append(w)
+            else:
+                out = multi_head_attention(
+                    _split_heads(ca.q(y), cfg.n_heads), _split_heads(ca.k(enc), cfg.n_heads),
+                    _split_heads(ca.v(enc), cfg.n_heads), kv_valid=encoder_valid,
+                    backend="flash")
+                h = ca.out(_merge_heads(out))
+            x = x + h
+            x = x + layer.mlp(layer.mlp_ln(x))
+        logits = self._vocab_logits(self.ln_post(x))
+        if return_cross_weights:
+            return logits, torch.stack(cross_ws)
+        return logits
+
     # -- decode preparation ---------------------------------------------------
 
     def fuse_decode_params(self) -> "WhisperDecoder":
@@ -188,7 +250,8 @@ class WhisperDecoder(nn.Module):
         projection keeps an fp32 copy of the cast table so that logits are
         fp32 products of compute-dtype operands."""
         if weight_quant is not None:
-            raise NotImplementedError("int8 decode weights are not ported yet")
+            raise NotImplementedError("int8 decode weights are not ported yet "
+                                      "(ROADMAP.md Queue 1 item 11)")
         dec = self.fuse_decode_params()
         dt = self.precision.compute_dtype
         with torch.no_grad():

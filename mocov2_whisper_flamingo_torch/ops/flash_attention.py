@@ -32,6 +32,7 @@ v need no gradient launches the kernel directly.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -42,11 +43,15 @@ HEAD_DIMS = (32, 64, 128)
 ROUTES = {"fma_f32": 0, "mma_sync": 1, "wgmma_tma": 2}  # as csrc/flash_attention.cu numbers them
 
 launches = 0  # kernel launches since the last reset_launches()
+# The same launches by kernel instantiation, named as the CUDA source's
+# templates are: "wgmma_tma<Dh, consumer warpgroups, mask, causal>".
+launches_by_kernel: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
     global launches
     launches = 0
+    launches_by_kernel.clear()
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -185,6 +190,8 @@ def _launch(q, k, v, mask, scale: float, causal: bool,
                -3: "the CUDA driver has no cuTensorMapEncodeTiled"}.get(rc, f"CUDA error {rc}")
         raise RuntimeError(f"flash_attention kernel launch failed: {why}")
     launches += 1
+    launches_by_kernel[f"{kernel}<{d}, {consumers}, {str(mask is not None).lower()}, "
+                       f"{str(bool(causal)).lower()}>"] += 1
     return out
 
 

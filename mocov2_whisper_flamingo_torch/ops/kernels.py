@@ -5,7 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 libraries go to ``build/torch_kernels/`` at the root of the checkout, named
 by a hash of the sources, so an edited source is rebuilt on next use and an
 unchanged one is reused. All sources build in parallel, one ``nvcc`` each.
-Nothing here runs at import time.
+Building and loading hold one lock, so threads that reach a kernel's first
+use together (a caller of ``build_all`` beside a serving thread in ``load``)
+compile once and the others wait. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_lock = threading.Lock()
+_lock = threading.RLock()  # re-entrant: load() builds while it holds it
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -51,27 +53,28 @@ def build_all() -> dict[str, Path]:
     Returns ``{name: library path}``; raises with nvcc's output on failure.
     The ptxas report (registers, shared memory, spills) is kept beside each
     library as ``.log``."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {src.stem: _lib_path(src.stem) for src in sorted(CSRC.glob("*.cu"))}
-    procs = []
-    for name, lib in out.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, lib, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for name, lib, tmp, proc in procs:
-        log, _ = proc.communicate()
-        lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, lib)
-    if failed:
-        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
-    return out
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = {src.stem: _lib_path(src.stem) for src in sorted(CSRC.glob("*.cu"))}
+        procs = []
+        for name, lib in out.items():
+            if lib.exists():
+                continue
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs.append((name, lib, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, lib, tmp, proc in procs:
+            log, _ = proc.communicate()
+            lib.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+        return out
 
 
 def load(name: str) -> ctypes.CDLL:

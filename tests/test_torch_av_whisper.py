@@ -145,12 +145,46 @@ def test_beam_width_one_is_greedy(pair):
     np.testing.assert_array_equal(res.sequences[:, 0].numpy(), greedy.numpy())
 
 
-@pytest.mark.parametrize("kwargs", [dict(logit_rules=object()), dict(cache_quant="int8"),
+@pytest.mark.parametrize("kwargs", [dict(cache_quant="int8-cross"), dict(cache_quant="int8"),
                                     dict(weight_quant="int8")])
 def test_later_slice_options_raise(pair, kwargs):
     *_, tnet, _, tbatch = pair
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
         tnet.beam(tbatch, PREFIX, beam_size=2, max_len=6, eos_id=EOS, **kwargs)
+
+
+@pytest.mark.parametrize("length_penalty", [0.0, 0.6, 1.0, 1.3, 2.0])
+def test_length_denominators_are_the_per_step_powers(length_penalty):
+    """The table made before the loop holds, bit for bit, what each step
+    used to compute from a host scalar."""
+    from mocov2_whisper_flamingo_torch.decode.beam import _length_denominators
+
+    table = _length_denominators(160, length_penalty, "cpu")
+    lp = torch.tensor(float(length_penalty), dtype=torch.float32)
+    for gen_len, denom in enumerate(table):
+        assert denom.ndim == 0 and denom.dtype == torch.float32
+        assert torch.equal(denom, torch.tensor(float(gen_len)) ** lp)
+
+
+def test_beam_loop_makes_no_tensor_from_a_host_scalar(pair, monkeypatch):
+    """``torch.tensor`` calls do not grow with the number of steps: on the
+    card each one is a pageable host-to-device copy."""
+    *_, tnet, _, tbatch = pair
+    calls = []
+    real = torch.tensor
+
+    def counting(*args, **kwargs):
+        calls.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "tensor", counting)
+    counts = []
+    for max_len in (6, 12):
+        calls.clear()
+        tnet.beam(tbatch, PREFIX, beam_size=3, max_len=max_len, eos_id=EOS,
+                  length_penalty=0.6)
+        counts.append(len(calls))
+    assert counts[0] == counts[1]
 
 
 def test_random_params_have_the_jax_tree_layout(pair):

@@ -53,6 +53,32 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_asr_and_serve_tool_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card")
+    from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
+    from mocov2_whisper_flamingo_torch.tools import serve
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        WhisperASR("whisper-tiny")
+    assert WhisperASR("whisper-tiny", device="cpu").device.type == "cpu"
+    args = serve.parse_args(["--random-init", "--model", "whisper-tiny", "--no-warmup"])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.build_engine(args)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--random-init", "--model", "whisper-tiny", "--no-warmup"])
+
+
+def test_serving_modules_are_among_the_checked_files():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    pkg = "mocov2_whisper_flamingo_torch/"
+    assert {pkg + "serving/engine.py", pkg + "serving/batcher.py", pkg + "serving/server.py",
+            pkg + "serving/__init__.py", pkg + "tools/serve.py", pkg + "models/asr.py",
+            pkg + "ops/mel.py", pkg + "decode/logit_rules.py",
+            pkg + "decode/language.py"} <= names
+
+
 def test_trainer_defaults_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")

@@ -62,6 +62,13 @@ def _cuda_mask(lens, tk):
     ("dh32", (2, 130, 400, 2, 32), (400, 7), False, False),
     ("dh128", (2, 400, 130, 2, 128), (130, 1), False, False),
     ("dh128_causal", (2, 130, 400, 2, 128), None, True, False),
+    # the request server: the encoder at the smallest and the widest bucket,
+    # the teacher-forced decoder's causal and cross attentions
+    ("encoder_b1", (1, 1500, 1500, 12, 64), None, False, False),
+    ("encoder_b16", (16, 1500, 1500, 12, 64), None, False, False),
+    ("forced_causal", (4, 160, 160, 12, 64), None, True, True),
+    ("forced_cross_audio", (4, 160, 1500, 12, 64), None, False, False),
+    ("forced_cross_av", (4, 160, 400, 12, 64), (400, 317, 64, 1), False, False),
 ])
 def test_bf16_kernel_matches_plain_at_serving_and_edge_shapes(name, shape, lens, causal, strided):
     """bf16 K1 on its route (Hopper kernel at Dh 64/128, mma.sync at Dh 32)
@@ -179,3 +186,172 @@ def test_cuda_call_without_a_gradient_builds_no_graph():
     with torch.no_grad():
         assert fa.flash_attention(q, k, v).grad_fn is None
     assert fa.flash_attention(q, k, v).grad_fn is not None
+
+
+# -- the request server on the card ---------------------------------------------------
+
+
+def _tiny_asr(device, precision, seed=0):
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
+    from mocov2_whisper_flamingo_torch.models.convert import load_jax_params, random_asr_params
+    from mocov2_whisper_flamingo_torch.models.whisper import WhisperConfig
+
+    cfg = WhisperConfig(n_mels=80, d_model=128, encoder_layers=2, decoder_layers=2, n_heads=2,
+                        d_ff=256, vocab_size=96, max_source_positions=50,
+                        max_target_positions=32)
+    asr = WhisperASR(config=cfg, precision=precision, device=device)
+    tree = random_asr_params(asr, seed)
+    rng = np.random.default_rng(seed)
+    tree["decoder"]["pos_embed"] = 4.0 * rng.standard_normal(
+        tree["decoder"]["pos_embed"].shape).astype(np.float32)
+    return load_jax_params(asr, tree).eval()
+
+
+@pytest.mark.cuda
+def test_log_mel_on_the_card_matches_the_cpu_and_refuses_tf32():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.ops import mel
+
+    wav = 0.1 * torch.randn((2, 48_000), generator=torch.Generator().manual_seed(0))
+    for method in ("matmul", "fft"):
+        card = mel.whisper_log_mel(wav.cuda(), pad_to=64_000, method=method).cpu()
+        assert (card - mel.whisper_log_mel(wav, pad_to=64_000, method=method)).abs().max() <= 2e-4
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            mel.whisper_log_mel(wav.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+@pytest.mark.cuda
+def test_teacher_forced_decoder_on_the_card_launches_causal_and_cross_kernels():
+    """fp32, tiny: the card's logits (K1's causal and masked cross
+    instantiations) against the CPU's (the plain version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(1)
+    enc = torch.randn((3, 50, 128), generator=gen)
+    tokens = torch.randint(0, 96, (3, 20), generator=gen)
+    valid = torch.arange(50)[None, :] < torch.tensor([50, 31, 1])[:, None]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        dec = _tiny_asr(device, L.FP32).decoder
+        fa.reset_launches()
+        with torch.no_grad():
+            outs[device] = dec(tokens.to(device), enc.to(device), valid.to(device)).cpu()
+        if device == "cuda":
+            assert dict(fa.launches_by_kernel) == {"fma_f32<64, 0, false, true>": 2,
+                                                   "fma_f32<64, 0, true, false>": 2}
+    assert (outs["cuda"] - outs["cpu"]).abs().max() <= 1e-3 * outs["cpu"].abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_audio_engine_round_trip_on_the_card(precision):
+    """The engine on the card: warm-up on the engine's stream, co-batched
+    requests whose rows equal a direct decode of the same padded bucket,
+    rows handed over as CUDA tensors, and K1 launched by every batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.models import layers as L
+    from mocov2_whisper_flamingo_torch.serving import (
+        canonical_wav, make_audio_engine, pad_rows, trim_at_eos)
+
+    asr = _tiny_asr("cuda", L.BF16 if precision == "bf16" else L.FP32)
+    seconds, prefix, eos = 1.0, [1, 2], 3
+    rng = np.random.default_rng(0)
+    wavs = [canonical_wav(0.1 * rng.standard_normal(12_000 + 1000 * i), seconds=seconds)
+            for i in range(3)]
+    kw = dict(beam_size=3, max_len=12, eos_id=eos)
+
+    def direct(rows, bucket):
+        (wav,) = pad_rows([(w,) for w in rows], bucket)
+        toks = asr.transcribe_tokens(wav, prefix, pad_to=16_000, **kw).cpu().numpy()
+        return [trim_at_eos(t, eos, len(prefix)) for t in toks[:len(rows)]]
+
+    with make_audio_engine(asr, prefix, seconds=seconds, buckets=(1, 4), max_wait_s=0.3,
+                           **kw) as eng:
+        assert eng.device.type == "cuda"
+        eng.warmup((wavs[0],))
+        reserved = torch.cuda.memory_reserved()
+        fa.reset_launches()
+        results = [f.result(timeout=120) for f in [eng.submit(w) for w in wavs]]
+        assert fa.launches == 2  # one batch, two encoder layers
+        # warm-up and traffic share the engine's stream and so its allocator pools
+        assert torch.cuda.memory_reserved() <= reserved + 32 * 2**20
+        for got, want in zip(results, direct(wavs, 4)):
+            assert got.bucket == 4 and np.array_equal(got.tokens, want)
+        on_card = eng.transcribe(torch.from_numpy(wavs[1]).cuda(), timeout=120)
+        assert on_card.bucket == 1 and np.array_equal(on_card.tokens, direct(wavs[1:2], 1)[0])
+        stats = eng.stats()
+        log = list(eng.batch_log)
+    assert stats["compiled_buckets"] == [1, 4] and stats["requests"] == 4
+    assert all(entry["h2d_device_ms"] >= 0 for entry in log)
+
+
+@pytest.mark.cuda
+def test_serve_tool_on_the_card_answers_health_a_transcript_and_metrics():
+    """``python -m mocov2_whisper_flamingo_torch.tools.serve --random-init
+    --model whisper-small`` as a process of its own: it warms its buckets,
+    listens, and answers the three routes; it is stopped at the end."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import http.client
+    import json
+    import socket
+    import subprocess
+    import sys
+    import time
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mocov2_whisper_flamingo_torch.tools.serve", "--random-init",
+         "--model", "whisper-small", "--precision", "bf16", "--port", str(port),
+         "--buckets", "1,2", "--max-len", "32"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+    def call(method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request(method, path, None if body is None else json.dumps(body))
+            resp = conn.getresponse()
+            return resp.status, json.loads(resp.read())
+        finally:
+            conn.close()
+
+    try:
+        deadline = time.monotonic() + 240
+        while True:
+            try:
+                assert call("GET", "/healthz") == (200, {"ok": True})
+                break
+            except OSError:
+                assert proc.poll() is None, proc.stderr.read()
+                assert time.monotonic() < deadline, "the server did not come up"
+                time.sleep(1.0)
+        status, body = call("POST", "/v1/transcribe",
+                            {"audio": [0.01 * (i % 100) for i in range(32_000)]})
+        assert status == 200, body
+        assert body["tokens"][:4] == [1, 2, 3, 4] and body["bucket"] == 1
+        assert len(body["tokens"]) <= 32 and body["decode_ms"] > 0
+        status, metrics = call("GET", "/metrics")
+        assert status == 200 and metrics["requests"] == 1
+        assert metrics["compiled_buckets"] == [1, 2]
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
