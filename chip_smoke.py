@@ -207,6 +207,29 @@ def valid_mask(lens, tk, dev):
     return torch.arange(tk, device=dev)[None, :] < torch.tensor(lens, device=dev)[:, None]
 
 
+def path_attention_cases() -> list[tuple]:
+    """K1's calls on the paths this script drives, as ``(name, (b, tq, tk,
+    h, d), valid key counts or None, causal)``: the audio encoder at every
+    batch size that the main path and the two servers' bucket ladders reach
+    (and at the widest bucket the serving tool offers, 16), the AV fusion at
+    the main path's and the AV engine's, and the teacher-forced decoder's
+    causal and cross attentions. Derived from the ladders, so a bucket that
+    is driven is a shape that is held against the plain version."""
+    fusion_lens = (T_VIDEO, 317, 64, 1)
+    cases = []
+    for b in sorted({B, 16, *AV_BUCKETS, *ASR_BUCKETS}):
+        cases.append(("encoder" if b == B else f"encoder_b{b}", (b, 1500, 1500, 12, 64),
+                      None, False))
+    for b in sorted({B, *AV_BUCKETS}):
+        lens = tuple(fusion_lens[(i + 1) % len(fusion_lens)] for i in range(b))
+        cases.append(("fusion" if b == B else f"fusion_b{b}", (b, T_VIDEO, T_VIDEO, 8, 64),
+                      lens, False))
+    cases += [("forced_causal", (B, FORCED_TOKENS, FORCED_TOKENS, 12, 64), None, True),
+              ("forced_cross_audio", (B, FORCED_TOKENS, 1500, 12, 64), None, False),
+              ("forced_cross_av", (B, FORCED_TOKENS, T_VIDEO, 12, 64), fusion_lens, False)]
+    return cases
+
+
 # -- phase 2 -------------------------------------------------------------------
 
 
@@ -215,8 +238,8 @@ def check_kernel(gen) -> dict:
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
         cases += [
-            ("encoder", (4, 1500, 1500, 12, 64), dtype, None, False),
-            ("fusion", (4, 400, 400, 8, 64), dtype, (400, 317, 64, 1), False),
+            *((name, shape, dtype, lens, causal)
+              for name, shape, lens, causal in path_attention_cases()),
             ("encoder_strided_qkv", (4, 1500, 1500, 12, 64), dtype, None, False),
             ("single_tile", (2, 100, 100, 3, 64), dtype, None, False),
             ("tail_130", (2, 130, 130, 4, 64), dtype, (130, 129), False),
@@ -227,13 +250,6 @@ def check_kernel(gen) -> dict:
             ("dh32", (2, 70, 90, 3, 32), dtype, (90, 5), False),
             ("dh128_causal", (2, 100, 130, 2, 128), dtype, None, True),
             ("dh128_masked", (2, 300, 257, 2, 128), dtype, (257, 0), False),
-            # the request server's shapes: the encoder at the smallest and the
-            # widest bucket, the teacher-forced causal and cross attentions
-            ("encoder_b1", (1, 1500, 1500, 12, 64), dtype, None, False),
-            ("encoder_b16", (16, 1500, 1500, 12, 64), dtype, None, False),
-            ("forced_causal", (4, 160, 160, 12, 64), dtype, None, True),
-            ("forced_cross_audio", (4, 160, 1500, 12, 64), dtype, None, False),
-            ("forced_cross_av", (4, 160, 400, 12, 64), dtype, (400, 317, 64, 1), False),
         ]
     errs = {}
     for name, (b, tq, tk, h, d), dtype, lens, causal in cases:
@@ -262,14 +278,7 @@ def check_kernel(gen) -> dict:
             errs[tag] = err
 
     rows = {}
-    for name, (b, tq, tk, h, d), lens, causal in (
-            ("encoder", (4, 1500, 1500, 12, 64), None, False),
-            ("fusion", (4, 400, 400, 8, 64), (400, 317, 64, 1), False),
-            ("encoder_b1", (1, 1500, 1500, 12, 64), None, False),
-            ("encoder_b16", (16, 1500, 1500, 12, 64), None, False),
-            ("forced_causal", (4, 160, 160, 12, 64), None, True),
-            ("forced_cross_audio", (4, 160, 1500, 12, 64), None, False),
-            ("forced_cross_av", (4, 160, 400, 12, 64), (400, 317, 64, 1), False)):
+    for name, (b, tq, tk, h, d), lens, causal in path_attention_cases():
         q, k, v = qkv(gen, b, tq, tk, h, d, torch.bfloat16, dev)
         mask = None if lens is None else valid_mask(lens, tk, dev)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1120,7 +1129,7 @@ def run_audio_server(seed: int) -> dict:
             status, body = http_json(address, "GET", "/healthz")
             if (status, body) != (200, {"ok": True}):
                 raise AssertionError(f"/healthz answered {status} {body}")
-            sequential = []
+            sequential, launches_per_batch = [], set()
             for i in range(ASR_SEQUENTIAL):
                 payload = ({"audio": wavs[i].tolist()} if i % 2 == 0 else
                            {"audio_b64": base64.b64encode(wavs[i].tobytes()).decode()})
@@ -1134,6 +1143,7 @@ def run_audio_server(seed: int) -> dict:
                 if fa.launches != 12 or by_mask != {"unmasked": 12}:
                     raise AssertionError(f"an audio batch launched K1 {fa.launches} times "
                                          f"({dict(fa.launches_by_kernel)}), expected 12")
+                launches_per_batch.add(fa.launches)
                 want = asr.transcribe_tokens(
                     canonical_wav(wavs[i])[None], ASR_PREFIX, beam_size=BEAM,
                     max_len=ASR_MAX_TOKENS, eos_id=EOS, logit_rules=rules)[0].cpu().numpy()
@@ -1157,6 +1167,7 @@ def run_audio_server(seed: int) -> dict:
 
             threads = [threading.Thread(target=client, args=(i,))
                        for i in range(ASR_SEQUENTIAL, n_req)]
+            fa.reset_launches()
             t0 = time.perf_counter()
             for t in threads:
                 t.start()
@@ -1168,9 +1179,18 @@ def run_audio_server(seed: int) -> dict:
             bad = {i: a for i, a in answers.items() if a[0] != 200}
             if bad:
                 raise AssertionError(f"concurrent requests failed: {bad}")
+            concurrent_launches = fa.launches
+            concurrent_by_mask = launches_by_mask(fa.launches_by_kernel)
             status, metrics = http_json(address, "GET", "/metrics")
             if status != 200 or metrics["requests"] != n_req:
                 raise AssertionError(f"/metrics counts {metrics}, expected {n_req} requests")
+            concurrent_batches = metrics["batches"] - ASR_SEQUENTIAL
+            if concurrent_batches < 1 or concurrent_launches != 12 * concurrent_batches \
+                    or concurrent_by_mask != {"unmasked": concurrent_launches}:
+                raise AssertionError(f"{concurrent_batches} concurrent audio batches launched K1 "
+                                     f"{concurrent_launches} times ({concurrent_by_mask}), "
+                                     "expected 12 a batch")
+            launches_per_batch.add(concurrent_launches // concurrent_batches)
             status, err = http_json(address, "POST", "/v1/transcribe", {"nope": 1})
             if status != 400:
                 raise AssertionError(f"a bad body answered {status} {err}")
@@ -1178,7 +1198,11 @@ def run_audio_server(seed: int) -> dict:
                 "concurrent_total_ms": percentiles([a[1]["total_ms"] for a in answers.values()]),
                 "concurrent_buckets": sorted(a[1]["bucket"] for a in answers.values()),
                 "bucket_counts": metrics["bucket_counts"], "latency_ms": metrics["latency_ms"],
-                "k1_launches_per_batch": 12})
+                "concurrent_batches": concurrent_batches,
+                "concurrent_k1_launches": concurrent_launches})
+    # One measured value over the sequential and the concurrent batches, at
+    # every bucket they used.
+    (out["k1_launches_per_batch"],) = launches_per_batch
     log("audio server bf16 beam 5, 64 tokens, logit rules, over HTTP: " + json.dumps(out))
     return out
 

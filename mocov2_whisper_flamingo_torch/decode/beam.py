@@ -140,6 +140,8 @@ def beam_search(
         cand_tokens[:, :, i + 1] = tok2k
 
         # ---- bank finished candidates into the hypothesis pool ----
+        # Generated length after this step: the loop starts at n_prefix - 1,
+        # so the index runs over 1 .. max_len - n_prefix and is never negative.
         denom = denoms[i + 2 - n_prefix]
         bank_ok = hits & can_bank & heur_ok[:, None]
         if early_stopping:

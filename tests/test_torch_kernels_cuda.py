@@ -62,10 +62,12 @@ def _cuda_mask(lens, tk):
     ("dh32", (2, 130, 400, 2, 32), (400, 7), False, False),
     ("dh128", (2, 400, 130, 2, 128), (130, 1), False, False),
     ("dh128_causal", (2, 130, 400, 2, 128), None, True, False),
-    # the request server: the encoder at the smallest and the widest bucket,
-    # the teacher-forced decoder's causal and cross attentions
+    # the request server: the encoder at buckets 1, 2 and 16, the fusion at
+    # bucket 1, the teacher-forced decoder's causal and cross attentions
     ("encoder_b1", (1, 1500, 1500, 12, 64), None, False, False),
+    ("encoder_b2", (2, 1500, 1500, 12, 64), None, False, False),
     ("encoder_b16", (16, 1500, 1500, 12, 64), None, False, False),
+    ("fusion_b1", (1, 400, 400, 8, 64), (317,), False, False),
     ("forced_causal", (4, 160, 160, 12, 64), None, True, True),
     ("forced_cross_audio", (4, 160, 1500, 12, 64), None, False, False),
     ("forced_cross_av", (4, 160, 400, 12, 64), (400, 317, 64, 1), False, False),
