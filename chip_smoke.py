@@ -27,6 +27,15 @@ requests; and the teacher-forced ``AVWhisperNet.decoder_logits`` runs the
 kernel's causal and cross-attention instantiations and is held against the
 cached decode step.
 
+Then the streaming decode (``StreamingDecoder`` over the AV encode, beam 5,
+448-token windows, 40 tokens per 30 s chunk): 10 chunks (5 min) and 20
+chunks (a window rollover), with fp32 card-vs-CPU and deferred-vs-eager
+token checks at small depth; and the continuous engine
+(``make_continuous_av_engine``, 16 requests x 5 beams, 32-step segments,
+160 tokens): 64 closed-loop requests, then 8 in flight and one more 0.4 s
+later, with an fp32 scripted schedule through ``init_state`` / admit /
+segment held card against CPU and against solo beam searches.
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -53,7 +62,9 @@ import torch.nn.functional as F
 
 from mocov2_whisper_flamingo_torch import train as train_entry
 from mocov2_whisper_flamingo_torch.config import get_config
+from mocov2_whisper_flamingo_torch.decode.beam import beam_search
 from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+from mocov2_whisper_flamingo_torch.decode.streaming import StreamingDecoder
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet
@@ -66,8 +77,9 @@ from mocov2_whisper_flamingo_torch.ops import kernels
 from mocov2_whisper_flamingo_torch.ops import losses
 from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline, resize_bilinear
 from mocov2_whisper_flamingo_torch.serving import (
-    TranscriptionServer, canonical_wav, make_audio_engine, make_av_engine, pad_rows,
-    trim_at_eos)
+    TranscriptionServer, canonical_wav, make_audio_engine, make_av_engine,
+    make_continuous_av_engine, pad_rows, trim_at_eos)
+from mocov2_whisper_flamingo_torch.serving import continuous
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.training.trainer import Trainer
@@ -117,6 +129,15 @@ FORCED_TOKENS = 160
 # [T, Tk] attention against T single-query ones).
 FORCED_LOGIT_RTOL = 1e-4
 WAIT_S = 300  # every future, join and HTTP call of the serving phases
+# The streaming decode (bench.py's streaming leg): window, tokens per chunk,
+# the 5-minute and the long-form legs; <|startofprev|> for the rollover check.
+STREAM_MAX_LEN, STREAM_TOKENS, STREAM_CHUNKS, LONGFORM_CHUNKS = 448, 40, 10, 20
+SOT_PREV = 50361
+# The continuous engine (bench.py's continuous leg): rows, segment length,
+# closed-loop requests, requests in flight for the mid-decode admission probe,
+# and the admission encode's buckets.
+CONT_CAPACITY, CONT_SEG_STEPS, CONT_REQUESTS, CONT_INFLIGHT = 16, 32, 64, 8
+CONT_BUCKETS = (1, 2, 4, 8, 16)
 
 
 def log(msg: str) -> None:
@@ -210,17 +231,19 @@ def valid_mask(lens, tk, dev):
 def path_attention_cases() -> list[tuple]:
     """K1's calls on the paths this script drives, as ``(name, (b, tq, tk,
     h, d), valid key counts or None, causal)``: the audio encoder at every
-    batch size that the main path and the two servers' bucket ladders reach
-    (and at the widest bucket the serving tool offers, 16), the AV fusion at
-    the main path's and the AV engine's, and the teacher-forced decoder's
-    causal and cross attentions. Derived from the ladders, so a bucket that
-    is driven is a shape that is held against the plain version."""
+    batch size that the main path, the two servers' bucket ladders and the
+    continuous engine's admission buckets reach (and at the widest bucket the
+    serving tool offers, 16), the AV fusion at the main path's, the AV
+    engine's and the continuous engine's (the streaming decode encodes at
+    B=1), and the teacher-forced decoder's causal and cross attentions.
+    Derived from the ladders, so a bucket that is driven is a shape that is
+    held against the plain version."""
     fusion_lens = (T_VIDEO, 317, 64, 1)
     cases = []
-    for b in sorted({B, 16, *AV_BUCKETS, *ASR_BUCKETS}):
+    for b in sorted({B, 16, *AV_BUCKETS, *ASR_BUCKETS, *CONT_BUCKETS}):
         cases.append(("encoder" if b == B else f"encoder_b{b}", (b, 1500, 1500, 12, 64),
                       None, False))
-    for b in sorted({B, *AV_BUCKETS}):
+    for b in sorted({B, *AV_BUCKETS, *CONT_BUCKETS}):
         lens = tuple(fusion_lens[(i + 1) % len(fusion_lens)] for i in range(b))
         cases.append(("fusion" if b == B else f"fusion_b{b}", (b, T_VIDEO, T_VIDEO, 8, 64),
                       lens, False))
@@ -975,6 +998,18 @@ def launches_by_mask(counter) -> dict:
     return out
 
 
+def small_av_net(seed: int, device) -> AVWhisperNet:
+    """whisper-small width with 2 + 2 Whisper layers in fp32, fusion gates at
+    GATE: the depth of the fp32 card-vs-CPU checks."""
+    cfg = dataclasses.replace(config_for("whisper-small"), encoder_layers=2, decoder_layers=2)
+    net = AVWhisperNet(modelargs=MODELARGS, vocab_size=VOCAB, precision=L.FP32, device=device,
+                       whisper_config=cfg)
+    tree = random_jax_params(net, seed)
+    for layer in tree["trunk"]["fusion"]["layers"]:
+        layer["attn_gate"] = layer["ff_gate"] = np.float32(GATE)
+    return load_jax_params(net, tree).eval()
+
+
 def run_av_engine(seed: int) -> dict:
     """``make_av_engine`` at full width on the card: warm-up, nine requests
     submitted at once, every row against a direct decode of its padded
@@ -1058,17 +1093,9 @@ def run_av_engine(seed: int) -> dict:
     del net
 
     # fp32, shallow, three requests: the card's engine against the CPU's.
-    cfg = dataclasses.replace(config_for("whisper-small"), encoder_layers=2, decoder_layers=2)
     rows = {}
-    tree = None
     for device in ("cuda", "cpu"):
-        net = AVWhisperNet(modelargs=MODELARGS, vocab_size=VOCAB, precision=L.FP32,
-                           device=device, whisper_config=cfg)
-        if tree is None:
-            tree = random_jax_params(net, seed)
-            for layer in tree["trunk"]["fusion"]["layers"]:
-                layer["attn_gate"] = layer["ff_gate"] = np.float32(GATE)
-        load_jax_params(net, tree).eval()
+        net = small_av_net(seed, device)
         fa.reset_launches()
         with make_av_engine(net, PREFIX, beam_size=BEAM, max_len=24, eos_id=EOS, buckets=(4,),
                             max_wait_s=0.2) as eng:
@@ -1262,6 +1289,263 @@ def run_teacher_forcing(seed: int) -> dict:
     return out
 
 
+# -- phases 11 and 12: shared --------------------------------------------------------------
+
+
+def small_features(seed: int, cpu_batches) -> dict:
+    """The fp32 small-depth model and its encoded ``(features, valid)`` of
+    each host batch, on the card and on the CPU."""
+    out = {}
+    for device in ("cuda", "cpu"):
+        net = small_av_net(seed, device)
+        feats = [net.encode(preprocess(mel.to(device), raw.to(device)))
+                 for mel, raw in cpu_batches]
+        out[device] = (net.decoder.prepare_decode_params(), feats)
+        del net
+    return out
+
+
+# -- phase 11: the streaming decode ----------------------------------------------------------
+
+
+def run_streaming(seed: int) -> dict:
+    """``StreamingDecoder`` over the full-width AV encode at B=1, bf16, beam
+    5, 448-token windows, 40 tokens per 30 s chunk, ``collect=False`` and
+    one final ``collected_tokens``: 10 chunks (5 min), then after ``reset``
+    20 chunks (a window rollover). Then in fp32 at small depth, with windows
+    that roll over within 4 chunks: tokens on the card equal the CPU's, and
+    deferred collection equals eager collection on the card."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    net = build(seed, L.BF16, dev)
+    decoder = net.decoder.prepare_decode_params()
+    chunks = [make_batch(rng, 1, T_VIDEO, dev) for _ in range(4)]
+    stream = StreamingDecoder(decoder, PREFIX, max_len=STREAM_MAX_LEN, eos_id=EOS,
+                              max_tokens_per_chunk=STREAM_TOKENS, beam_size=BEAM)
+
+    def one_chunk(i, collect=False):
+        feats, valid = net.encode(preprocess(*chunks[i % len(chunks)]))
+        return stream.process_chunk(feats, encoder_valid=valid, collect=collect)
+
+    one_chunk(0, collect=True)  # warm-up: the window's priming chunk, then a steady one
+    one_chunk(1, collect=True)
+    # Encode and decode of a chunk apart, and K1's launches in one chunk.
+    encode_ms, decode_ms, launches = [], [], []
+    for i in range(2, 5):
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        feats, valid = net.encode(preprocess(*chunks[i % len(chunks)]))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stream.process_chunk(feats, encoder_valid=valid, collect=False)
+        torch.cuda.synchronize()
+        encode_ms.append((t1 - t0) * 1e3)
+        decode_ms.append((time.perf_counter() - t1) * 1e3)
+        launches.append((fa.launches, launches_by_mask(fa.launches_by_kernel)))
+    if any(n != 15 or by != {"unmasked": 12, "masked": 3} for n, by in launches):
+        raise AssertionError(f"a streamed chunk launched K1 {launches}, expected 12 encoder + "
+                             "3 fusion")
+
+    legs = {}
+    for name, n_chunks in (("5min", STREAM_CHUNKS), ("longform", LONGFORM_CHUNKS)):
+        stream.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_chunks):
+            one_chunk(i)
+        rollovers = len(stream._stash)  # closed windows not yet read back
+        tokens = stream.collected_tokens()
+        wall_s = time.perf_counter() - t0
+        if tokens[:len(PREFIX)] != PREFIX or not all(0 <= t < VOCAB for t in tokens):
+            raise AssertionError(f"streaming {name}: bad transcript {tokens[:16]}...")
+        legs[name] = {"chunks": n_chunks, "wall_s": wall_s, "tokens": len(tokens) - len(PREFIX),
+                      "rollovers": rollovers,
+                      "audio_s_per_s": n_chunks * SECONDS_PER_CLIP / wall_s}
+    if legs["longform"]["rollovers"] < 1:
+        raise AssertionError(f"the long-form leg rolled no window over: {legs['longform']}")
+    out = {"beam": BEAM, "max_len": STREAM_MAX_LEN, "tokens_per_chunk": STREAM_TOKENS,
+           "streaming_audio_s_per_s": legs["5min"]["audio_s_per_s"],
+           "longform_audio_s_per_s": legs["longform"]["audio_s_per_s"], "legs": legs,
+           "encode_ms_per_chunk": encode_ms, "decode_ms_per_chunk": decode_ms,
+           "k1_launches_per_chunk": launches[0][0]}
+    log(f"streaming bf16 beam {BEAM}, {STREAM_TOKENS} tokens a chunk: " + json.dumps(out))
+    del net, decoder, stream, chunks
+
+    # fp32, 2 + 2 Whisper layers, 32 frames, 8 tokens a chunk in 24-token
+    # windows conditioned on 4 tokens of context: a rollover within 4 chunks.
+    cpu_batches = [make_batch(rng, 1, 32, "cpu") for _ in range(4)]
+    kw = dict(max_len=24, eos_id=EOS, max_tokens_per_chunk=8, beam_size=BEAM, context_tokens=4,
+              sot_prev_id=SOT_PREV)
+    got = {}
+    for device, (decoder, feats) in small_features(seed, cpu_batches).items():
+        for collect in ((True, False) if device == "cuda" else (True,)):
+            sd = StreamingDecoder(decoder, PREFIX, **kw)
+            for f, v in feats:
+                sd.process_chunk(f, encoder_valid=v, collect=collect)
+            got[(device, collect)] = (sd.collected_tokens(), list(sd._window_prefix))
+    (card, prefix), (cpu, _), (deferred, _) = (got[("cuda", True)], got[("cpu", True)],
+                                               got[("cuda", False)])
+    log(f"streaming fp32 (2 + 2 Whisper layers, 4 chunks of 8 tokens in 24-token windows): "
+        f"{len(card) - len(PREFIX)} tokens; card == CPU: {card == cpu}; deferred == eager on "
+        f"the card: {deferred == card}; last window prefix {prefix}")
+    if prefix[0] != SOT_PREV:
+        raise AssertionError(f"no window rolled over in the fp32 check: {prefix}")
+    if card != cpu or deferred != card:
+        raise AssertionError(f"fp32 streaming tokens differ:\ncard {card}\ncpu {cpu}\n"
+                             f"deferred {deferred}")
+    out["fp32_card_vs_cpu_tokens_identical"] = out["deferred_equals_eager"] = True
+    return out
+
+
+# -- phase 12: the continuous engine -------------------------------------------------------
+
+
+# fp32 scripted schedule: admissions by tick as (row, utterance); rows 0 and
+# 1 come in together, row 2 one segment later, then each row is reused.
+CONT_SCHEDULE = {0: [(0, 0), (1, 1)], 1: [(2, 2)], 3: [(0, 3)], 4: [(1, 4), (2, 5)]}
+
+
+def check_continuous_fp32(seed: int) -> dict:
+    """The state machine (``init_state`` / admit / segment) in fp32 at small
+    depth through ``CONT_SCHEDULE`` (3 rows, beam 5, 8-step segments, 24
+    tokens) on the card and on the CPU: the same pool tokens, and each card
+    row equal to the card's solo ``beam_search`` of the same features."""
+    rng = np.random.default_rng(seed + 9)
+    cpu_batches = [make_batch(rng, 1, 32, "cpu") for _ in range(6)]
+    seg, n_seg = 8, 3
+    pools = {}
+    for device, (decoder, feats) in small_features(seed, cpu_batches).items():
+        state = continuous.init_state(decoder, capacity=3, beam_size=BEAM, seg_steps=seg,
+                                      n_segments=n_seg, enc_len=32, eos_id=EOS)
+        admit = continuous.make_admit_fn(decoder, PREFIX, EOS, BEAM, seg * n_seg)
+        segment = continuous.make_segment_fn(decoder, beam_size=BEAM, seg_steps=seg,
+                                             n_segments=n_seg, n_prefix=len(PREFIX), eos_id=EOS)
+        live, rows = {}, {}
+        for tick in range(7):
+            entries = CONT_SCHEDULE.get(tick, [])
+            if entries:
+                admit(state, torch.cat([feats[u][0] for _, u in entries]),
+                      torch.cat([feats[u][1] for _, u in entries]), [r for r, _ in entries])
+                live.update({r: (u, tick) for r, u in entries})
+            segment(state)
+            for r, (u, t0) in list(live.items()):
+                if tick + 1 - t0 == n_seg:
+                    rows[u] = state["pool_tokens"][r].to("cpu", copy=True)
+                    del live[r]
+        pools[device] = rows
+        if device == "cuda":
+            solos = {u: beam_search(decoder, f, PREFIX, beam_size=BEAM, max_len=seg * n_seg,
+                                    eos_id=EOS, encoder_valid=v).sequences[0].cpu()
+                     for u, (f, v) in enumerate(feats)}
+    same_cpu = all(torch.equal(pools["cuda"][u], pools["cpu"][u]) for u in range(6))
+    same_solo = all(torch.equal(pools["cuda"][u], solos[u]) for u in range(6))
+    log(f"continuous fp32 scripted schedule (2 + 2 Whisper layers, 3 rows, 6 requests, slots "
+        f"reused): pools card == CPU: {same_cpu}; card rows == solo beam_search: {same_solo}")
+    if not same_cpu or not same_solo:
+        raise AssertionError("fp32 continuous pools differ: card vs CPU "
+                             f"{same_cpu}, card vs solo {same_solo}")
+    return {"fp32_card_vs_cpu_tokens_identical": True, "fp32_rows_equal_solo_beam_search": True}
+
+
+def run_continuous(seed: int) -> dict:
+    """``make_continuous_av_engine`` at full width on the card (16 requests x
+    5 beams, 32-step segments, 160 tokens, bf16): warm-up, 64 closed-loop
+    requests, then 8 in flight and one submitted 0.4 s later; every future
+    must resolve. Then the fp32 scripted check."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 8)
+    payloads = [av_payload(rng) for _ in range(4)]
+    net = build(seed, L.BF16, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' pools, so that "reserved" is this phase's
+    torch.cuda.reset_peak_memory_stats()
+    out = {"capacity": CONT_CAPACITY, "beam": BEAM, "seg_steps": CONT_SEG_STEPS,
+           "max_len": MAX_TOKENS, "requests": CONT_REQUESTS,
+           "reserved_gib_before_warmup": torch.cuda.memory_reserved() / 2**30}
+    encodes, segment_ms = [], []
+    with make_continuous_av_engine(net, PREFIX, beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS,
+                                   capacity=CONT_CAPACITY, seg_steps=CONT_SEG_STEPS) as eng:
+        encode, segment = eng.encode, eng._segment
+
+        def counted_encode(batch):
+            before = fa.launches
+            res = encode(batch)
+            encodes.append((len(batch), fa.launches - before))
+            return res
+
+        def timed_segment(state):
+            t0 = time.perf_counter()
+            res = segment(state)
+            torch.cuda.current_stream().synchronize()  # the engine's stream
+            segment_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        eng.encode, eng._segment = counted_encode, timed_segment
+        out["enc_len"] = eng.state["enc_valid"].shape[1]
+        t0 = time.perf_counter()
+        eng.warmup(payloads[0], encode_buckets=CONT_BUCKETS)
+        out["warmup_s"] = time.perf_counter() - t0
+        out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
+        by_bucket = {n: k for n, k in encodes[:len(CONT_BUCKETS)]}
+        if sorted(by_bucket) != list(CONT_BUCKETS) or set(by_bucket.values()) != {15}:
+            raise AssertionError(f"admission encodes launched K1 {encodes}, expected 15 at each "
+                                 f"bucket {CONT_BUCKETS}")
+        encodes.clear()
+        segment_ms.clear()
+        segments_before = eng.stats()["segments_run"]
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        futures = [eng.submit(*payloads[i % len(payloads)]) for i in range(CONT_REQUESTS)]
+        results = [f.result(timeout=WAIT_S) for f in futures]
+        wall_s = time.perf_counter() - t0
+        traffic_launches, traffic_encodes = fa.launches, list(encodes)
+        traffic_segments = eng.stats()["segments_run"] - segments_before
+        traffic_segment_ms = list(segment_ms)
+        # Mid-decode admission: rows are mid-flight and rows are free; the
+        # probe is admitted at the next segment boundary.
+        in_flight = [eng.submit(*payloads[i % len(payloads)]) for i in range(CONT_INFLIGHT)]
+        time.sleep(0.4)
+        probe = eng.submit(*payloads[0]).result(timeout=WAIT_S)
+        results_in_flight = [f.result(timeout=WAIT_S) for f in in_flight]
+        stats = eng.stats()
+    out["reserved_gib_after_traffic"] = torch.cuda.memory_reserved() / 2**30
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    bad = [r for r in results + results_in_flight + [probe]
+           if r.bucket != CONT_CAPACITY or list(r.tokens[:len(PREFIX)]) != PREFIX]
+    if bad or stats["live_rows"] or stats["pending"]:
+        raise AssertionError(f"continuous engine: bad results {bad[:2]}, stats {stats}")
+    if sorted({k for _, k in encodes}) != [15] or traffic_launches != 15 * len(traffic_encodes):
+        raise AssertionError(f"the traffic launched K1 {traffic_launches} times over admission "
+                             f"encodes {traffic_encodes}, expected 15 each")
+    # Each row against a B=1 net.beam of its payload: reported, not held (bf16
+    # rows are reproducible per batch shape, not across shapes).
+    direct = [direct_av_rows(net, [p], 1, MAX_TOKENS)[0] for p in payloads]
+    served = results + results_in_flight + [probe]
+    which = list(range(CONT_REQUESTS)) + list(range(CONT_INFLIGHT)) + [0]
+    equal = sum(np.array_equal(r.tokens, direct[i % len(payloads)]) for r, i in zip(served, which))
+    seg_mean = float(np.mean(traffic_segment_ms))
+    out.update({
+        "wall_s": wall_s, "audio_seconds_per_second": CONT_REQUESTS * SECONDS_PER_CLIP / wall_s,
+        "queue_ms": {"p50": float(np.percentile([r.queue_ms for r in results], 50)),
+                     "p99": float(np.percentile([r.queue_ms for r in results], 99))},
+        "total_ms": {"p50": float(np.percentile([r.total_ms for r in results], 50)),
+                     "p99": float(np.percentile([r.total_ms for r in results], 99))},
+        "middecode_admission_ms": probe.queue_ms, "middecode_total_ms": probe.total_ms,
+        "segment_ms_mean": seg_mean, "segment_ms_max": float(np.max(traffic_segment_ms)),
+        "step_ms_mean": seg_mean / CONT_SEG_STEPS, "segments_run": traffic_segments,
+        "admission_encodes": [n for n, _ in traffic_encodes],
+        "k1_launches_in_traffic": traffic_launches,
+        "k1_launches_per_admission_by_bucket": {str(b): by_bucket[b] for b in CONT_BUCKETS},
+        "tokens_generated": [len(r.tokens) - len(PREFIX) for r in results[:4]],
+        "share_equal_to_b1_beam": equal / len(served)})
+    log(f"continuous engine bf16 {CONT_CAPACITY} x beam {BEAM}, {CONT_SEG_STEPS}-step segments: "
+        + json.dumps(out))
+    del net
+    out.update(check_continuous_fp32(seed))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1295,7 +1579,9 @@ def main() -> int:
     train_path["fp32_card_vs_cpu"] = train_check
     serve_path = {"av_engine": run_av_engine(args.seed),
                   "audio_server": run_audio_server(args.seed),
-                  "teacher_forcing": run_teacher_forcing(args.seed)}
+                  "teacher_forcing": run_teacher_forcing(args.seed),
+                  "streaming": run_streaming(args.seed),
+                  "continuous": run_continuous(args.seed)}
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -1319,6 +1605,8 @@ def main() -> int:
           "launches_per_audio_batch": serve_path["audio_server"]["k1_launches_per_batch"],
           "launches_per_av_batch": serve_path["av_engine"]["k1_launches_per_batch"],
           "launches_per_decoder_logits": serve_path["teacher_forcing"]["k1_launches"],
+          "launches_per_stream_chunk": serve_path["streaming"]["k1_launches_per_chunk"],
+          "launches_per_admission": serve_path["continuous"]["k1_launches_per_admission_by_bucket"],
           "launches_per_train_step": {name: train_path[name]["k1_launches_per_step"]
                                       for name in ("dropout_0.1", "dropout_0",
                                                    "dropout_0_remat")},

@@ -1,0 +1,368 @@
+"""Long-form streaming decode: 30 s chunks with a persistent KV cache
+(counterpart of ``decode/streaming.py``).
+
+Long audio goes through the encoder as consecutive 30 s chunks while the
+decoder state persists: the generated tokens stay in the self-attention
+cache across chunks and each chunk swaps in its own cross-attention K/V, so
+the transcript continues without re-decoding. Within a chunk the K beams run
+the JAX package's chunk-local beam search (top K of the K×K expansion, EOS
+freezes a beam); at the chunk boundary the best beam is committed: its
+tokens and self cache are copied to all K rows and the next chunk restarts
+from that one hypothesis. When the next chunk could overflow the ``max_len``
+token and position budget, the window rolls over: the decoder state is reset
+and the next chunk re-primes with ``sot_prev_id`` + the last
+``context_tokens`` committed tokens + the prefix (Whisper's
+condition-on-previous-text window restart).
+
+How the TPU design is rendered on the GPU:
+
+- **Ancestry becomes a physical reorder.** The JAX chunk never moves a cache
+  line: it folds an append-only one-hot ancestry tensor into attention and
+  commits the best beam with one einsum. Here, as in ``decode/beam.py``, the
+  self cache is reordered physically after each step (one ``index_select``
+  over the stacked caches), and the commit is one more ``index_select`` that
+  copies the best row over all K rows.
+- **The step's position stays on the host.** The decode step and the logit
+  rules take Python-int positions, so the committed position ``i_new`` (the
+  last non-EOS position of the best row, at least the chunk's start) is read
+  back once per chunk: one int per ``max_tokens_per_chunk`` steps.
+  ``collect=False`` still skips the token transfer. The host-side
+  ``_i_bound`` that decides rollovers follows the JAX bookkeeping to the
+  letter: a conservative bound in deferred mode, exact only when collecting,
+  so rollovers fire at the same chunks as in the JAX package.
+- **Resume.** The next chunk's first step re-feeds the token at ``i_new`` at
+  position ``i_new``, which overwrites that position's K/V against the new
+  chunk's cross K/V; keys past ``i_new`` (EOS steps of finished beams) are
+  never read, because a step at position ``i`` reads keys ``0 .. i`` only.
+- **Write gate.** Steps past the end of the token buffer (reachable only when
+  the window cannot roll over) keep the cache as it was
+  (``WhisperDecoder.decode_step(write=False)``), so they change nothing.
+- ``cache_layout`` ("rows" / "bhjtd") chooses a TPU layout in the JAX
+  package and is accepted here as a no-op, as ``beam_search`` accepts it.
+
+``transcribe_long_form`` ports the streaming mode only; its quality mode
+(temperature fallback, segments, timestamps) raises until
+``decode/sampling.py`` and ``decode/segments.py`` are ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mocov2_whisper_flamingo_torch.decode.beam import NEG_INF, _top_k
+
+
+class StreamingDecoder:
+    """Feed chunks of encoder features; carries transcript + decoder cache.
+
+    ``decoder`` is a prepared ``WhisperDecoder`` (``prepare_decode_params``);
+    it holds the weights the JAX class takes as ``params``.
+    ``beam_size=1`` is greedy; ``beam_size>1`` runs chunk-local beam search
+    with best-path commit at each chunk boundary.
+
+    ``rollover`` (default True): when the next chunk could overflow the
+    ``max_len`` token/PE budget, commit the window and restart the decoder
+    context, re-priming with ``sot_prev_id`` + the last ``context_tokens``
+    committed text tokens + the prefix (``context_tokens=0`` restarts from the
+    bare prefix). With ``rollover=False`` decoding hard-stops at ``max_len``
+    tokens.
+
+    ``logit_rules``: optional ``decode.logit_rules.LogitRules`` applied at
+    each step; begin-index rules fire at each window's first generated
+    position. ``initial_context``: conditioning tokens decoded against but
+    never committed (openai's ``initial_prompt``).
+    """
+
+    def __init__(self, decoder, prefix_ids, max_len: int = 448, eos_id: int = 0,
+                 max_tokens_per_chunk: int = 64, beam_size: int = 1,
+                 length_penalty: float = 1.0, rollover: bool = True,
+                 context_tokens: int = 0, sot_prev_id: int | None = None,
+                 logit_rules=None, initial_context: list[int] | None = None,
+                 cache_layout: str = "rows"):
+        if cache_layout not in ("rows", "bhjtd"):
+            raise ValueError(f"unknown cache_layout {cache_layout!r}; "
+                             "expected 'rows' or 'bhjtd'")
+        self.decoder = decoder
+        self.cache_layout = cache_layout
+        self.prefix_ids = [int(t) for t in prefix_ids]
+        self.initial_context = [int(t) for t in (initial_context or [])]
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.max_tokens_per_chunk = max_tokens_per_chunk
+        self.beam_size = beam_size
+        self.length_penalty = length_penalty
+        self.rollover = rollover
+        self.context_tokens = context_tokens
+        self.sot_prev_id = sot_prev_id
+        self.logit_rules = logit_rules
+        self.device = decoder.pos_embed.device
+        eos_only = torch.full((decoder.config.vocab_size,), NEG_INF, dtype=torch.float32,
+                              device=self.device)
+        eos_only[eos_id] = 0.0
+        self._eos_only = eos_only
+        self.reset()
+
+    def reset(self) -> None:
+        self.tokens = list(self.prefix_ids)
+        # Transcript committed from closed, drained windows (original prefix
+        # included; window re-prime context is never re-emitted).
+        self._committed = list(self.prefix_ids)
+        # Closed windows not yet read back: (token row [L] on the device,
+        # i_new, window prefix length).
+        self._stash: list[tuple] = []
+        # The current window's forced prefix (context + prefix after a
+        # rollover; initial_context + prefix for window 0).
+        self._window_prefix = self._context_prefix(self.initial_context)
+        self._state = None  # (self_k, self_v, tokens [K, L] on the device, i)
+        # Host-side conservative bound on the position, for the rollover
+        # decision (the JAX bookkeeping, see the module docstring).
+        self._i_bound = len(self._window_prefix) - 1
+
+    def _context_prefix(self, ctx: list[int]) -> list[int]:
+        """sot_prev + context + prefix (the window's forced tokens). The
+        context is clamped to half the token budget (openai's prompt clamp)
+        so every window keeps room to generate."""
+        budget = self.max_len // 2 - len(self.prefix_ids) - 1
+        ctx = list(ctx)[-budget:] if budget > 0 else []
+        if ctx and self.sot_prev_id is not None:
+            ctx = [self.sot_prev_id] + ctx
+        return ctx + list(self.prefix_ids)
+
+    # -- one chunk -------------------------------------------------------------
+
+    def _init_state(self, window_prefix: list[int]) -> tuple:
+        cfg = self.decoder.config
+        k, l_ = self.beam_size, self.max_len
+        dtype = self.decoder.precision.compute_dtype
+        tokens = torch.full((k, l_), self.eos_id, dtype=torch.long, device=self.device)
+        tokens[:, : len(window_prefix)] = torch.tensor(window_prefix, dtype=torch.long,
+                                                        device=self.device)
+        shape = (cfg.decoder_layers, k, l_, cfg.n_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=dtype, device=self.device),
+                torch.zeros(shape, dtype=dtype, device=self.device), tokens,
+                len(window_prefix) - 1)
+
+    def _chunk(self, encoder_out: torch.Tensor, encoder_valid: torch.Tensor | None,
+               n_prime: int, begin_index: int) -> tuple:
+        """Decode one chunk from ``self._state``; returns the committed
+        ``(self_k, self_v, tokens, i_new)`` with ``i_new`` a 0-d device
+        tensor."""
+        dec, eos, rules = self.decoder, self.eos_id, self.logit_rules
+        k, l_ = self.beam_size, self.max_len
+        self_k, self_v, tokens, i0 = self._state
+        cross_k, cross_v = dec.cross_caches(encoder_out)  # the JAX _cross_caches
+        cache = {"self_k": self_k, "self_v": self_v, "cross_k": cross_k, "cross_v": cross_v}
+        for i in range(n_prime):  # the window's forced tokens, the same in every row
+            dec.decode_step(tokens[:1, i:i + 1].expand(k, 1), cache, i, encoder_valid)
+
+        scores = torch.full((k,), NEG_INF, dtype=torch.float32, device=self.device)
+        scores[0] = 0.0
+        done = torch.zeros((k,), dtype=torch.bool, device=self.device)
+        for s in range(self.max_tokens_per_chunk):
+            i = i0 + s
+            past_end = i > l_ - 2  # no room to write at i + 1
+            idx = min(i, l_ - 2)
+            if past_end:
+                done = torch.ones_like(done)
+            logits, cache = dec.decode_step(tokens[:, idx:idx + 1], cache, idx, encoder_valid,
+                                            write=not past_end)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            if rules is not None:
+                logp = rules(logp, tokens, idx + 1, begin_index)
+            logp = torch.where(done[:, None], self._eos_only, logp)
+
+            # Per-beam top K over the vocab, then top K of the K*K union.
+            s1, t1 = torch.topk(logp, k, dim=-1)
+            top_scores, flat = _top_k((scores[:, None] + s1).reshape(1, k * k), k)
+            beam_idx = flat[0] // k
+            token_idx = t1.reshape(-1).gather(0, flat[0])
+            tokens = tokens.index_select(0, beam_idx)
+            done = done.index_select(0, beam_idx)
+            if k > 1:
+                cache["self_k"] = cache["self_k"].index_select(1, beam_idx)
+                cache["self_v"] = cache["self_v"].index_select(1, beam_idx)
+            token_idx = torch.where(done, eos, token_idx)
+            if not past_end:
+                tokens[:, idx + 1] = token_idx
+            done = done | (token_idx == eos)
+            scores = top_scores[0]
+
+        # Commit the best beam (chunk-local length-normalised score): its
+        # tokens and self cache go to every row.
+        gen = (tokens != eos).sum(dim=-1) - (i0 + 1)
+        norm = scores / torch.pow(gen.clamp(min=1).float(), self.length_penalty)
+        best = torch.argmax(norm).expand(k)
+        tokens = tokens.index_select(0, best)
+        self_k = cache["self_k"].index_select(1, best)
+        self_v = cache["self_v"].index_select(1, best)
+        pos = torch.arange(l_, device=self.device)
+        i_new = torch.where(tokens[0] != eos, pos, 0).max().clamp(min=i0)
+        return self_k, self_v, tokens, i_new
+
+    # -- window rollover -------------------------------------------------------
+
+    def _drain_stash(self) -> None:
+        """Read back the stashed closed windows into the committed
+        transcript."""
+        for row, i_new, wp_len in self._stash:
+            self._committed.extend(row[wp_len: i_new + 1].tolist())
+        self._stash = []
+
+    def _window_generation(self) -> list[int]:
+        """The current window's generated tokens (window prefix excluded),
+        read back from the device."""
+        if self._state is None:
+            return []
+        _, _, tokens, i_new = self._state
+        return tokens[0, len(self._window_prefix): i_new + 1].tolist()
+
+    def _maybe_rollover(self) -> None:
+        """Restart the decoder window if the next chunk could overflow the
+        token/PE budget (host-side trigger on ``_i_bound``). With
+        ``context_tokens=0`` the closed window's token row is stashed on the
+        device and read back at the next collecting call;
+        ``context_tokens>0`` needs the tokens now."""
+        if not self.rollover or self._state is None:
+            return
+        if self._i_bound + self.max_tokens_per_chunk <= self.max_len - 2:
+            return
+        _, _, tokens, i_new = self._state
+        if self.context_tokens > 0:
+            self._drain_stash()
+            self._committed = self._committed + self._window_generation()
+            # context is text only: no EOS, and no timestamp tokens when the
+            # timestamp grammar is active
+            ts0 = getattr(self.logit_rules, "timestamp_begin", None) \
+                if self.logit_rules is not None else None
+            pool = [t for t in self._committed[len(self.prefix_ids):]
+                    if t != self.eos_id and (ts0 is None or t < ts0)]
+            # initial_context ahead of the rolling transcript, tail-clamped
+            ctx = (self.initial_context + pool)[
+                -max(self.context_tokens, len(self.initial_context)):]
+            self._window_prefix = self._context_prefix(ctx)
+            self.tokens = list(self._committed)
+        else:
+            self._stash.append((tokens[0], i_new, len(self._window_prefix)))
+            self._window_prefix = self._context_prefix(self.initial_context)
+        self._state = None
+        self._i_bound = len(self._window_prefix) - 1
+
+    # -- public API ------------------------------------------------------------
+
+    @torch.no_grad()
+    def process_chunk(self, encoder_out: torch.Tensor,
+                      encoder_valid: torch.Tensor | None = None,
+                      collect: bool = True) -> list[int]:
+        """Decode against one chunk's encoder output (``[1, T, D]`` on the
+        decoder's device); returns the newly committed token ids (EOS ends
+        the chunk, not the stream).
+
+        ``collect=False`` skips the token transfer to the host (the chunk's
+        position, one int, is still read back); call ``collected_tokens()``
+        at any boundary to drain the transcript."""
+        self._maybe_rollover()
+        first = self._state is None
+        if first:
+            self._state = self._init_state(self._window_prefix)
+        i0 = self._state[3]
+        n_prime = max(len(self._window_prefix) - 1, 0) if first else 0
+        self_k, self_v, tokens, i_new = self._chunk(encoder_out, encoder_valid, n_prime,
+                                                     len(self._window_prefix))
+        i_new = int(i_new)
+        self._state = (self_k, self_v, tokens, i_new)
+        self._i_bound = min(self._i_bound + self.max_tokens_per_chunk, self.max_len - 1)
+        if not collect:
+            return []
+        self._drain_stash()
+        row = tokens[0, : i_new + 1].tolist()
+        # the true position replaces the conservative bound
+        self._i_bound = i_new
+        self.tokens = self._committed + row[len(self._window_prefix):]
+        return row[i0 + 1:]
+
+    def collected_tokens(self) -> list[int]:
+        """Return the full transcript committed so far (original prefix
+        included, window re-prime context excluded), read back from the
+        device; the companion of ``process_chunk(collect=False)``. Also
+        reconciles ``self.tokens``."""
+        self._drain_stash()
+        self.tokens = self._committed + self._window_generation()
+        return list(self.tokens)
+
+
+def transcribe_long_form(
+    encoder,
+    decoder,
+    audio,
+    prefix_ids,
+    eos_id: int = 0,
+    chunk_seconds: float = 30.0,
+    sample_rate: int = 16_000,
+    max_len: int = 448,
+    max_tokens_per_chunk: int = 64,
+    beam_size: int = 1,
+    length_penalty: float = 1.0,
+    mel_fn=None,
+    rollover: bool = True,
+    context_tokens: int = 0,
+    sot_prev_id: int | None = None,
+    initial_prompt_ids=None,
+    logit_rules=None,
+    temperatures=None,
+    return_segments: bool = False,
+    cache_layout: str = "rows",
+) -> list[int] | tuple[list[int], list[dict]]:
+    """Long-form ASR, streaming mode: waveform of any length -> 30 s chunks
+    -> log-mel -> encoder -> streaming decode with a persistent KV cache.
+    Returns every generated token id (prefix excluded); with ``rollover``
+    the transcript is not bounded by ``max_len`` (see ``StreamingDecoder``).
+    ``return_segments`` also returns one ``{"id", "start", "end", "seek",
+    "tokens"}`` dict per chunk that produced tokens (window bounds clipped to
+    the audio).
+
+    ``encoder`` is a ``WhisperEncoder``, ``decoder`` a prepared
+    ``WhisperDecoder`` on the same device (they hold the weights the JAX
+    function takes as ``encoder_params`` / ``decoder_params``); ``audio`` a
+    ``[T]`` waveform. Per chunk: one encoder pass and one decode loop.
+
+    ``temperatures`` selects the JAX package's quality mode (openai's window
+    loop with temperature fallback, segments and timestamps), which is not
+    ported yet and raises; its own options (``best_of``, the thresholds,
+    ``key``, ...) come with it."""
+    from mocov2_whisper_flamingo_torch.ops.mel import whisper_log_mel
+
+    if temperatures is not None:
+        raise NotImplementedError(
+            "transcribe_long_form(temperatures=...): the quality mode (temperature fallback, "
+            "segments, timestamps) is not ported yet (ROADMAP.md Queue 1 item 10)")
+    chunk_samples = int(chunk_seconds * sample_rate)
+    mel_fn = mel_fn or (lambda wav: whisper_log_mel(wav, pad_to=chunk_samples))
+    device = next(encoder.parameters()).device
+    audio = torch.as_tensor(audio, dtype=torch.float32).to(device)
+    n_chunks = max(-(-audio.shape[-1] // chunk_samples), 1)
+    duration = audio.shape[-1] / sample_rate
+
+    stream = StreamingDecoder(
+        decoder, prefix_ids, max_len=max_len, eos_id=eos_id,
+        max_tokens_per_chunk=max_tokens_per_chunk, beam_size=beam_size,
+        length_penalty=length_penalty, rollover=rollover,
+        context_tokens=context_tokens, sot_prev_id=sot_prev_id,
+        logit_rules=logit_rules,
+        initial_context=[int(t) for t in (initial_prompt_ids or [])] or None,
+        cache_layout=cache_layout)
+    out: list[int] = []
+    segments = []
+    for i in range(n_chunks):
+        chunk = audio[..., i * chunk_samples: (i + 1) * chunk_samples]
+        pad = chunk_samples - chunk.shape[-1]
+        if pad > 0:  # the last chunk is zero-padded to the full window
+            chunk = torch.nn.functional.pad(chunk, (0, pad))
+        with torch.no_grad():
+            features = encoder(mel_fn(chunk)[None])
+        new = stream.process_chunk(features)
+        if new:
+            start, end = i * chunk_seconds, min((i + 1) * chunk_seconds, duration)
+            segments.append({"id": len(segments), "start": start, "end": end,
+                             "seek": start, "tokens": new})
+        out.extend(new)
+    return (out, segments) if return_segments else out

@@ -262,30 +262,40 @@ class WhisperDecoder(nn.Module):
 
     # -- incremental decode ---------------------------------------------------
 
+    def cross_caches(self, encoder_out: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Every layer's cross-attention K and V of ``encoder_out [B, T, D]``,
+        stacked as ``[layers, B, T, H, Dh]`` in the compute dtype."""
+        cfg = self.config
+        enc = self.precision.cast(encoder_out)
+        dtype = self.precision.compute_dtype
+        cross_k = torch.stack([_split_heads(lyr.cross_attn.k(enc), cfg.n_heads)
+                               for lyr in self.layers]).to(dtype)
+        cross_v = torch.stack([_split_heads(lyr.cross_attn.v(enc), cfg.n_heads)
+                               for lyr in self.layers]).to(dtype)
+        return cross_k, cross_v
+
     def init_cache(self, encoder_out: torch.Tensor, max_len: int | None = None,
                    beam_groups: int = 1) -> dict:
         """Allocate the self caches (compute dtype) for ``B * beam_groups``
         rows and compute the cross K/V once per example from the un-repeated
         encoder output."""
-        cfg, prec = self.config, self.precision
+        cfg = self.config
         b = encoder_out.shape[0]
         max_len = max_len or cfg.max_target_positions
-        dtype = prec.compute_dtype
-        enc = prec.cast(encoder_out)
-        cross_k = torch.stack([_split_heads(lyr.cross_attn.k(enc), cfg.n_heads)
-                               for lyr in self.layers]).to(dtype)
-        cross_v = torch.stack([_split_heads(lyr.cross_attn.v(enc), cfg.n_heads)
-                               for lyr in self.layers]).to(dtype)
+        dtype = self.precision.compute_dtype
+        cross_k, cross_v = self.cross_caches(encoder_out)
         shape = (len(self.layers), b * beam_groups, max_len, cfg.n_heads, cfg.head_dim)
         return {
-            "self_k": torch.zeros(shape, dtype=dtype, device=enc.device),
-            "self_v": torch.zeros(shape, dtype=dtype, device=enc.device),
+            "self_k": torch.zeros(shape, dtype=dtype, device=encoder_out.device),
+            "self_v": torch.zeros(shape, dtype=dtype, device=encoder_out.device),
             "cross_k": cross_k,
             "cross_v": cross_v,
         }
 
-    def _self_step(self, li: int, layer: DecoderLayer, x: torch.Tensor,
-                   cache: dict, index: int) -> torch.Tensor:
+    def _self_step(self, li: int, layer: DecoderLayer, x: torch.Tensor, cache: dict,
+                   index: int, where: tuple, write: bool = True) -> torch.Tensor:
+        """``where``: the cache entries the step's K/V go to, and the key mask
+        over ``0 .. index`` (None: every row stands at ``index``)."""
         cfg, sa = self.config, layer.self_attn
         y = layer.self_attn_ln(x)
         if sa.qkv is not None:
@@ -294,12 +304,14 @@ class WhisperDecoder(nn.Module):
             q, k, v = sa.q(y), sa.k(y), sa.v(y)
         q = _split_heads(q, cfg.n_heads)
         ck, cv = cache["self_k"][li], cache["self_v"][li]
-        ck[:, index] = _split_heads(k, cfg.n_heads)[:, 0].to(ck.dtype)
-        cv[:, index] = _split_heads(v, cfg.n_heads)[:, 0].to(cv.dtype)
+        write_at, valid = where
+        if write:
+            ck[write_at] = _split_heads(k, cfg.n_heads)[:, 0].to(ck.dtype)
+            cv[write_at] = _split_heads(v, cfg.n_heads)[:, 0].to(cv.dtype)
         # Positions past ``index`` are masked to exact zeros in the JAX
         # package; here they are simply not read.
         out = multi_head_attention(q, ck[:, : index + 1].to(q.dtype),
-                                   cv[:, : index + 1].to(q.dtype))
+                                   cv[:, : index + 1].to(q.dtype), kv_valid=valid)
         return sa.out(_merge_heads(out))
 
     def _cross_step(self, layer: DecoderLayer, x: torch.Tensor, cross_k: torch.Tensor,
@@ -331,16 +343,33 @@ class WhisperDecoder(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict, index: int,
-                    encoder_valid: torch.Tensor | None = None
+                    encoder_valid: torch.Tensor | None = None,
+                    positions: torch.Tensor | None = None, write: bool = True
                     ) -> tuple[torch.Tensor, dict]:
         """One step. ``tokens [rows, 1]``; ``index`` is the (Python int)
         position. Writes the step's K/V into ``cache`` in place and returns
-        ``(logits [rows, V] fp32, cache)``."""
+        ``(logits [rows, V] fp32, cache)``.
+
+        ``positions`` (``[rows]`` int64 on the cache's device): rows that
+        stand at different positions, as in continuous batching. Each row
+        takes the position embedding of, writes its K/V at and attends up to
+        its own position; ``index`` is then the largest of them, which the
+        caller knows on the host, and every row reads the keys ``0 ..
+        index`` through one mask. ``write=False`` leaves the cache as it was
+        (the JAX package's ``write_gate``: the streaming decode's steps past
+        the end of its token buffer)."""
         prec = self.precision
-        x = self.embed_tokens(tokens) + self.pos_embed[index]
-        x = prec.cast(x)
+        if positions is None:
+            pe = self.pos_embed[index]
+            where = ((slice(None), index), None)
+        else:
+            pe = self.pos_embed[positions][:, None]
+            keys = torch.arange(index + 1, device=positions.device)
+            rows = torch.arange(positions.shape[0], device=positions.device)
+            where = ((rows, positions), keys[None, :] <= positions[:, None])
+        x = prec.cast(self.embed_tokens(tokens) + pe)
         for li, layer in enumerate(self.layers):
-            x = x + self._self_step(li, layer, x, cache, index)
+            x = x + self._self_step(li, layer, x, cache, index, where, write)
             x = x + self._cross_step(layer, x, cache["cross_k"][li],
                                      cache["cross_v"][li], encoder_valid)
             x = x + layer.mlp(layer.mlp_ln(x))

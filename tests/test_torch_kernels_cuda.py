@@ -71,6 +71,12 @@ def _cuda_mask(lens, tk):
     ("forced_causal", (4, 160, 160, 12, 64), None, True, True),
     ("forced_cross_audio", (4, 160, 1500, 12, 64), None, False, False),
     ("forced_cross_av", (4, 160, 400, 12, 64), (400, 317, 64, 1), False, False),
+    # the continuous engine's admission buckets 2, 8 and 16 that no other
+    # path reaches
+    ("encoder_b8", (8, 1500, 1500, 12, 64), None, False, False),
+    ("fusion_b2", (2, 400, 400, 8, 64), (400, 64), False, False),
+    ("fusion_b8", (8, 400, 400, 8, 64), (400, 317, 64, 1, 400, 399, 200, 2), False, False),
+    ("fusion_b16", (16, 400, 400, 8, 64), (400, 317, 64, 1) * 4, False, False),
 ])
 def test_bf16_kernel_matches_plain_at_serving_and_edge_shapes(name, shape, lens, causal, strided):
     """bf16 K1 on its route (Hopper kernel at Dh 64/128, mma.sync at Dh 32)

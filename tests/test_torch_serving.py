@@ -292,16 +292,6 @@ def test_quantized_engines_are_refused(asr_setup, option):
             make_av_engine(None, PREFIX, cache_quant="int8")
 
 
-def test_continuous_engine_names_its_roadmap_item():
-    from mocov2_whisper_flamingo_torch import serving
-
-    for name in ("ContinuousEngine", "make_continuous_av_engine"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
-            getattr(serving, name)
-    with pytest.raises(AttributeError):
-        serving.no_such_thing
-
-
 # -- the generic engine: failures, threads, defaults -----------------------------------
 
 
