@@ -36,6 +36,14 @@ token checks at small depth; and the continuous engine
 later, with an fp32 scripted schedule through ``init_state`` / admit /
 segment held card against CPU and against solo beam searches.
 
+Then data-fed training: a dataset written to disk (16 train, 4 validation
+and 4 test clips of 12 s 48 kHz audio and 280-400 uint8 96x96 frames, and a
+MoCo v2 checkpoint of random weights) goes through ``DataModule`` (4 worker
+threads, 2 batches prefetched and placed on the card by the prefetch thread),
+``train.build_net`` and ``Trainer`` for 8 steps at full width, with host
+augmentation, with ``augmentation.on_device`` and with ``on_device_mel``;
+then ``train.main`` itself for 2 steps.
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -62,6 +70,8 @@ import torch.nn.functional as F
 
 from mocov2_whisper_flamingo_torch import train as train_entry
 from mocov2_whisper_flamingo_torch.config import get_config
+from mocov2_whisper_flamingo_torch.datamodule import native
+from mocov2_whisper_flamingo_torch.datamodule.data_module import DataModule
 from mocov2_whisper_flamingo_torch.decode.beam import beam_search
 from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
 from mocov2_whisper_flamingo_torch.decode.streaming import StreamingDecoder
@@ -70,11 +80,13 @@ from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet
 from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
 from mocov2_whisper_flamingo_torch.models.convert import (
-    load_jax_params, random_asr_params, random_avnet_params, random_jax_params)
+    load_jax_params, random_asr_params, random_avnet_params, random_jax_params,
+    resnet50_from_moco)
 from mocov2_whisper_flamingo_torch.models.whisper import config_for
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import kernels
 from mocov2_whisper_flamingo_torch.ops import losses
+from mocov2_whisper_flamingo_torch.ops.augment import packed_waveform_mel
 from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline, resize_bilinear
 from mocov2_whisper_flamingo_torch.serving import (
     TranscriptionServer, canonical_wav, make_audio_engine, make_av_engine,
@@ -1560,6 +1572,320 @@ def run_continuous(seed: int) -> dict:
     return out
 
 
+# -- phase 13: data-fed training -------------------------------------------------------------
+
+# The dataset phase 13 writes: clips per split, seconds of 48 kHz audio per
+# clip (resampled by the native library), the range of lip frames per clip.
+DATA_CLIPS = {"train": 16, "val": 4, "test": 4}
+DATA_SECONDS, DATA_RATE, DATA_FRAMES = 12.0, 48_000, (280, 400)
+DATA_MODES = {"host": {},
+              "on_device": {"augmentation.on_device": True},
+              "on_device_mel": {"augmentation.on_device": True,
+                                "augmentation.on_device_mel": True}}
+# The waveform-mode mel, card against CPU, as a share of the largest value:
+# fp32 DFT and filter-bank products summed in other orders.
+MEL_RTOL = 1e-5
+
+
+def write_moco_checkpoint(path: str, seed: int) -> None:
+    """A MoCo v2 checkpoint of random weights in its own layout: the query
+    encoder's stem, layer1-4 (BN statistics not at their init) and MLP head."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def t(shape, scale=1.0, offset=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + offset).astype(np.float32))
+
+    def conv_bn(conv, bn, c_out, c_in, k):
+        sd[f"{conv}.weight"] = t((c_out, c_in, k, k), (2.0 / (c_in * k * k)) ** 0.5)
+        sd[f"{bn}.weight"], sd[f"{bn}.bias"] = t((c_out,), 0.1, 1.0), t((c_out,), 0.1)
+        sd[f"{bn}.running_mean"] = t((c_out,), 0.1)
+        sd[f"{bn}.running_var"] = torch.from_numpy(rng.uniform(0.5, 1.5, c_out).astype(np.float32))
+
+    q = "module.encoder_q"
+    conv_bn(f"{q}.conv1", f"{q}.bn1", 64, 3, 7)
+    c_in = 64
+    for stage, (blocks, mid, _) in enumerate(((3, 64, 1), (4, 128, 2), (6, 256, 2),
+                                              (3, 512, 2)), start=1):
+        for i in range(blocks):
+            p = f"{q}.layer{stage}.{i}"
+            conv_bn(f"{p}.conv1", f"{p}.bn1", mid, c_in, 1)
+            conv_bn(f"{p}.conv2", f"{p}.bn2", mid, mid, 3)
+            conv_bn(f"{p}.conv3", f"{p}.bn3", mid * 4, mid, 1)
+            if i == 0:
+                conv_bn(f"{p}.downsample.0", f"{p}.downsample.1", mid * 4, c_in, 1)
+            c_in = mid * 4
+    sd[f"{q}.fc.0.weight"] = t((2048, 2048), 0.01)
+    sd[f"{q}.fc.2.weight"] = t((128, 2048), 0.01)
+    torch.save({"epoch": 800, "arch": "resnet50", "state_dict": sd}, path)
+
+
+def write_dataset(root: str, seed: int) -> dict:
+    """``DATA_CLIPS`` clips per split in the reference layout: uint8 frames
+    ``[T, 96, 96, 3]`` as ``.npy``, a 12 s 48 kHz 16-bit WAV beside each, a
+    short text; and a MoCo checkpoint. Returns the paths and the seconds it
+    took."""
+    import wave
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(root, ignore_errors=True)
+    frames_written = 0
+    for split, n in DATA_CLIPS.items():
+        vdir = os.path.join(root, split, f"{split}_video_seg12s", "spk1")
+        tdir = os.path.join(root, split, f"{split}_text_seg12s", "spk1")
+        os.makedirs(vdir)
+        os.makedirs(tdir)
+        for i in range(n):
+            t = int(rng.integers(DATA_FRAMES[0], DATA_FRAMES[1] + 1))
+            np.save(os.path.join(vdir, f"clip{i:03d}.npy"),
+                    rng.integers(0, 256, (t, 96, 96, 3), dtype=np.uint8))
+            frames_written += t
+            x = rng.standard_normal(int(DATA_SECONDS * DATA_RATE)) * 0.2
+            with wave.open(os.path.join(vdir, f"clip{i:03d}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(DATA_RATE)
+                w.writeframes(np.clip(x * 32767, -32768, 32767).astype("<i2").tobytes())
+            with open(os.path.join(tdir, f"clip{i:03d}.txt"), "w", encoding="utf-8") as f:
+                f.write(f"xin chao {split} {i}")
+    moco = os.path.join(root, "moco_v2_random.pth.tar")
+    write_moco_checkpoint(moco, seed)
+    return {"root": root, "moco": moco, "frames": frames_written,
+            "write_s": time.perf_counter() - t0}
+
+
+def data_config(data: dict, workdir: str, name: str, seed: int, overrides: dict):
+    """Full width (whisper-small, ResNet-50, ``MODELARGS``, BF16, B=4, 400
+    frames) with phase 7's training settings: dropout 0.1, no activation
+    checkpointing, no accumulation."""
+    return get_config({
+        "data.root_dir": data["root"], "data.moco_file": data["moco"], "data.batch_size": B,
+        "data.num_workers": 4, "data.prefetch_batches": 2, "training.epochs": 2,
+        "training.accumulate_grad_batches": 1, "training.seed": seed,
+        "output.log_every_n_steps": 1, "precision.rematerialize": False,
+        "output.checkpoint_dir": os.path.join(workdir, name, "checkpoints"),
+        "output.log_dir": os.path.join(workdir, name, "logs"), **overrides})
+
+
+def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
+                expected_launches: int) -> tuple[dict, Trainer, DataModule]:
+    """``DataModule`` -> ``train.build_net`` -> ``Trainer.fit`` for
+    ``TRAIN_STEPS`` steps -> ``Trainer.test``, as ``train.main`` wires them;
+    ms per step and the loader wait over the steps after the warm-up that
+    do not start an epoch."""
+    config = data_config(data, workdir, name, seed, overrides)
+    t0 = time.perf_counter()
+    dm = DataModule(config)
+    dm.setup()
+    train_loader = dm.train_dataloader()  # probes every clip's frame count
+    probe_s = time.perf_counter() - t0
+    steps_per_epoch = len(train_loader)
+    net = train_entry.build_net(config, dm.vocab_size, "cuda", moco_file=data["moco"])
+    trainer = Trainer(config, net, dm.tokenizer)
+    trainer.writer = _RecordingWriter(trainer.writer.path)
+    trainer.step_timestamps, trainer.data_wait_s = [], []
+    per_step = []
+    step = trainer.task.train_step
+
+    def counted_step(*args, **kwargs):
+        before = fa.launches
+        out = step(*args, **kwargs)
+        per_step.append(fa.launches - before)
+        return out
+
+    trainer.task.train_step = counted_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    trainer.fit(dm, max_steps=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = trainer.test(dm)
+    launches = fa.launches
+
+    if len(per_step) != TRAIN_STEPS or set(per_step) != {expected_launches}:
+        raise AssertionError(f"data path {name}: K1 launches per train step {per_step}, "
+                             f"expected {expected_launches} each")
+    step_loss = {st: v for tag, v, st in trainer.writer.scalars if tag == "train/loss"}
+    losses = [step_loss[i] for i in range(1, TRAIN_STEPS + 1)]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"data path {name}: non-finite loss in {losses}")
+    if any(tag == "train/skipped_steps" for tag, _, _ in trainer.writer.scalars):
+        raise AssertionError(f"data path {name}: a step was skipped")
+    if not os.path.exists(os.path.join(config["output"]["checkpoint_dir"],
+                                       f"step_{TRAIN_STEPS}.pt")):
+        raise AssertionError(f"data path {name}: no checkpoint was written")
+    predictions = os.path.join(os.path.dirname(trainer.writer.path), "predictions.txt")
+    if (not any(tag == "test/wer" for tag, _, _ in trainer.writer.scalars)
+            or not os.path.exists(predictions) or not np.isfinite(metrics["wer"])):
+        raise AssertionError(f"data path {name}: the test WER was not written ({metrics})")
+    ts, waits = trainer.step_timestamps, trainer.data_wait_s
+    # step i (0-based) ends at ts[i]; time steps past the warm-up that do not
+    # open an epoch (the gap before those holds validation and a checkpoint)
+    timed = [i for i in range(TRAIN_WARMUP, TRAIN_STEPS) if i % steps_per_epoch]
+    ms = float(np.mean([(ts[i] - ts[i - 1]) * 1e3 for i in timed]))
+    out = {"train_ms_per_step": ms, "train_clips_per_sec": B / (ms * 1e-3),
+           "data_wait_ms": float(np.mean([waits[i] * 1e3 for i in timed])),
+           "data_wait_ms_each": [w * 1e3 for w in waits],
+           "step_ms_each": [(y - x) * 1e3 for x, y in zip(ts, ts[1:])],
+           "timed_steps": [i + 1 for i in timed], "steps_per_epoch": steps_per_epoch,
+           "peak_mem_gib": peak, "losses": losses, "test_wer": metrics["wer"],
+           "k1_launches_per_step": expected_launches, "k1_launches_in_fit_and_test": launches,
+           "fit_s": fit_s, "probe_s": probe_s}
+    log(f"data path {name} bf16 B={B}: " + json.dumps(out))
+    return out, trainer, dm
+
+
+def check_moco_fold(net, moco: str) -> dict:
+    """The frontend's folded weights on the card against a CPU fold of the
+    same checkpoint."""
+    weights, report = resnet50_from_moco(torch.load(moco, map_location="cpu", weights_only=True))
+    body = net.visual_frontend.body.state_dict()
+    differ = [k for k, v in weights.items() if not torch.equal(body[k].cpu(), torch.from_numpy(v))]
+    if differ or report["blocks_loaded"] != 16 or report["skipped"]:
+        raise AssertionError(f"MoCo weights on the card differ from the CPU fold: {differ[:4]}, "
+                             f"report {report}")
+    return {"blocks_loaded": report["blocks_loaded"], "tensors_equal": len(weights)}
+
+
+def check_prefetch_placement(trainer: Trainer, config) -> dict:
+    """The train loader's batches placed on the card by the prefetch thread
+    (4 workers, 2 batches ahead) against the same batches collated without
+    threads and placed by the main thread: bit-equal."""
+    sync_config = config.copy()
+    sync_config.set_dotted("data.num_workers", 0)
+    sync_config.set_dotted("data.prefetch_batches", 0)
+    dm_threads, dm_sync = DataModule(config), DataModule(sync_config)
+    threaded, sync = dm_threads.train_dataloader(), dm_sync.train_dataloader()
+    threaded.device_put = trainer._put_batch
+    compared = 0
+    for a, b in zip(threaded, sync):
+        a, b = trainer._ready(a), trainer._ready(trainer._put_batch(b))
+        for key, value in b.items():
+            if isinstance(value, torch.Tensor) and not (value.device == a[key].device
+                                                        and torch.equal(value, a[key])):
+                raise AssertionError(f"prefetch-placed batch {compared}: {key} differs")
+        compared += 1
+    if compared != len(sync):
+        raise AssertionError(f"prefetch placement compared {compared} of {len(sync)} batches")
+    return {"batches_bit_equal": compared}
+
+
+def check_waveform_mel(dm) -> dict:
+    """The waveform-mode mel of one packed train batch, card against CPU, TF32
+    off; and its wall time on the card."""
+    batch = next(iter(dm.train_dataloader()))
+    audio, mask = torch.from_numpy(batch["audio"]), torch.from_numpy(batch["audio_mask"])
+    ref = packed_waveform_mel(audio, mask)
+    card_audio, card_mask = audio.cuda(), mask.cuda()
+    ours = packed_waveform_mel(card_audio, card_mask)
+    err = (ours.cpu() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    ms = cuda_ms(lambda: packed_waveform_mel(card_audio, card_mask), 10)
+    out = {"shape": list(audio.shape), "max_abs_err": err, "max_value": scale,
+           "rel_err": err / scale, "rtol": MEL_RTOL, "ms_on_card": ms}
+    log("waveform-mode mel card vs CPU: " + json.dumps(out))
+    if not err <= MEL_RTOL * scale:
+        raise AssertionError(f"waveform-mode mel card vs CPU differs by {err} (max {scale})")
+    return out
+
+
+def loader_breakdown(data: dict, seed: int) -> dict:
+    """Where the host's time per clip goes (each stage timed alone on one
+    train clip of the dataset, best of 3), and the on-device-mel train
+    loader's time per epoch with 1 and with 4 worker threads."""
+    from mocov2_whisper_flamingo_torch.datamodule import av_dataset, transforms
+
+    clip = os.path.join(data["root"], "train", "train_video_seg12s", "spk1", "clip000.npy")
+    proc = av_dataset.DataProcessor()
+    frames = proc.load_video(clip, 400)
+    wave = proc.load_audio(clip)
+    rng = np.random.default_rng(seed)
+    stages = {
+        "read_npy": lambda: proc.load_video(clip, 400),
+        "read_wav_and_resample": lambda: proc.load_audio(clip),
+        "video_resize_uint8": lambda: transforms.VideoTransform("train", on_device=True)(frames),
+        "video_host_train": lambda: transforms.VideoTransform("train")(frames, rng),
+        "video_host_eval": lambda: transforms.VideoTransform("val")(frames),
+        "audio_host_train": lambda: transforms.AudioTransform("train")(wave, rng),
+        "mel_host": lambda: transforms.np_reference_mel(wave),
+        "pack_waveform": lambda: av_dataset.pack_waveform(wave),
+    }
+    out = {}
+    for name, fn in stages.items():
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - t0)
+        out[f"{name}_ms"] = best * 1e3
+    for workers in (1, 4):
+        config = data_config(data, os.path.join(data["root"], "unused"), "unused", seed, {
+            **DATA_MODES["on_device_mel"], "data.num_workers": workers,
+            "data.prefetch_batches": 0})
+        dm = DataModule(config)
+        dm.setup("fit")
+        loader = dm.train_dataloader()
+        t0 = time.perf_counter()
+        n = sum(1 for _ in loader)
+        out[f"on_device_mel_epoch_s_{workers}_workers"] = time.perf_counter() - t0
+        out["batches_per_epoch"] = n
+    log("loader host time per clip: " + json.dumps(out))
+    return out
+
+
+def run_data_path(seed: int, expected_launches: int) -> dict:
+    """Phase 13: a dataset on disk through the data module at full width, in
+    the three augmentation modes; then ``train.main`` itself for 2 steps."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    workdir = os.path.join(root, "build", "chip_smoke_data_train")
+    t0 = time.perf_counter()
+    native.load_library()  # g++ builds the native IO library; a missing compiler raises
+    out = {"native_build_s": time.perf_counter() - t0}
+    try:
+        import cv2
+        log(f"cv2 {cv2.__version__} imports; phase 13's dataset is .npy only")
+    except ImportError as e:
+        log(f"cv2 cannot be imported ({e}); phase 13's dataset is .npy only")
+    data = write_dataset(os.path.join(root, "build", "chip_smoke_data"), seed + 13)
+    out["dataset"] = {k: data[k] for k in ("frames", "write_s")}
+    out["dataset"].update(clips=DATA_CLIPS, seconds_per_clip=DATA_SECONDS,
+                          sample_rate=DATA_RATE, frames_range=list(DATA_FRAMES))
+    log(f"phase 13 dataset: {json.dumps(out['dataset'])}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    try:
+        out["loader_breakdown"] = loader_breakdown(data, seed)
+        for name, overrides in DATA_MODES.items():
+            out[name], trainer, dm = fit_on_data(name, data, workdir, seed, overrides,
+                                                 expected_launches)
+            if name == "host":
+                out["moco_fold"] = check_moco_fold(trainer.net, data["moco"])
+            if name == "on_device_mel":
+                out["prefetch_placement"] = check_prefetch_placement(trainer, dm.config)
+                out["waveform_mel"] = check_waveform_mel(dm)
+            del trainer, dm
+            shutil.rmtree(os.path.join(workdir, name), ignore_errors=True)  # ~1 GB a checkpoint
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        argv = [a for s in (f"data.root_dir={data['root']}", f"data.moco_file={data['moco']}",
+                            "data.num_workers=4",
+                            f"output.checkpoint_dir={os.path.join(workdir, 'main', 'ckpt')}",
+                            f"output.log_dir={os.path.join(workdir, 'main', 'logs')}")
+                for a in ("--set", s)] + ["--max-steps", "2"]
+        rc = train_entry.main(argv)
+        if rc != 0:
+            raise AssertionError(f"train.main {argv} returned {rc}")
+        out["train_main"] = {"argv": argv, "rc": rc, "s": time.perf_counter() - t0}
+        log(f"train.main on the dataset, 2 steps: rc 0 in {out['train_main']['s']:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(data["root"], ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1596,6 +1922,7 @@ def main() -> int:
                   "teacher_forcing": run_teacher_forcing(args.seed),
                   "streaming": run_streaming(args.seed),
                   "continuous": run_continuous(args.seed)}
+    data_path = run_data_path(args.seed, train_path["dropout_0.1"]["k1_launches_per_step"])
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -1624,9 +1951,12 @@ def main() -> int:
           "launches_per_train_step": {name: train_path[name]["k1_launches_per_step"]
                                       for name in ("dropout_0.1", "dropout_0",
                                                    "dropout_0_remat")},
+          "launches_per_data_train_step": {
+              name: data_path[name]["k1_launches_per_step"] for name in DATA_MODES},
           "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
     print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
-                      "serve_path": serve_path, "card": smi}), flush=True)
+                      "serve_path": serve_path, "data_path": data_path, "card": smi}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -134,9 +134,10 @@ AUGMENTATION_DEFAULTS = dict(
     # (ops.augment.make_batch_augment). Off by default, as in the reference's
     # host pipeline; turn on when the host cannot feed the device step.
     on_device=False,
-    # With on_device: the train loader ships the raw 16 kHz waveform and the
-    # mel is computed on the device. Not ported yet: make_batch_augment
-    # raises on such a batch.
+    # With on_device: the train loader ships the raw 16 kHz waveform (packed
+    # to 480200 samples) and the mel is computed on the card inside the train
+    # step (ops.augment.make_batch_augment), with fp32 matmuls: TF32 must be
+    # off, or the step raises.
     on_device_mel=False,
     video=dict(
         train=dict(

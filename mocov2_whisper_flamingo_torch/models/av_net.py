@@ -12,10 +12,17 @@ video``; and the frame-wise CTC head in ``forward``.
 The Whisper encoder and the MoCo frontend are frozen: they run under
 ``torch.no_grad()`` and their parameters never require a gradient. Every
 other parameter is trainable (``trainable_parameters``).
+
+Pretrained weights: ``MoCofile`` (or ``load_moco``) installs a MoCo v2
+checkpoint's ResNet-50 layers into the frontend, and ``load_whisper_torch``
+an HF Whisper state dict into the encoder.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import pickle
 from typing import Any, Sequence
 
 import torch
@@ -23,10 +30,14 @@ from torch import nn
 
 from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.models.convert import (
+    load_jax_params, resnet50_from_moco, whisper_encoder_from_torch)
 from mocov2_whisper_flamingo_torch.models.fusion import GatedCrossModalFusion
 from mocov2_whisper_flamingo_torch.models.visual_frontend import MoCoVisualFrontend
 from mocov2_whisper_flamingo_torch.models.whisper import (
     WhisperConfig, WhisperEncoder, config_for)
+
+logger = logging.getLogger(__name__)
 
 
 class AVNet(nn.Module):
@@ -44,10 +55,11 @@ class AVNet(nn.Module):
         whisper_config: WhisperConfig | None = None,
         remat: bool = False,
     ):
+        """``MoCofile``: a MoCo v2 checkpoint loaded into the frontend when
+        the file exists (a missing file is skipped with a warning, as the
+        JAX ``init`` skips it); the other weights start at zero until a
+        tree or state dict is loaded."""
         super().__init__()
-        if MoCofile:
-            raise NotImplementedError("loading a MoCo checkpoint is not ported yet; "
-                                      "load weights through models/convert.py")
         device = resolve_device(device)
         d_model, n_heads, n_layers, pe_max_len, fc_hidden_size, dropout = modelargs
         self.modal = modal
@@ -72,8 +84,43 @@ class AVNet(nn.Module):
         self.register_buffer("_pe", torch.from_numpy(pe).to(device), persistent=False)
         for _, param in self.trainable_parameters():
             param.requires_grad_(True)
+        self.moco_report: dict | None = None
+        if MoCofile:
+            self.load_moco(MoCofile)
 
     # -- params ---------------------------------------------------------------
+
+    def load_moco(self, path: str) -> dict | None:
+        """Install the query encoder's layer1-4 of the MoCo v2 checkpoint at
+        ``path`` into the frozen frontend, BN folded
+        (``convert.resnet50_from_moco``); blocks the checkpoint lacks keep
+        their weights. Returns the conversion report, or None (with a
+        warning) when the file does not exist."""
+        if not os.path.exists(path):
+            logger.warning("MoCo checkpoint %s not found: the frontend keeps its weights", path)
+            return None
+        try:
+            checkpoint = torch.load(path, map_location="cpu", weights_only=True)
+        except pickle.UnpicklingError as e:
+            raise RuntimeError(
+                f"{path} cannot be read with torch.load(weights_only=True): it holds objects "
+                "other than tensors and containers; save its state dict alone") from e
+        weights, report = resnet50_from_moco(checkpoint)
+        body = self.visual_frontend.body.state_dict()
+        with torch.no_grad():
+            for name, value in weights.items():
+                body[name].copy_(torch.from_numpy(value))
+        logger.info("MoCo v2 checkpoint: %d blocks loaded, %d skipped",
+                    report["blocks_loaded"], len(report["skipped"]))
+        self.moco_report = report
+        return report
+
+    def load_whisper_torch(self, state_dict) -> "AVNet":
+        """Install an HF ``WhisperModel`` state dict's encoder into the frozen
+        Whisper encoder (in place)."""
+        load_jax_params(self.whisper_encoder, whisper_encoder_from_torch(
+            state_dict, self.whisper_config.encoder_layers))
+        return self
 
     FROZEN = ("whisper_encoder", "visual_frontend")
 

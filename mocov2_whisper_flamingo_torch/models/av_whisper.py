@@ -8,7 +8,8 @@
                        Whisper decoder -> greedy / KV-cached beam search
 
 Weights come from the JAX parameter tree through
-``models/convert.py::load_jax_params``.
+``models/convert.py::load_jax_params``, or from an HF Whisper state dict
+through ``load_whisper_torch``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
 from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet
+from mocov2_whisper_flamingo_torch.models.convert import (
+    load_jax_params, whisper_decoder_from_torch)
 from mocov2_whisper_flamingo_torch.models.whisper import (
     WhisperConfig, WhisperDecoder, config_for)
 
@@ -55,6 +58,14 @@ class AVWhisperNet(nn.Module):
         self.decoder = WhisperDecoder(cfg, precision, device)
         self.d_model = modelargs[0]
         self.precision = precision
+
+    def load_whisper_torch(self, state_dict) -> "AVWhisperNet":
+        """Install an HF ``WhisperModel`` state dict's encoder and decoder
+        (in place)."""
+        self.trunk.load_whisper_torch(state_dict)
+        load_jax_params(self.decoder, whisper_decoder_from_torch(
+            state_dict, self.whisper_config.decoder_layers))
+        return self
 
     @torch.no_grad()
     def encode(self, input_batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:

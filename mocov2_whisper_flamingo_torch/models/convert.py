@@ -22,6 +22,8 @@ seed with numpy, for runs that need full-size random weights without JAX.
 ``WhisperModel`` state dict into the same JAX-layout numpy trees (the port's
 own copy of the JAX package's converters), so one tree loads into the JAX
 models and, through ``load_jax_params``, into the port's.
+``resnet50_from_moco`` turns a MoCo v2 checkpoint into the folded weights of
+the frontend's ResNet-50 body.
 """
 
 from __future__ import annotations
@@ -323,6 +325,57 @@ def whisper_decoder_from_torch(state_dict: Mapping, num_layers: int) -> dict:
         "layers": _hf_layers(sd, num_layers, cross=True),
         "ln_post": _hf_layer_norm(sd, "layer_norm"),
     }
+
+
+# -- MoCo v2 ResNet-50 checkpoints ----------------------------------------------------
+
+
+def _moco_bn(sd: Mapping, prefix: str) -> dict:
+    return {"scale": _np(sd[f"{prefix}.weight"]), "bias": _np(sd[f"{prefix}.bias"]),
+            "mean": _np(sd[f"{prefix}.running_mean"]), "var": _np(sd[f"{prefix}.running_var"])}
+
+
+def _moco_conv(sd: Mapping, prefix: str) -> np.ndarray:
+    # torch Conv2d weight [out, in, kh, kw] -> the JAX layout [kh, kw, in, out]
+    return _np(sd[f"{prefix}.weight"]).transpose(2, 3, 1, 0)
+
+
+def resnet50_from_moco(checkpoint: Mapping) -> tuple[dict[str, np.ndarray], dict]:
+    """MoCo v2 checkpoint -> folded weights of the frontend's ResNet-50 body,
+    with the JAX converter's ``load_state_dict(strict=False)`` semantics: the
+    query encoder's layer1-4 keys land (``module.`` and ``encoder_q.``
+    stripped), the stem and the MoCo MLP head are dropped, and a block with a
+    missing key is reported in ``skipped`` and keeps its current weights.
+
+    ``checkpoint``: the ``torch.load`` result (with ``"state_dict"``) or a
+    plain state dict. Returns ``({name: array}, report)``: names relative to
+    ``ResNet50Body`` (``layer1.0.conv1.weight``), each BatchNorm folded into
+    its conv by ``fold_bn``; the report is the JAX converter's
+    ``{"blocks_loaded": n, "skipped": ["layerN.i: 'missing key'", ...]}``.
+    Within a block the (conv, BN) pairs before the first missing key still
+    land, as the JAX converter writes them before it stops; a conv whose own
+    BN is missing is left as it was (the folded form cannot pair it with the
+    old BN)."""
+    sd = checkpoint.get("state_dict", checkpoint)
+    clean = {k.removeprefix("module.").removeprefix("encoder_q."): v for k, v in sd.items()}
+    out: dict[str, np.ndarray] = {}
+    loaded, skipped = 0, []
+    c_in = 64
+    for stage_idx, (blocks, mid, stride) in enumerate(RESNET50_STAGES, start=1):
+        for block_idx in range(blocks):
+            pfx = f"layer{stage_idx}.{block_idx}"
+            pairs = [(f"conv{i}", f"{pfx}.conv{i}", f"{pfx}.bn{i}") for i in (1, 2, 3)]
+            if block_idx == 0 and (stride != 1 or c_in != mid * EXPANSION):
+                pairs.append(("downsample", f"{pfx}.downsample.0", f"{pfx}.downsample.1"))
+            c_in = mid * EXPANSION
+            try:
+                for name, conv, bn in pairs:
+                    w, b = fold_bn(_moco_conv(clean, conv), _moco_bn(clean, bn))
+                    out[f"{pfx}.{name}.weight"], out[f"{pfx}.{name}.bias"] = _hwio_to_oihw(w), b
+                loaded += 1
+            except KeyError as e:
+                skipped.append(f"{pfx}: {e}")
+    return out, {"blocks_loaded": loaded, "skipped": skipped}
 
 
 # -- the other direction, for the trainable leaves ---------------------------------

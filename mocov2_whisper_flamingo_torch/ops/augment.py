@@ -13,13 +13,10 @@ libraries' random streams differ.
 
 from __future__ import annotations
 
-import wave
-
-import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mocov2_whisper_flamingo_torch.ops.mel import global_layer_norm
+from mocov2_whisper_flamingo_torch.ops.mel import N_FRAMES, global_layer_norm, reference_mel
 
 SNR_LEVELS = (-5.0, 0.0, 5.0, 10.0, 15.0, 20.0, 999999.0)
 
@@ -206,21 +203,20 @@ def train_audio_pipeline(mel: torch.Tensor, generator: torch.Generator,
     return torch.vmap(global_layer_norm)(x.reshape(-1, *x.shape[-2:])).reshape(x.shape)
 
 
-def read_wav_mono(path: str) -> tuple[np.ndarray, int]:
-    """Mono float32 waveform in [-1, 1] and its sample rate, from a PCM WAV
-    file of 8, 16 or 32 bits."""
-    with wave.open(path, "rb") as w:
-        raw = w.readframes(w.getnframes())
-        width, channels, rate = w.getsampwidth(), w.getnchannels(), w.getframerate()
-    if width == 2:
-        data = np.frombuffer(raw, dtype="<i2").astype(np.float32) / 32768.0
-    elif width == 4:
-        data = np.frombuffer(raw, dtype="<i4").astype(np.float32) / 2147483648.0
-    elif width == 1:
-        data = (np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128) / 128.0
-    else:
-        raise ValueError(f"unsupported wav sample width {width}")
-    return data.reshape(-1, channels).mean(axis=1).astype(np.float32), rate
+def packed_waveform_mel(audio: torch.Tensor, audio_mask: torch.Tensor | None = None
+                        ) -> torch.Tensor:
+    """Mel ``[B, F, T]`` of a packed waveform batch ``[B, S]``
+    (``augmentation.on_device_mel``), ``T`` the mask's length (3000 without
+    one). The reflect tail in each row's padding makes its real frames those
+    of the host STFT; frames past each row's real count (the mask's) are
+    zeroed."""
+    t_len = audio_mask.shape[-1] if audio_mask is not None else N_FRAMES
+    mel_ft = reference_mel(audio)[..., :t_len]
+    if audio_mask is None:
+        return mel_ft
+    lengths = audio_mask.to(torch.int64).sum(dim=-1)
+    valid = torch.arange(t_len, device=audio.device)[None, :] < lengths[:, None]
+    return mel_ft * valid[:, None, :]
 
 
 def make_batch_augment(config, device: torch.device | str):
@@ -234,14 +230,18 @@ def make_batch_augment(config, device: torch.device | str):
     Expected batch layout: ``audio`` ``[B, 3000, 80]`` raw mel (no augment,
     no layer-norm), ``audio_mask`` ``[B, 3000]`` True = valid, ``video``
     ``[B, T, C, H, W]`` uint8 raw 0-255 (resized only), ``video_lengths``
-    ``[B]``. A ``[B, S]`` packed raw waveform (``augmentation.on_device_mel``)
-    is not ported yet and raises.
+    ``[B]``. With ``augmentation.on_device_mel`` ``audio`` is the ``[B,
+    480200]`` packed raw waveform (``datamodule/av_dataset.py::
+    pack_waveform``) and the mel is computed here by ``ops.mel.reference_mel``
+    (fp32 matmuls: on the card TF32 must be off, or it raises); frames past
+    each row's real count are zeroed before the augmentation.
 
     Distribution deviations from the host path: ColorJitter applies its ops
     in a fixed order (the host samples a permutation per clip), and video pad
     frames are zeroed again after normalization (the host pads after it; the
     visual frontend zero-fills past ``video_lengths`` either way).
     """
+    from mocov2_whisper_flamingo_torch.datamodule.native import read_wav_mono
     from mocov2_whisper_flamingo_torch.ops.video import train_video_pipeline
 
     a_cfg = config["augmentation"]["audio"]["train"]
@@ -272,17 +272,17 @@ def make_batch_augment(config, device: torch.device | str):
         out = dict(batch)
         if batch.get("audio") is not None:
             audio = batch["audio"]
-            if audio.ndim == 2:
-                raise NotImplementedError(
-                    "augmentation.on_device_mel (a packed raw waveform batch, the mel computed "
-                    "on the device) belongs to the audio slice of the port and is not ported "
-                    "yet")
             lengths = None
             if batch.get("audio_mask") is not None:
                 lengths = batch["audio_mask"].to(torch.int64).sum(dim=-1)
+            if audio.ndim == 2:
+                mel_ft = packed_waveform_mel(audio, batch.get("audio_mask"))
+                t_len = mel_ft.shape[-1]
+            else:
+                mel_ft = audio.transpose(-1, -2)  # [B, T, F] -> [B, F, T]
+                t_len = audio.shape[-2]
             out["audio"] = train_audio_pipeline(
-                audio.transpose(-1, -2), generator, noise_bed=noise_bed,
-                target_length=audio.shape[-2], lengths=lengths,
+                mel_ft, generator, noise_bed=noise_bed, target_length=t_len, lengths=lengths,
                 spec_augment_kwargs=spec_kwargs, snr_levels=snr_levels)
         if batch.get("video") is not None:
             out["video"] = train_video_pipeline(

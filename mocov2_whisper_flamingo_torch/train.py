@@ -4,11 +4,19 @@ config -> tokenizer -> data module -> AVNet -> Trainer (top-k checkpoints,
 early stopping, LR logging) -> fit -> test, on one CUDA card.
 
 Usage:
+  python -m mocov2_whisper_flamingo_torch.train --set data.root_dir=/data/avsr
+  python -m mocov2_whisper_flamingo_torch.train --set data.root_dir=/data/avsr \
+      --set augmentation.on_device=true --set augmentation.on_device_mel=true
   python -m mocov2_whisper_flamingo_torch.train --smoke          # 2-step synthetic run
-  python -m mocov2_whisper_flamingo_torch.train --smoke --set model.d_model=256
   python -m mocov2_whisper_flamingo_torch.train --smoke --device cpu
 
-Without ``--smoke`` the run needs the data module, which is not ported yet.
+The dataset lies under ``data.root_dir`` as
+``{split}/{split}_video_seg12s/<folder>/<clip>.{npy,npz,mp4}`` with a sibling
+``<clip>.wav`` and the text in ``{split}/{split}_text_seg12s/<folder>/<clip>.txt``
+for the splits train, val and test. ``data.moco_file`` names a MoCo v2
+checkpoint for the lip frontend (skipped with a warning when missing); the
+Whisper encoder starts from random weights, as in the JAX package's
+``train.py``.
 """
 
 from __future__ import annotations
@@ -26,9 +34,12 @@ from mocov2_whisper_flamingo_torch.utils.logging_utils import setup_logging
 logger = logging.getLogger("train")
 
 
-def build_net(config, vocab_size: int, device: str | torch.device | None = "cuda"):
+def build_net(config, vocab_size: int, device: str | torch.device | None = "cuda",
+              moco_file: str | None = None):
     """The AVNet the config describes, on ``device``, with random weights
-    drawn from ``training.seed`` (the JAX ``init`` distributions)."""
+    drawn from ``training.seed`` (the JAX ``init`` distributions); then, as
+    the JAX ``AVNet.init`` does, the layers of the MoCo v2 checkpoint
+    ``moco_file`` over the frontend's when the file exists."""
     from mocov2_whisper_flamingo_torch.models import layers as L
     from mocov2_whisper_flamingo_torch.models.av_net import AVNet
     from mocov2_whisper_flamingo_torch.models.convert import load_jax_params, random_avnet_params
@@ -39,7 +50,7 @@ def build_net(config, vocab_size: int, device: str | torch.device | None = "cuda
     precision = L.BF16 if config["precision"]["compute_dtype"] == "bfloat16" else L.FP32
     net = AVNet(
         modal=config["data"]["modality"],
-        MoCofile=None,  # checkpoint loaders are not ported yet: random weights
+        MoCofile=None,  # loaded below, over the random weights
         reqInpLen=model["required_input_length"],
         modelargs=model_args,
         vocab_size=vocab_size,
@@ -50,7 +61,10 @@ def build_net(config, vocab_size: int, device: str | torch.device | None = "cuda
         remat=bool(config["precision"].get("rematerialize", False)),
     )
     tree = random_avnet_params(net, int(config["training"].get("seed", 0)))
-    return load_jax_params(net, tree)
+    load_jax_params(net, tree)
+    if moco_file:
+        net.load_moco(moco_file)
+    return net
 
 
 class _SmokeDataModule:
@@ -108,34 +122,44 @@ def main(argv: list[str] | None = None) -> int:
 
     config = config_from_args(args)
     setup_logging()
-    if not args.smoke:
-        print("train: only --smoke runs so far: the data module (datamodule/*) and the "
-              "checkpoint loaders are not ported yet", file=sys.stderr)
-        return 2
 
     from mocov2_whisper_flamingo_torch.training.trainer import Trainer
     from mocov2_whisper_flamingo_torch.utils.tokenizer import load_tokenizer
 
-    config.set_dotted("training.epochs", 1)
-    config.set_dotted("training.accumulate_grad_batches", 1)
-    config.set_dotted("output.log_every_n_steps", 1)
-    config.set_dotted("mesh.model", 1)
-    # shrink the model so the smoke run is quick
-    config.set_dotted("whisper.model_name", "whisper-tiny")
-    config.set_dotted("model.d_model", 64)
-    # 2 heads of 32: the flash-attention kernels take head dims 32, 64 and 128
-    config.set_dotted("model.n_heads", 2)
-    config.set_dotted("model.fc_hidden_size", 128)
-    tokenizer = load_tokenizer(None)
-    datamodule = _SmokeDataModule(tokenizer)
-    vocab_size = len(tokenizer)
+    if args.smoke:
+        config.set_dotted("training.epochs", 1)
+        config.set_dotted("training.accumulate_grad_batches", 1)
+        config.set_dotted("output.log_every_n_steps", 1)
+        config.set_dotted("mesh.model", 1)
+        # shrink the model so the smoke run is quick
+        config.set_dotted("whisper.model_name", "whisper-tiny")
+        config.set_dotted("model.d_model", 64)
+        # 2 heads of 32: the flash-attention kernels take head dims 32, 64 and 128
+        config.set_dotted("model.n_heads", 2)
+        config.set_dotted("model.fc_hidden_size", 128)
+        tokenizer = load_tokenizer(None)
+        datamodule = _SmokeDataModule(tokenizer)
+        vocab_size = len(tokenizer)
+    else:
+        from mocov2_whisper_flamingo_torch.datamodule.data_module import DataModule
+
+        datamodule = DataModule(config)
+        datamodule.setup()
+        if not len(datamodule.train_dataset):
+            print(f"train: the data module found no training clip under "
+                  f"{datamodule.train_dataset.video_dir} with its text in "
+                  f"{datamodule.train_dataset.text_dir}; set data.root_dir", file=sys.stderr)
+            return 2
+        tokenizer = datamodule.tokenizer
+        vocab_size = datamodule.vocab_size
 
     logger.info("vocab size = %d", vocab_size)
-    net = build_net(config, vocab_size, args.device)
+    net = build_net(config, vocab_size, args.device, moco_file=config["data"]["moco_file"])
     trainer = Trainer(config, net, tokenizer, device=args.device)
 
     logger.info("starting training...")
-    trainer.fit(datamodule, max_steps=args.max_steps or 2, resume=args.resume)
+    trainer.fit(datamodule, max_steps=args.max_steps or (2 if args.smoke else None),
+                resume=args.resume)
 
     logger.info("starting testing...")
     metrics = trainer.test(datamodule)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
 
 import numpy as np
@@ -32,6 +33,13 @@ from mocov2_whisper_flamingo_torch.utils.tb_writer import SummaryWriter
 from mocov2_whisper_flamingo_torch.utils.wer import wer as corpus_wer
 
 logger = logging.getLogger(__name__)
+
+
+class _PlacedBatch(dict):
+    """A batch placed by ``Trainer._put_batch``; ``ready``: the event after
+    its host-to-device copies (None off the card)."""
+
+    ready: torch.cuda.Event | None = None
 
 
 class EarlyStopping:
@@ -163,6 +171,11 @@ class Trainer:
         # non-finite guard on, a step ends in a synchronisation, so the gaps
         # are whole steps, data preparation included.
         self.step_timestamps: list[float] | None = None
+        # Optional (set to [] before fit): seconds each train step waited on
+        # the loader for its batch.
+        self.data_wait_s: list[float] | None = None
+        self._stream: torch.cuda.Stream | None = None
+        self._stream_lock = threading.Lock()
 
     @staticmethod
     def _next_version_dir(base: str) -> str:
@@ -213,18 +226,49 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(training.get("seed", 0)))
 
-    def _put_batch(self, batch: dict) -> dict:
+    def _put_batch(self, batch: dict) -> "_PlacedBatch":
         """Host batch -> tensors on the trainer's device (``target_text``
-        stays a list)."""
-        placed = {}
-        for key, value in batch.items():
-            if key == "target_text":
-                continue
-            if isinstance(value, np.ndarray):
-                value = torch.from_numpy(value)
-            placed[key] = value.to(self.device, non_blocking=True)
-        placed["target_text"] = batch.get("target_text", [])
+        stays a list). Safe to call from the loader's prefetch thread.
+
+        On the card each host array is pinned and copied with
+        ``non_blocking=True`` on the trainer's own copy stream, so batch N+1's
+        copy overlaps step N; the batch carries an event recorded after its
+        copies, which ``_ready`` makes the consuming stream wait on. The
+        caching host allocator records each pinned block's copy, so a block
+        is not handed out again while its copy is in flight."""
+        placed = _PlacedBatch(target_text=batch.get("target_text", []))
+        placed.update({k: None for k, v in batch.items() if v is None})
+        arrays = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                  for k, v in batch.items() if k != "target_text" and v is not None}
+        if self.device.type != "cuda":
+            placed.update({k: v.to(self.device) for k, v in arrays.items()})
+            return placed
+        with torch.cuda.device(self.device), torch.cuda.stream(self._copy_stream()):
+            for key, value in arrays.items():
+                if value.device.type == "cpu":
+                    value = value.pin_memory()
+                placed[key] = value.to(self.device, non_blocking=True)
+            placed.ready = torch.cuda.Event()
+            placed.ready.record()
         return placed
+
+    def _copy_stream(self) -> torch.cuda.Stream:
+        with self._stream_lock:
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            return self._stream
+
+    def _ready(self, placed: "_PlacedBatch") -> dict:
+        """Order the current stream after ``placed``'s copies, and mark its
+        tensors as used there (their blocks were allocated on the copy
+        stream). Returns the batch as a plain dict."""
+        if placed.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(placed.ready)
+            for value in placed.values():
+                if isinstance(value, torch.Tensor):
+                    value.record_stream(stream)
+        return dict(placed)
 
     def _state(self) -> dict:
         return {"params": self.net.state_dict(), "opt_state": self.optimizer.state_dict(),
@@ -237,6 +281,12 @@ class Trainer:
         """Train ``self.net`` in place and return it. ``resume``: a
         checkpoint path, or ``"last"``."""
         train_loader = datamodule.train_dataloader()
+        # Placement moves onto the loader's prefetch thread: batch N+1's
+        # fetch, collate and host-to-device copy overlap step N.
+        pre_placed = False
+        if getattr(train_loader, "device_put", "absent") is None:
+            train_loader.device_put = self._put_batch
+            pre_placed = True
         epochs = max_epochs or self.config["training"]["epochs"]
         steps_per_epoch = getattr(train_loader, "__len__", lambda: 100)()
         total = max_steps or epochs * max(steps_per_epoch, 1)
@@ -255,8 +305,15 @@ class Trainer:
             if hasattr(train_loader, "set_epoch"):
                 train_loader.set_epoch(epoch)
             t_epoch = time.time()
-            for batch in train_loader:
-                placed = self._put_batch(batch)
+            batches = iter(train_loader)
+            while True:
+                t_wait = time.perf_counter()
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                if self.data_wait_s is not None:
+                    self.data_wait_s.append(time.perf_counter() - t_wait)
+                placed = self._ready(batch if pre_placed else self._put_batch(batch))
                 placed.pop("target_text", None)
                 losses = self.task.train_step(self.optimizer, placed, self.generator)
                 self.global_step += 1
@@ -266,6 +323,8 @@ class Trainer:
                     break
                 if self.global_step % self.log_every == 0:
                     self._log_train(losses)
+            if hasattr(batches, "close"):
+                batches.close()  # stops a prefetch thread the loop left early
             logger.info("epoch %d done in %.1fs (step %d)",
                         epoch, time.time() - t_epoch, self.global_step)
             if losses is not None:
@@ -310,7 +369,7 @@ class Trainer:
         hyps: list[str] = []
         n = 0
         for batch in loader:
-            placed = self._put_batch(batch)
+            placed = self._ready(self._put_batch(batch))
             texts = placed.pop("target_text", [])
             losses, preds = self.task.eval_step(placed)
             # Per-sample weighting: batches vary in size, so a 1-row batch

@@ -246,7 +246,9 @@ def test_noise_bed_reader_and_config(tmp_path):
         w.setsampwidth(2)
         w.setframerate(16000)
         w.writeframes(pcm.tobytes())
-    data, rate = TA.read_wav_mono(path)
+    from mocov2_whisper_flamingo_torch.datamodule.native import read_wav_mono
+
+    data, rate = read_wav_mono(path)
     assert rate == 16000 and data.dtype == np.float32
     np.testing.assert_allclose(data, pcm.astype(np.float32).mean(axis=1) / 32768.0, atol=1e-7)
 

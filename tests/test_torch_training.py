@@ -583,8 +583,11 @@ def test_on_device_augmentation_runs_in_the_train_step_only(tmp_path):
     torch.testing.assert_close(per_clip.mean(dim=1), torch.zeros(2), atol=1e-4, rtol=0)
     torch.testing.assert_close(per_clip.var(dim=1, unbiased=False), torch.ones(2), atol=1e-3,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="audio slice"):
-        trainer.task.augment_fn(dict(batch, audio=torch.zeros((2, 480200))), gen)
+    # a packed waveform batch (augmentation.on_device_mel): the mel is made in the step
+    wave = torch.from_numpy(np.random.default_rng(3).standard_normal((2, 480200)) * 0.1).float()
+    packed = trainer.task.augment_fn(dict(batch, audio=wave,
+                                          audio_mask=torch.ones((2, 3000), dtype=torch.bool)), gen)
+    assert packed["audio"].shape == (2, 3000, 80) and bool(torch.isfinite(packed["audio"]).all())
 
 
 def test_smoke_entry_point_on_the_cpu(tmp_path, monkeypatch):
@@ -599,8 +602,9 @@ def test_smoke_entry_point_on_the_cpu(tmp_path, monkeypatch):
     assert json.load(open(tmp_path / "checkpoints" / "last.json"))["step"] == 3
 
 
-def test_entry_point_without_smoke_says_what_is_missing(capsys):
+def test_entry_point_without_smoke_says_what_is_missing(capsys, tmp_path):
     from mocov2_whisper_flamingo_torch import train
 
-    assert train.main(["--device", "cpu"]) == 2
-    assert "data module" in capsys.readouterr().err
+    assert train.main(["--device", "cpu", "--set", f"data.root_dir={tmp_path}"]) == 2
+    err = capsys.readouterr().err
+    assert "data module" in err and "train_video_seg12s" in err
