@@ -170,25 +170,49 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def traced(fn, tries: int = 3):
-    """``(profiler, wall seconds)`` of one run of ``fn`` under
-    ``torch.profiler``, synchronised. Now and then the profiler hands back
-    a window with no device events at all; such a run is made again, up to
+K1_RECORD = re.compile(r"attention_fwd_(?:wgmma|mma|f32)\w*(<[^>]*>)?")  # K1's three kernels
+PAD_KERNELS, PAD_CYCLES = 8, 1_000_000  # ``torch.cuda._sleep`` launches: 8 x ~0.6 ms
+
+
+def traced(fn, tries: int = 5):
+    """``(profiler, device records, wall seconds, traces taken)`` of one run
+    of ``fn`` under ``torch.profiler``, synchronised; the device records are
+    the kernels and copies that ``fn`` issued. The profiler now and then
+    loses the first few records of a window (on the card: 4 or 5 of them,
+    the same in trace after trace), or hands back a window with no device
+    events at all. So the window opens and closes with ``PAD_KERNELS`` spin
+    kernels each, whose records are dropped from what this returns; and as
+    the K1 wrapper counts its own launches, a trace that holds no device
+    time, or other than that many K1 records, is made again, up to
     ``tries`` times, and then this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    for _ in range(tries):
+    def pad():
+        for _ in range(PAD_KERNELS):
+            torch.cuda._sleep(PAD_CYCLES)
         torch.cuda.synchronize()
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        before = fa.launches
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pad()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_s = time.perf_counter() - t0
-        if any(ev.device_type == DeviceType.CUDA and ev.device_time > 0
-               for ev in prof.events()):
-            return prof, wall_s
-    raise AssertionError(f"torch.profiler recorded no device time in {tries} runs")
+            pad()
+        counted = fa.launches - before
+        device = [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        records = [ev for ev in device if "spin_kernel" not in ev.name]
+        k1_records = sum(1 for ev in records if K1_RECORD.search(ev.name))
+        if k1_records == counted and any(ev.device_time > 0 for ev in records):
+            return prof, records, wall_s, attempt
+        log(f"traced: trace {attempt} holds {len(device) - len(records)} of "
+            f"{2 * PAD_KERNELS} pad records and {len(records)} others, {k1_records} of them "
+            f"K1's; the wrapper launched K1 {counted} times; tracing again")
+    raise AssertionError(f"no trace in {tries} held device time and all {counted} K1 launches")
 
 
 def device_ms(fn, iters: int = 20) -> tuple[float, float]:
@@ -196,12 +220,9 @@ def device_ms(fn, iters: int = 20) -> tuple[float, float]:
     duration of the kernels that ``iters`` calls launched, as
     ``torch.profiler`` records them on the card, over ``iters``. Host time
     between the kernels does not count."""
-    from torch.autograd import DeviceType
-
     fn()
-    prof, _ = traced(lambda: [fn() for _ in range(iters)])
-    kernels_us = [ev.device_time for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    return sum(kernels_us) / iters / 1e3, len(kernels_us) / iters
+    _, records, _, _ = traced(lambda: [fn() for _ in range(iters)])
+    return sum(ev.device_time for ev in records) / iters / 1e3, len(records) / iters
 
 
 def attention_flops(b, tq, tk, h, d, causal: bool = False) -> int:
@@ -500,38 +521,23 @@ def run_main_path(seed: int) -> dict:
     return out
 
 
-def profile(fn, top: int = 6, tries: int = 3) -> dict:
+def profile(fn, top: int = 6) -> dict:
     """Device busy share and the kernels that take the most device time over
-    one call of ``fn``, from ``torch.profiler``. The profiler's own host
-    overhead lengthens the wall time, so the busy share is a lower bound.
-
-    The trace now and then loses a kernel's record. The K1 wrapper counts
-    its own launches, so a trace that holds fewer K1 records than the
-    wrapper made is incomplete: it is made again, up to ``tries`` times,
-    and then this raises."""
+    one call of ``fn``, from ``torch.profiler`` (a trace that holds all of
+    the call's K1 launches; see ``traced``). The profiler's own host
+    overhead lengthens the wall time, so the busy share is a lower bound."""
     from torch.autograd import DeviceType
 
-    for attempt in range(1, tries + 1):
-        before = fa.launches
-        prof, wall_s = traced(fn)
-        counted = fa.launches - before
-        kernels_us: dict[str, float] = {}
-        k1: dict[str, int] = {}  # K1 launches by kernel instantiation
-        launches = 0
-        for ev in prof.events():
-            if ev.device_type == DeviceType.CUDA:
-                name = ev.name[:100]  # template-heavy names; kernels sharing a prefix add up
-                kernels_us[name] = kernels_us.get(name, 0.0) + ev.device_time
-                launches += 1
-                found = re.search(r"attention_fwd\w*(<[^>]*>)?", ev.name)
-                if found:
-                    k1[found[0]] = k1.get(found[0], 0) + 1
-        if sum(k1.values()) == counted:
-            break
-        log(f"profile: trace {attempt} holds K1 records {k1}, the wrapper launched "
-            f"{counted}; tracing again")
-    else:
-        raise AssertionError(f"no trace in {tries} held all {counted} K1 launches")
+    prof, records, wall_s, attempt = traced(fn)
+    kernels_us: dict[str, float] = {}
+    k1: dict[str, int] = {}  # K1 launches by kernel instantiation
+    for ev in records:
+        name = ev.name[:100]  # template-heavy names; kernels sharing a prefix add up
+        kernels_us[name] = kernels_us.get(name, 0.0) + ev.device_time
+        found = K1_RECORD.search(ev.name)
+        if found:
+            k1[found[0]] = k1.get(found[0], 0) + 1
+    launches = len(records)
     wall_us = wall_s * 1e6
     busy = sum(kernels_us.values())
     ranked = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:top]
@@ -818,9 +824,6 @@ def step_breakdown(trainer: Trainer, batch: dict, iters: int = 3) -> dict:
     included, and the host's clock; mean of ``iters`` steps).
     ``device_busy_ms`` and ``device_ops`` are the summed kernel time and the
     kernel count of each part run alone under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     net, task, opt, gen = trainer.net, trainer.task, trainer.optimizer, trainer.generator
     inputs = (batch["audio"], batch["audio_mask"], batch["video"], batch["video_mask"],
               batch["video_lengths"])
@@ -864,26 +867,10 @@ def step_breakdown(trainer: Trainer, batch: dict, iters: int = 3) -> dict:
             out["between_events_ms"][name] += e0.elapsed_time(e1) / iters
             out["host_ms"][name] += (h1 - h0) * 1e3 / iters
 
-    def parts_alone():
-        """(kernel ms, kernel count) of each part; None when a profiler
-        window came back without device events (see ``traced``)."""
-        alone = {}
-        for name, part in parts.items():
-            torch.cuda.synchronize()
-            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                part()
-                torch.cuda.synchronize()
-            kernels_us = [ev.device_time for ev in prof.events()
-                          if ev.device_type == DeviceType.CUDA]
-            if not sum(kernels_us) > 0:
-                return None
-            alone[name] = (sum(kernels_us) / 1e3, len(kernels_us))
-        return alone
-
-    alone = parts_alone() or parts_alone() or parts_alone()
-    if alone is None:
-        raise AssertionError("torch.profiler recorded no device time for a part of the step "
-                             "in 3 runs")
+    alone = {}
+    for name, part in parts.items():
+        _, records, _, _ = traced(part)
+        alone[name] = (sum(ev.device_time for ev in records) / 1e3, len(records))
     out["device_busy_ms"] = {name: ms for name, (ms, _) in alone.items()}
     out["device_ops"] = {name: n for name, (_, n) in alone.items()}
     log("train step parts: " + json.dumps(out))
