@@ -44,6 +44,13 @@ threads, 2 batches prefetched and placed on the card by the prefetch thread),
 augmentation, with ``augmentation.on_device`` and with ``on_device_mel``;
 then ``train.main`` itself for 2 steps.
 
+Then long-form quality transcription (phase 14): ``WhisperASR.transcribe``
+over 90 s of audio in three 30 s windows with the temperature ladder, the
+no-speech probe and DTW word times, timed rung by rung and in turns with the
+streaming mode; the timestamp-conditioned seek loop over a 30 s clip; one
+window in fp32 on the card against the CPU with one noise for both; and the
+``transcribe`` command line writing all five formats.
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -53,7 +60,9 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
+import io
 import http.client
 import json
 import os
@@ -63,6 +72,7 @@ import subprocess
 import sys
 import threading
 import time
+import wave
 
 import numpy as np
 import torch
@@ -72,8 +82,10 @@ from mocov2_whisper_flamingo_torch import train as train_entry
 from mocov2_whisper_flamingo_torch.config import get_config
 from mocov2_whisper_flamingo_torch.datamodule import native
 from mocov2_whisper_flamingo_torch.datamodule.data_module import DataModule
+from mocov2_whisper_flamingo_torch.decode import sampling, timestamps
 from mocov2_whisper_flamingo_torch.decode.beam import beam_search
 from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+from mocov2_whisper_flamingo_torch.decode.sampling import GumbelDraws
 from mocov2_whisper_flamingo_torch.decode.streaming import StreamingDecoder
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
@@ -94,8 +106,10 @@ from mocov2_whisper_flamingo_torch.serving import (
 from mocov2_whisper_flamingo_torch.serving import continuous
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
+from mocov2_whisper_flamingo_torch.tools import transcribe as transcribe_cli
 from mocov2_whisper_flamingo_torch.training.trainer import Trainer
 from mocov2_whisper_flamingo_torch.utils.tokenizer import ByteTokenizer
+from mocov2_whisper_flamingo_torch.utils.writers import WRITER_FORMATS
 
 # The serving path's headline configuration.
 B, T_VIDEO, BEAM, MAX_TOKENS, SECONDS_PER_CLIP = 4, 400, 5, 160, 30.0
@@ -145,6 +159,19 @@ WAIT_S = 300  # every future, join and HTTP call of the serving phases
 # the 5-minute and the long-form legs; <|startofprev|> for the rollover check.
 STREAM_MAX_LEN, STREAM_TOKENS, STREAM_CHUNKS, LONGFORM_CHUNKS = 448, 40, 10, 20
 SOT_PREV = 50361
+# Long-form quality transcription (phase 14): the audio, the temperature
+# ladder and budgets, <|nospeech|>, the word-time alignment's token buckets
+# (powers of two from 32, capped at the decoder's 448 positions), and the
+# fp32 card-vs-CPU tolerance of an average logprob (fp32 sums of ~30
+# log-softmax values, computed by other kernels on each side).
+LONG_SECONDS, LONG_TEMPERATURES, LONG_MAX_LEN, SEEK_MAX_LEN = 90.0, (0.0, 0.4, 0.8), 128, 64
+NO_SPEECH_ID, ALIGN_BUCKETS = 50362, (32, 64, 128, 256, 448)
+FP32_TEMPERATURES, FP32_MAX_LEN, FP32_LOGPROB_ATOL = (0.0, 0.6), 32, 1e-4
+# A synthetic generation_config.json (the card machine has no transformers):
+# the fields LogitRules.for_whisper reads.
+GENERATION_CONFIG = {"suppress_tokens": [1, 2, 7, 8, 9, 10, 14, 25, 50258],
+                     "begin_suppress_tokens": [220, 50257], "no_timestamps_token_id": 50363,
+                     "eos_token_id": 50257, "forced_decoder_ids": None}
 # The continuous engine (bench.py's continuous leg): rows, segment length,
 # closed-loop requests, requests in flight for the mid-decode admission probe,
 # and the admission encode's buckets.
@@ -171,7 +198,7 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 K1_RECORD = re.compile(r"attention_fwd_(?:wgmma|mma|f32)\w*(<[^>]*>)?")  # K1's three kernels
-PAD_KERNELS, PAD_CYCLES = 8, 1_000_000  # ``torch.cuda._sleep`` launches: 8 x ~0.6 ms
+PAD_KERNELS, PAD_CYCLES = 32, 1_000_000  # ``torch.cuda._sleep`` launches: 32 x ~0.6 ms
 
 
 def traced(fn, tries: int = 5):
@@ -179,9 +206,10 @@ def traced(fn, tries: int = 5):
     of ``fn`` under ``torch.profiler``, synchronised; the device records are
     the kernels and copies that ``fn`` issued. The profiler now and then
     loses the first few records of a window (on the card: 4 or 5 of them,
-    the same in trace after trace), or hands back a window with no device
-    events at all. So the window opens and closes with ``PAD_KERNELS`` spin
-    kernels each, whose records are dropped from what this returns; and as
+    the same in trace after trace; 9 of a window of ~4300 records late in a
+    whole run), or hands back a window with no device events at all. So
+    the window opens and closes with ``PAD_KERNELS`` spin kernels each,
+    whose records are dropped from what this returns; and as
     the K1 wrapper counts its own launches, a trace that holds no device
     time, or other than that many K1 records, is made again, up to
     ``tries`` times, and then this raises."""
@@ -283,6 +311,7 @@ def path_attention_cases() -> list[tuple]:
     cases += [("forced_causal", (B, FORCED_TOKENS, FORCED_TOKENS, 12, 64), None, True),
               ("forced_cross_audio", (B, FORCED_TOKENS, 1500, 12, 64), None, False),
               ("forced_cross_av", (B, FORCED_TOKENS, T_VIDEO, 12, 64), fusion_lens, False)]
+    cases += [(f"align_causal_{t}", (1, t, t, 12, 64), None, True) for t in ALIGN_BUCKETS]
     return cases
 
 
@@ -1873,6 +1902,310 @@ def run_data_path(seed: int, expected_launches: int) -> dict:
     return out
 
 
+# -- phase 14: long-form quality transcription -------------------------------------------
+
+
+class RungTimer:
+    """Wall ms of each rung of ``decode_with_fallback`` (the beam search at
+    t = 0, the sampler above it), of each no-speech probe and of each
+    word-time alignment (forward, statistics and DTW), each between two
+    synchronisations. Installed over the names that ``decode/sampling.py``
+    and ``decode/timestamps.py`` call; removed on exit."""
+
+    PATCHES = {"beam": (sampling, "beam_search"), "sample": (sampling, "sample_decode"),
+               "no_speech": (sampling, "no_speech_probability"),
+               "alignment": (timestamps, "token_timestamps")}
+
+    def __enter__(self):
+        self.records = {kind: [] for kind in self.PATCHES}
+        self._saved = {kind: getattr(mod, name) for kind, (mod, name) in self.PATCHES.items()}
+        for kind, (mod, name) in self.PATCHES.items():
+            setattr(mod, name, self._timed(kind, self._saved[kind]))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, (mod, name) in self.PATCHES.items():
+            setattr(mod, name, self._saved[kind])
+
+    def _timed(self, kind, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec = {"ms": (time.perf_counter() - t0) * 1e3}
+            if kind in ("beam", "sample"):
+                rec["steps"] = kw["max_len"] - 1  # decode steps, the prefix's included
+            elif kind == "no_speech":
+                rec["steps"] = kw.get("sot_index", 0) + 1
+            else:
+                rec.update(tokens=len(args[1]), bucket=kw["pad_tokens_to"],
+                           n_text=len(args[1]) - kw["n_prefix"] - kw["n_drop_last"])
+            self.records[kind].append(rec)
+            return out
+        return timed
+
+    def summary(self) -> dict:
+        out = {}
+        for kind, recs in self.records.items():
+            if recs:
+                ms = [r["ms"] for r in recs]
+                out[kind] = {"calls": len(recs), "ms_mean": float(np.mean(ms)),
+                             "ms_max": float(np.max(ms))}
+                if "steps" in recs[0]:
+                    out[kind]["ms_per_step"] = sum(ms) / sum(r["steps"] for r in recs)
+        return out
+
+
+def longform_audio(rng, seconds: float, rate: int = 16_000) -> np.ndarray:
+    """A tone whose pitch changes every 10 s, and noise."""
+    t = np.arange(int(seconds * rate)) / rate
+    return (0.3 * np.sin(2 * np.pi * (200 + 300 * (t // 10 % 4)) * t)
+            + 0.02 * rng.standard_normal(t.shape)).astype(np.float32)
+
+
+def token_words(ids) -> list[tuple[str, int]]:
+    """A word per token, named by its id: the grouping of word times for a
+    model whose ids no tokenizer of this script decodes."""
+    return [(f" {int(t)}", 1) for t in ids]
+
+
+def timed_call(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_segments(name: str, segments: list, words, duration: float) -> None:
+    for seg in segments:
+        if not 0.0 <= seg["start"] <= seg["end"] or seg["seek"] > duration \
+                or not all(0 <= t < VOCAB for t in seg["tokens"]):
+            raise AssertionError(f"{name}: bad segment {seg}")
+    seeks = [seg["seek"] for seg in segments]
+    if seeks != sorted(seeks):
+        raise AssertionError(f"{name}: seek origins out of order: {seeks}")
+    for w in words or ():
+        origin = max(o for o in seeks if o <= w.start + 1e-9)
+        if not (origin <= w.start <= w.end <= origin + SECONDS_PER_CLIP + 1e-9
+                and np.isfinite([w.start, w.end]).all()):
+            raise AssertionError(f"{name}: word {w} outside its window at {origin}")
+
+
+def run_longform(seed: int) -> dict:
+    """Phase 14: ``WhisperASR.transcribe`` at whisper-small width, bf16,
+    random weights from ``seed``, the byte tokenizer.
+
+    1. Fixed stride: 90 s (three windows), the temperature ladder (beam 5
+       at t = 0, best-of-5 samples above), the no-speech probe, word times;
+       streaming mode on the same audio before and after it.
+    2. Timestamp seek: a 30 s clip under the timestamp grammar, gates off.
+    3. fp32, one window, card against CPU with one noise made on the CPU.
+    4. The ``transcribe`` command line, all five formats."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(seed + 14)
+    tok = ByteTokenizer()
+    group_fn = transcribe_cli.default_group_fn(tok)
+    asr = WhisperASR("whisper-small", precision=L.BF16, device="cuda")
+    tree = random_asr_params(asr, seed)
+    load_jax_params(asr, tree).eval()
+    audio = longform_audio(rng, LONG_SECONDS)
+    n_windows = int(LONG_SECONDS // SECONDS_PER_CLIP)
+    out = {"seconds": LONG_SECONDS, "temperatures": list(LONG_TEMPERATURES),
+           "max_len": LONG_MAX_LEN, "beam": BEAM, "best_of": BEAM}
+
+    # 1. quality mode, in turns with streaming mode. No tokenizer: the
+    # compression gate reads the token ids (the byte tokenizer would decode
+    # whisper ids to empty text), so a random model's repetition loops fail
+    # it, as real Whisper's do, and every window climbs the ladder.
+    quality_kw = dict(beam_size=BEAM, best_of=BEAM, max_len=LONG_MAX_LEN,
+                      eos_id=EOS, temperatures=LONG_TEMPERATURES, no_speech_threshold=0.6,
+                      no_speech_id=NO_SPEECH_ID, sot_id=PREFIX[0], sot_prev_id=SOT_PREV,
+                      word_times=True, group_fn=token_words, seed=seed)
+    stream_kw = dict(beam_size=BEAM, max_len=STREAM_MAX_LEN, eos_id=EOS,
+                     max_tokens_per_chunk=LONG_MAX_LEN - len(PREFIX), temperatures=None,
+                     sot_prev_id=SOT_PREV)
+    streams = []
+    first, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
+    streams.append(wall_s)
+    with RungTimer() as rungs:
+        fa.reset_launches()
+        result, quality_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **quality_kw))
+        launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
+    again, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
+    streams.append(wall_s)
+    if again["tokens"] != first["tokens"] or not first["tokens"]:
+        raise AssertionError("streaming mode gave other tokens on the same audio, or none")
+    segments = result["segments"]
+    check_segments("quality mode", segments, result["words"], LONG_SECONDS)
+    windows = len(rungs.records["no_speech"])  # one probe per decoded window
+    aligned = len(rungs.records["alignment"])
+    if windows != n_windows or [s["seek"] for s in segments] != \
+            [i * SECONDS_PER_CLIP for i in range(len(segments))]:
+        raise AssertionError(f"quality mode decoded {windows} windows, segments at "
+                             f"{[s['seek'] for s in segments]}; expected {n_windows} windows")
+    if not rungs.records["sample"] or not aligned or not result["words"]:
+        raise AssertionError(f"quality mode ran {len(rungs.records['sample'])} sampled rungs "
+                             f"and {aligned} alignments; phase 14 must run both")
+    by_mask = launches_by_mask(by_kernel)
+    if by_mask != {"unmasked": 12 * (windows + aligned), "unmasked_causal": 12 * aligned}:
+        raise AssertionError(f"quality mode launched K1 {by_mask} ({by_kernel}) for {windows} "
+                             f"windows and {aligned} alignments, expected 12 per window "
+                             "encode and 12 encoder + 12 causal per alignment")
+    out.update({
+        "windows": windows, "segments": len(segments), "words": len(result["words"]),
+        "rungs_per_window": [LONG_TEMPERATURES.index(s["temperature"]) + 1 for s in segments],
+        "gates_passed": [s["gates_passed"] for s in segments],
+        "avg_logprob": [s["avg_logprob"] for s in segments],
+        "no_speech_prob": [s["no_speech_prob"] for s in segments],
+        "rungs": rungs.summary(), "alignments": rungs.records["alignment"],
+        "quality_wall_s": quality_s, "quality_audio_s_per_s": LONG_SECONDS / quality_s,
+        "streaming_wall_s": streams,
+        "streaming_audio_s_per_s": [LONG_SECONDS / s for s in streams],
+        "k1_launches": launches, "k1_launches_by_kernel": by_kernel,
+        "k1_launches_per_quality_window": 12})
+
+    # The alignment forward alone, at the largest bucket the run used.
+    bucket = max(r["bucket"] for r in rungs.records["alignment"])
+    n_text = max(r["n_text"] for r in rungs.records["alignment"])
+    decoder = asr.decoder.prepare_decode_params()
+    enc = asr.encode(asr.features(audio[: 16_000 * 30], pad_to=16_000 * 30))
+    toks = torch.from_numpy(rng.integers(0, VOCAB, (1, bucket))).cuda()
+
+    def forward():
+        with torch.no_grad():
+            return decoder(toks, enc, return_cross_weights=True)
+
+    forward()
+    fa.reset_launches()
+    logits, weights = forward()
+    torch.cuda.synchronize()
+    align_by_mask = launches_by_mask(fa.launches_by_kernel)
+    if fa.launches != 12 or align_by_mask != {"unmasked_causal": 12} \
+            or tuple(weights.shape) != (12, 1, 12, bucket, 1500) \
+            or not torch.isfinite(weights).all() or not torch.isfinite(logits).all():
+        raise AssertionError(f"the alignment forward launched K1 {dict(fa.launches_by_kernel)} "
+                             f"and returned weights {tuple(weights.shape)}")
+    align_ms = cuda_ms(forward, 5)
+    align_device_ms, align_kernels = device_ms(forward, iters=3)
+    # the host side of one alignment: the cross weights to the host, then the
+    # numpy statistics (heads, z-norm, median filter) over the run's rows
+    t0 = time.perf_counter()
+    host_weights = weights[:, :, :, : n_text + len(PREFIX) + 1].cpu().numpy()
+    t1 = time.perf_counter()
+    timestamps.alignment_matrix(host_weights, n_frames=1500)
+    to_host_ms, statistics_ms = (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    cost = -rng.standard_normal((n_text, 1500))
+    native.dtw(cost)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        path = native.dtw(cost)
+    dtw_ms = (time.perf_counter() - t0) / 5 * 1e3
+    plain = native.plain_dtw(cost)
+    if not (np.array_equal(path[0], plain[0]) and np.array_equal(path[1], plain[1])):
+        raise AssertionError(f"the native DTW at {cost.shape} differs from its plain version")
+    out["alignment_forward"] = {"bucket": bucket, "k1_launches": 12, "wall_ms": align_ms,
+                                "device_ms": align_device_ms, "kernels": align_kernels,
+                                "weights_to_host_ms": to_host_ms,
+                                "statistics_ms": statistics_ms}
+    out["dtw"] = {"shape": list(cost.shape), "ms": dtw_ms, "equals_plain": True}
+    del decoder, enc, logits, weights, host_weights
+    log(f"long-form quality bf16 ({n_windows} windows of 30 s): " + json.dumps(out))
+
+    # 2. timestamp-conditioned seek over a 30 s clip
+    clip = audio[: 16_000 * 30]
+    rules = LogitRules.for_whisper(GENERATION_CONFIG, VOCAB, timestamps=True)
+    with RungTimer() as seek_rungs:
+        fa.reset_launches()
+        seek, seek_s = timed_call(lambda: asr.transcribe(
+            clip, ASR_PREFIX, tokenizer=tok, beam_size=BEAM, max_len=SEEK_MAX_LEN, eos_id=EOS,
+            temperatures=(0.0,), logprob_threshold=None, compression_ratio_threshold=None,
+            logit_rules=rules, seed=seed))
+    seek_windows = len(seek_rungs.records["beam"])
+    check_segments("timestamp seek", seek["segments"], None, SECONDS_PER_CLIP)
+    origins = sorted({s["seek"] for s in seek["segments"]})
+    if not 1 <= seek_windows <= 20 or fa.launches != 12 * seek_windows \
+            or any(t >= TIMESTAMP_BEGIN for t in seek["tokens"]):
+        raise AssertionError(f"timestamp seek: {seek_windows} windows, K1 {fa.launches}, "
+                             f"tokens {seek['tokens'][:16]}...")
+    out["timestamp_seek"] = {
+        "windows": seek_windows, "segments": len(seek["segments"]), "origins": origins,
+        "spans": [[s["start"], s["end"]] for s in seek["segments"]], "wall_s": seek_s,
+        "max_len": SEEK_MAX_LEN, "rungs": seek_rungs.summary()}
+    log("timestamp seek bf16 (30 s clip): " + json.dumps(out["timestamp_seek"]))
+    del asr
+    torch.cuda.empty_cache()
+
+    # 3. fp32, one window, card against CPU, one noise for both
+    got = {}
+    for device in ("cuda", "cpu"):
+        model = load_jax_params(WhisperASR("whisper-small", precision=L.FP32, device=device),
+                                tree).eval()
+        r, wall = timed_call(lambda: model.transcribe(
+            clip, PREFIX, tokenizer=tok, beam_size=BEAM, best_of=BEAM, max_len=FP32_MAX_LEN,
+            eos_id=EOS, temperatures=FP32_TEMPERATURES,
+            logprob_threshold=10.0,  # never met: the sampled rung is the one compared
+            draws=GumbelDraws(seed, generate_on="cpu")))
+        got[device] = (r, wall)
+        del model
+    (card, card_s), (cpu, cpu_s) = got["cuda"], got["cpu"]
+    (cs,), (hs,) = card["segments"], cpu["segments"]
+    err = abs(cs["avg_logprob"] - hs["avg_logprob"])
+    fp32 = {"tokens": len(card["tokens"]), "temperature": cs["temperature"],
+            "gates_passed": cs["gates_passed"], "avg_logprob_abs_err": err,
+            "atol": FP32_LOGPROB_ATOL, "card_s": card_s, "cpu_s": cpu_s}
+    log("long-form fp32 one window, card vs CPU: " + json.dumps(fp32))
+    if card["tokens"] != cpu["tokens"] or cs["temperature"] != hs["temperature"] \
+            or cs["temperature"] != FP32_TEMPERATURES[-1] \
+            or cs["gates_passed"] != hs["gates_passed"] or not err <= FP32_LOGPROB_ATOL:
+        raise AssertionError(f"fp32 long-form card vs CPU differ:\n{card['tokens']}\n"
+                             f"{cpu['tokens']}\n{cs}\n{hs}")
+    out["fp32_card_vs_cpu"] = fp32
+
+    # 4. the command line on a 12 s 44.1 kHz WAV, against transcribe() on the same weights
+    workdir = os.path.join(root, "build", "chip_smoke_transcribe")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        wav_path = os.path.join(workdir, "clip.wav")
+        with wave.open(wav_path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(44_100)
+            w.writeframes((longform_audio(rng, 12.0, 44_100) * 32767).astype("<i2").tobytes())
+        argv = [wav_path, "--random-init", "--model", "whisper-small", "--precision", "bf16",
+                "--seed", str(seed), "--output-format", "all", "--output-dir", workdir,
+                "--max-len", str(SEEK_MAX_LEN), "--temperature", "0.0", "0.4",
+                "--word-timestamps"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = transcribe_cli.main(argv)
+        cli_s = time.perf_counter() - t0
+        asr = load_jax_params(WhisperASR("whisper-small", precision=L.BF16, device="cuda"),
+                              tree).eval()
+        want = asr.transcribe(transcribe_cli.load_audio(wav_path), tok.prefix_token_ids,
+                              tokenizer=tok, max_len=SEEK_MAX_LEN, eos_id=tok.eos_token_id,
+                              temperatures=(0.0, 0.4), word_times=True, group_fn=group_fn,
+                              seed=seed)
+        sizes = {fmt: os.path.getsize(os.path.join(workdir, f"clip.{fmt}"))
+                 for fmt in WRITER_FORMATS}
+        with open(os.path.join(workdir, "clip.json"), encoding="utf-8") as f:
+            doc = json.load(f)
+        with open(os.path.join(workdir, "clip.txt"), encoding="utf-8") as f:
+            txt = f.read()
+        if rc != 0 or doc["text"] != want["text"] or not all(sizes.values()) \
+                or txt != "".join((s["text"] or "").strip() + "\n" for s in want["segments"]):
+            raise AssertionError(f"the transcribe command (rc {rc}, files {sizes}) differs from "
+                                 "transcribe() on the same weights")
+        out["cli"] = {"argv": argv[1:], "rc": rc, "s": cli_s, "bytes": sizes,
+                      "segments": len(doc["segments"]), "words": len(doc.get("words") or ())}
+        log("transcribe command: " + json.dumps(out["cli"]))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1910,6 +2243,7 @@ def main() -> int:
                   "streaming": run_streaming(args.seed),
                   "continuous": run_continuous(args.seed)}
     data_path = run_data_path(args.seed, train_path["dropout_0.1"]["k1_launches_per_step"])
+    longform_path = run_longform(args.seed)
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -1940,10 +2274,12 @@ def main() -> int:
                                                    "dropout_0_remat")},
           "launches_per_data_train_step": {
               name: data_path[name]["k1_launches_per_step"] for name in DATA_MODES},
+          "launches_per_quality_window": longform_path["k1_launches_per_quality_window"],
+          "launches_per_alignment_forward": longform_path["alignment_forward"]["k1_launches"],
           "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
     print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
-                      "serve_path": serve_path, "data_path": data_path, "card": smi}),
-          flush=True)
+                      "serve_path": serve_path, "longform_path": longform_path,
+                      "data_path": data_path, "card": smi}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

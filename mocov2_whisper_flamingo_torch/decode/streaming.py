@@ -40,16 +40,24 @@ How the TPU design is rendered on the GPU:
 - ``cache_layout`` ("rows" / "bhjtd") chooses a TPU layout in the JAX
   package and is accepted here as a no-op, as ``beam_search`` accepts it.
 
-``transcribe_long_form`` ports the streaming mode only; its quality mode
-(temperature fallback, segments, timestamps) raises until
-``decode/sampling.py`` and ``decode/segments.py`` are ported.
+``transcribe_long_form`` has both of the JAX package's modes: this
+streaming decode, and the quality mode (openai's window loop with
+temperature fallback, the no-speech skip and timestamp seek, over
+``decode/sampling.py`` and ``decode/segments.py``).
 """
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
 from mocov2_whisper_flamingo_torch.decode.beam import NEG_INF, _top_k
+from mocov2_whisper_flamingo_torch.decode.sampling import GumbelDraws, decode_with_fallback
+from mocov2_whisper_flamingo_torch.decode.segments import (
+    TIME_PRECISION, segments_from_window, strip_timestamps)
+
+logger = logging.getLogger(__name__)
 
 
 class StreamingDecoder:
@@ -309,38 +317,169 @@ def transcribe_long_form(
     initial_prompt_ids=None,
     logit_rules=None,
     temperatures=None,
+    best_of: int = 5,
+    logprob_threshold: float | None = -1.0,
+    compression_ratio_threshold: float | None = 2.4,
+    no_speech_threshold: float | None = None,
+    no_speech_id: int | None = None,
+    sot_id: int | None = None,
+    text_fn=None,
+    seed: int = 0,
+    draws=None,
     return_segments: bool = False,
     cache_layout: str = "rows",
 ) -> list[int] | tuple[list[int], list[dict]]:
-    """Long-form ASR, streaming mode: waveform of any length -> 30 s chunks
-    -> log-mel -> encoder -> streaming decode with a persistent KV cache.
-    Returns every generated token id (prefix excluded); with ``rollover``
-    the transcript is not bounded by ``max_len`` (see ``StreamingDecoder``).
-    ``return_segments`` also returns one ``{"id", "start", "end", "seek",
-    "tokens"}`` dict per chunk that produced tokens (window bounds clipped to
-    the audio).
+    """Long-form ASR: waveform of any length -> 30 s windows -> log-mel ->
+    encoder -> decode. Returns every generated token id (prefix excluded);
+    ``return_segments`` also returns segment dicts ``{"id", "start", "end",
+    "seek", "tokens", ...}``.
 
     ``encoder`` is a ``WhisperEncoder``, ``decoder`` a prepared
     ``WhisperDecoder`` on the same device (they hold the weights the JAX
     function takes as ``encoder_params`` / ``decoder_params``); ``audio`` a
-    ``[T]`` waveform. Per chunk: one encoder pass and one decode loop.
+    ``[T]`` waveform. Each window is encoded once, on that device.
 
-    ``temperatures`` selects the JAX package's quality mode (openai's window
-    loop with temperature fallback, segments and timestamps), which is not
-    ported yet and raises; its own options (``best_of``, the thresholds,
-    ``key``, ...) come with it."""
+    **Streaming mode** (``temperatures=None``): one persistent-cache
+    ``StreamingDecoder``; with ``rollover`` the transcript is not bounded by
+    ``max_len``. One segment per chunk that produced tokens (window bounds
+    clipped to the audio).
+
+    **Quality mode** (``temperatures`` given): openai ``transcribe``'s window
+    loop. Each window is decoded on its own through
+    ``decode_with_fallback`` (context prompt = ``sot_prev_id`` + the initial
+    prompt + the last ``context_tokens`` committed tokens, the transcript
+    part cut to a power of two, the whole clamped to half of ``max_len``),
+    with the compression-ratio and avg-logprob gates. With
+    ``no_speech_threshold`` and ``no_speech_id`` a window whose
+    ``<|nospeech|>`` probability at the SOT position (``sot_id``'s index in
+    the window prefix, else the start of ``prefix_ids``) exceeds the
+    threshold is skipped as silence, unless its avg logprob clears
+    ``logprob_threshold``. When ``logit_rules`` enable timestamps, timestamp
+    pairs split each window into timed segments (timestamp tokens kept in
+    the segments), the next window seeks to the last finished timestamp (at
+    least 0.02 s on; past ``10 * n_chunks + 10`` windows whole windows), and
+    the flat return keeps text tokens only. A window that had to go above
+    t = 0.5 stops conditioning later windows. Segments carry
+    ``temperature``, ``avg_logprob``, ``compression_ratio``,
+    ``gates_passed`` and, when probed, ``no_speech_prob``. Window ``w``
+    samples from ``draws.fold(w)`` (default ``GumbelDraws(seed)``), the JAX
+    key chain ``fold_in(key, w)``. This mode reads each rung's tokens back:
+    the gates inspect them."""
     from mocov2_whisper_flamingo_torch.ops.mel import whisper_log_mel
 
-    if temperatures is not None:
-        raise NotImplementedError(
-            "transcribe_long_form(temperatures=...): the quality mode (temperature fallback, "
-            "segments, timestamps) is not ported yet (ROADMAP.md Queue 1 item 10)")
     chunk_samples = int(chunk_seconds * sample_rate)
     mel_fn = mel_fn or (lambda wav: whisper_log_mel(wav, pad_to=chunk_samples))
     device = next(encoder.parameters()).device
     audio = torch.as_tensor(audio, dtype=torch.float32).to(device)
     n_chunks = max(-(-audio.shape[-1] // chunk_samples), 1)
     duration = audio.shape[-1] / sample_rate
+
+    def window_bounds(i):
+        return i * chunk_seconds, min((i + 1) * chunk_seconds, duration)
+
+    def features_at(start_sample):
+        chunk = audio[..., start_sample: start_sample + chunk_samples]
+        pad = chunk_samples - chunk.shape[-1]
+        if pad > 0:  # the last window is zero-padded to the full length
+            chunk = torch.nn.functional.pad(chunk, (0, pad))
+        with torch.no_grad():
+            return encoder(mel_fn(chunk)[None])
+
+    if temperatures is not None:
+        draws = draws if draws is not None else GumbelDraws(seed)
+        prefix = [int(t) for t in prefix_ids]
+        # openai ``initial_prompt``: conditioning text ahead of the committed
+        # transcript; it falls out of the tail slice once the transcript
+        # fills the budget, and with ``context_tokens == 0`` it conditions
+        # every window.
+        prompt0 = [int(t) for t in (initial_prompt_ids or [])]
+        committed: list[int] = []
+        segments: list[dict] = []
+        probe_ns = no_speech_threshold is not None and no_speech_id is not None
+        ts0 = getattr(logit_rules, "timestamp_begin", None) if logit_rules is not None else None
+        seek = 0.0
+        window_index = 0
+        reset_since = 0  # openai prompt_reset_since
+        # A model could seek by tiny steps forever: past this many windows
+        # every window advances a whole window.
+        max_windows = n_chunks * 10 + 10
+        while (seek < duration - 1e-9) if ts0 is not None else window_index < n_chunks:
+            pool = [t for t in committed[reset_since:] if t != eos_id][-context_tokens:] \
+                if context_tokens > 0 else []
+            # The transcript context is cut to a power of two (oldest tokens
+            # first), as in the JAX package, where it bounds the compiled
+            # programs; the tokens follow it.
+            if pool:
+                b = 1
+                while b * 2 <= len(pool):
+                    b *= 2
+                pool = pool[-b:]
+            ctx = prompt0 + pool
+            # openai clamps the prompt to half the budget, leaving room to
+            # generate under max_len.
+            ctx_budget = max_len // 2 - len(prefix) - 1
+            ctx = ctx[-ctx_budget:] if ctx_budget > 0 else []
+            if ctx and sot_prev_id is not None:
+                ctx = [sot_prev_id] + ctx
+            window_prefix = ctx + prefix
+            sot_index = (window_prefix.index(sot_id)
+                         if sot_id is not None and sot_id in window_prefix else len(ctx))
+            start_sample = (int(round(seek * sample_rate)) if ts0 is not None
+                            else window_index * chunk_samples)
+            r = decode_with_fallback(
+                decoder, features_at(start_sample), window_prefix,
+                temperatures=temperatures, beam_size=beam_size, best_of=best_of,
+                max_len=max_len, eos_id=eos_id, logit_rules=logit_rules,
+                length_penalty=length_penalty, logprob_threshold=logprob_threshold,
+                compression_ratio_threshold=compression_ratio_threshold, text_fn=text_fn,
+                no_speech_id=no_speech_id if probe_ns else None, sot_index=sot_index,
+                no_speech_threshold=no_speech_threshold if probe_ns else None,
+                draws=draws.fold(window_index))
+            window_index += 1
+            skipped = False
+            if probe_ns:
+                # silence, unless the decode is confident all the same
+                skipped = float(r.no_speech_prob[0]) > no_speech_threshold
+                if logprob_threshold is not None and float(r.avg_logprob[0]) > logprob_threshold:
+                    skipped = False
+            if skipped:
+                seek += chunk_seconds
+                continue
+            row = [int(t) for t in r.sequences[0][len(window_prefix):]]
+            while row and row[-1] == eos_id:
+                row.pop()
+            diag = {"temperature": float(r.temperature[0]),
+                    "avg_logprob": float(r.avg_logprob[0]),
+                    "compression_ratio": float(r.compression_ratio[0]),
+                    "gates_passed": bool(r.gates_passed[0])}
+            if probe_ns:
+                diag["no_speech_prob"] = float(r.no_speech_prob[0])
+            if ts0 is not None:
+                segs, advance = segments_from_window(
+                    row, ts0, time_offset=seek,
+                    segment_duration=min(chunk_seconds, duration - seek))
+                for s in segs:
+                    s.update(diag)
+                    s["id"] = len(segments)
+                    s["seek"] = seek  # the window's origin (openai's segment key)
+                    segments.append(s)
+                    # the flat stream keeps text tokens only
+                    committed.extend(strip_timestamps(
+                        s["tokens"], ts0, eot=getattr(logit_rules, "prompt_eot", None)))
+                advance = max(advance, TIME_PRECISION)
+                if window_index >= max_windows:
+                    logger.warning("timestamp seek exceeded %d windows at %.2f s: degrading "
+                                   "to full-window strides", max_windows, seek)
+                    advance = max(advance, chunk_seconds)
+                seek += advance
+            else:
+                start, end = window_bounds(window_index - 1)
+                segments.append({"id": len(segments), "start": start, "end": end,
+                                 "seek": start, "tokens": row, **diag})
+                committed.extend(row)
+            if float(r.temperature[0]) > 0.5:
+                reset_since = len(committed)
+        return (committed, segments) if return_segments else committed
 
     stream = StreamingDecoder(
         decoder, prefix_ids, max_len=max_len, eos_id=eos_id,
@@ -353,15 +492,9 @@ def transcribe_long_form(
     out: list[int] = []
     segments = []
     for i in range(n_chunks):
-        chunk = audio[..., i * chunk_samples: (i + 1) * chunk_samples]
-        pad = chunk_samples - chunk.shape[-1]
-        if pad > 0:  # the last chunk is zero-padded to the full window
-            chunk = torch.nn.functional.pad(chunk, (0, pad))
-        with torch.no_grad():
-            features = encoder(mel_fn(chunk)[None])
-        new = stream.process_chunk(features)
+        new = stream.process_chunk(features_at(i * chunk_samples))
         if new:
-            start, end = i * chunk_seconds, min((i + 1) * chunk_seconds, duration)
+            start, end = window_bounds(i)
             segments.append({"id": len(segments), "start": start, "end": end,
                              "seek": start, "tokens": new})
         out.extend(new)

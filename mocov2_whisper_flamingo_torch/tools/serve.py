@@ -48,26 +48,35 @@ def load_checkpoint(model, path: str) -> None:
         model.load_whisper_torch(state)
 
 
-def build_engine(args):
-    import numpy as np
-
-    from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+def build_model(args):
+    """The ``WhisperASR`` that ``--model``, ``--precision`` and ``--device``
+    name, with the weights of ``--checkpoint`` or random ones from
+    ``--seed``."""
     from mocov2_whisper_flamingo_torch.device import resolve_device
     from mocov2_whisper_flamingo_torch.models import layers as L
     from mocov2_whisper_flamingo_torch.models.asr import WhisperASR
     from mocov2_whisper_flamingo_torch.models.convert import load_jax_params, random_asr_params
-    from mocov2_whisper_flamingo_torch.serving import canonical_wav, make_audio_engine
-    from mocov2_whisper_flamingo_torch.utils.tokenizer import load_tokenizer
 
     device = resolve_device(args.device)  # raises without a card unless --device cpu
-    tokenizer = load_tokenizer(args.tokenizer, language=args.language, task=args.task)
     model = WhisperASR(args.model, precision=L.BF16 if args.precision == "bf16" else L.FP32,
                        device=device)
     if args.checkpoint:
         load_checkpoint(model, args.checkpoint)
     else:
         load_jax_params(model, random_asr_params(model, args.seed))
-    model.eval()
+    return model.eval()
+
+
+def build_engine(args):
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+    from mocov2_whisper_flamingo_torch.serving import canonical_wav, make_audio_engine
+    from mocov2_whisper_flamingo_torch.utils.tokenizer import load_tokenizer
+
+    model = build_model(args)
+    device = model.device
+    tokenizer = load_tokenizer(args.tokenizer, language=args.language, task=args.task)
 
     logit_rules = None
     if args.generation_config:

@@ -77,6 +77,13 @@ def _cuda_mask(lens, tk):
     ("fusion_b2", (2, 400, 400, 8, 64), (400, 64), False, False),
     ("fusion_b8", (8, 400, 400, 8, 64), (400, 317, 64, 1, 400, 399, 200, 2), False, False),
     ("fusion_b16", (16, 400, 400, 8, 64), (400, 317, 64, 1) * 4, False, False),
+    # the word-time alignment forward's causal self-attention at its token
+    # buckets (chunks of the fused QKV projection)
+    ("align_causal_32", (1, 32, 32, 12, 64), None, True, True),
+    ("align_causal_64", (1, 64, 64, 12, 64), None, True, True),
+    ("align_causal_128", (1, 128, 128, 12, 64), None, True, True),
+    ("align_causal_256", (1, 256, 256, 12, 64), None, True, True),
+    ("align_causal_448", (1, 448, 448, 12, 64), None, True, True),
 ])
 def test_bf16_kernel_matches_plain_at_serving_and_edge_shapes(name, shape, lens, causal, strided):
     """bf16 K1 on its route (Hopper kernel at Dh 64/128, mma.sync at Dh 32)
@@ -258,6 +265,41 @@ def test_teacher_forced_decoder_on_the_card_launches_causal_and_cross_kernels():
             assert dict(fa.launches_by_kernel) == {"fma_f32<64, 0, false, true>": 2,
                                                    "fma_f32<64, 0, true, false>": 2}
     assert (outs["cuda"] - outs["cpu"]).abs().max() <= 1e-3 * outs["cpu"].abs().max()
+
+
+@pytest.mark.cuda
+def test_long_form_quality_transcription_on_the_card_matches_the_cpu():
+    """fp32, tiny, 1 s windows: ``WhisperASR.transcribe`` in quality mode with
+    a sampled rung (one noise, made on the CPU) and word times gives the
+    same tokens, segments and words on the card as on the CPU; the
+    alignment forward launches K1's causal kernel once per decoder layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.decode.sampling import GumbelDraws
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    audio = 0.1 * np.random.default_rng(2).standard_normal(40_000).astype(np.float32)
+    got = {}
+    for device in ("cuda", "cpu"):
+        fa.reset_launches()
+        got[device] = _tiny_asr(device, L.FP32).transcribe(
+            audio, [1, 2], beam_size=2, best_of=2, max_len=16, eos_id=3, chunk_seconds=1.0,
+            temperatures=(0.0, 0.6), logprob_threshold=10.0, word_times=True,
+            group_fn=lambda ids: [(f" {t}", 1) for t in ids],
+            draws=GumbelDraws(0, generate_on="cpu"))
+        if device == "cuda":
+            windows = len(got["cuda"]["segments"])
+            assert windows == 3
+            assert fa.launches_by_kernel["fma_f32<64, 0, false, true>"] == 2 * windows
+    card, cpu = got["cuda"], got["cpu"]
+    assert card["tokens"] == cpu["tokens"]
+    for a, b in zip(card["segments"], cpu["segments"]):
+        assert a["tokens"] == b["tokens"] and a["temperature"] == b["temperature"] == 0.6
+        assert abs(a["avg_logprob"] - b["avg_logprob"]) <= 1e-4
+    assert [(w.word, w.start, w.end) for w in card["words"]] == \
+        [(w.word, w.start, w.end) for w in cpu["words"]]
 
 
 @pytest.mark.cuda

@@ -231,15 +231,6 @@ def test_transcribe_long_form_matches_jax(asr_pair):
     assert segs[-1]["end"] == pytest.approx(70.0)
 
 
-def test_quality_mode_names_its_roadmap_item(asr_pair):
-    _, _, tasr, audio = asr_pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        transcribe_long_form(tasr.encoder, tasr.decoder.prepare_decode_params(), audio,
-                             PREFIX, temperatures=(0.0, 0.2))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tasr.transcribe(audio)
-
-
 # -- the decoder's per-row step ------------------------------------------------------------
 
 
