@@ -51,6 +51,13 @@ streaming mode; the timestamp-conditioned seek loop over a 30 s clip; one
 window in fp32 on the card against the CPU with one noise for both; and the
 ``transcribe`` command line writing all five formats.
 
+Then int8 (phase 15): the direct AV decode of phase 4 in turns with int8
+decode weights, int8 caches, an int8 cross cache and both, each timed, traced
+and measured for memory, its logits held against the bf16 step and its fp32
+tokens held card against CPU at small depth; an int8 audio engine against a
+direct decode of its bucket; ``transcribe(weight_quant="int8")`` with word
+times; and ``Trainer.fit`` with the frozen encoder in int8 beside bf16 storage.
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -177,6 +184,13 @@ GENERATION_CONFIG = {"suppress_tokens": [1, 2, 7, 8, 9, 10, 14, 25, 50258],
 # and the admission encode's buckets.
 CONT_CAPACITY, CONT_SEG_STEPS, CONT_REQUESTS, CONT_INFLIGHT = 16, 32, 64, 8
 CONT_BUCKETS = (1, 2, 4, 8, 16)
+# int8 (phase 15): (weight_quant, cache_quant) of each mode, the bf16 baseline
+# first; the fp32 small-depth check's tokens; the logit bound of the JAX
+# package's own int8 test (tests/test_decode.py), times the step's spread
+INT8_MODES = {"bf16": (None, None), "w8": ("int8", None), "c8": (None, "int8"),
+              "c8x": (None, "int8-cross"), "w8_c8": ("int8", "int8")}
+INT8_FP32_MAX_LEN, INT8_LOGIT_SPREAD, INT8_LOGIT_STEPS, INT8_WINDOW = 32, 0.05, 8, 16
+INT8_ASR_MAX_LEN = 32
 
 
 def log(msg: str) -> None:
@@ -201,7 +215,7 @@ K1_RECORD = re.compile(r"attention_fwd_(?:wgmma|mma|f32)\w*(<[^>]*>)?")  # K1's 
 PAD_KERNELS, PAD_CYCLES = 32, 1_000_000  # ``torch.cuda._sleep`` launches: 32 x ~0.6 ms
 
 
-def traced(fn, tries: int = 5):
+def traced(fn, tries: int = 5, cpu: bool = True):
     """``(profiler, device records, wall seconds, traces taken)`` of one run
     of ``fn`` under ``torch.profiler``, synchronised; the device records are
     the kernels and copies that ``fn`` issued. The profiler now and then
@@ -212,7 +226,9 @@ def traced(fn, tries: int = 5):
     whose records are dropped from what this returns; and as
     the K1 wrapper counts its own launches, a trace that holds no device
     time, or other than that many K1 records, is made again, up to
-    ``tries`` times, and then this raises."""
+    ``tries`` times, and then this raises. ``cpu=False`` traces the device
+    alone (no host op records: a window of many launches is read several
+    times faster)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -224,7 +240,8 @@ def traced(fn, tries: int = 5):
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
         before = fa.launches
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+        with torch_profile(activities=activities) as prof:
             pad()
             t0 = time.perf_counter()
             fn()
@@ -2206,6 +2223,270 @@ def run_longform(seed: int) -> dict:
     return out
 
 
+# -- phase 15: int8 weights and caches ------------------------------------------------------
+
+
+def module_bytes(module) -> int:
+    """Bytes of a module's parameters, and of a prepared decoder's fp32 vocab
+    table where it keeps one."""
+    n = sum(p.numel() * p.element_size() for p in module.parameters())
+    table = getattr(module, "vocab_table", None)
+    return n + (table.numel() * table.element_size() if table is not None else 0)
+
+
+def cache_bytes(cache: dict) -> dict:
+    """Bytes of a decode cache's self and cross parts, scales included."""
+    out = {"self": 0, "cross": 0}
+    for name, t in cache.items():
+        out[name.split("_")[0]] += t.numel() * t.element_size()
+    return out
+
+
+def linear_forms(dev) -> dict:
+    """Wall ms of one int8 linear forward as the port computes it
+    (``layers.QuantLinear``: fp32 operands, TF32 off) against the bf16 linear
+    and against the other form, a bf16 product with an fp32 result
+    (``torch.mm(out_dtype=)``, where this torch has it), at whisper-small's
+    fc1 with the decode step's rows and the frozen encoder's."""
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for name, rows in (("decode_fc1", B * BEAM), ("encoder_fc1", B * 1500)):
+        lin = L.Linear(768, 3072, True, L.BF16, dev)
+        with torch.no_grad():
+            lin.kernel.copy_(torch.randn(768, 3072, generator=gen) * 0.03)
+        q = L.QuantLinear.from_linear(lin)
+        x = torch.randn(rows, 768, generator=gen).to(dev, torch.bfloat16)
+
+        def bf16_product():
+            y = torch.mm(x, q.kernel_q.to(torch.bfloat16), out_dtype=torch.float32)
+            return (y * q.scale + q.bias).to(torch.bfloat16)
+
+        row = {"rows": rows, "bf16_linear_ms": cuda_ms(lambda: lin(x), 50),
+               "int8_fp32_operands_ms": cuda_ms(lambda: q(x), 50)}
+        try:
+            err = (bf16_product().float() - q(x).float()).abs().max().item()
+            row.update(int8_bf16_product_ms=cuda_ms(bf16_product, 50), bf16_product_vs_port=err)
+        except (TypeError, RuntimeError) as e:
+            row.update(int8_bf16_product_ms=None, bf16_product_error=str(e)[:120])
+        out[name] = row
+    log("int8 linear forms: " + json.dumps(out))
+    return out
+
+
+def check_int8_fp32(seed: int) -> dict:
+    """fp32 beam tokens of every int8 mode, card against CPU, at
+    whisper-small width with 2 + 2 Whisper layers."""
+    rng = np.random.default_rng(seed)
+    mel, raw = make_batch(rng, 1, 32, "cpu")
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        net = small_av_net(seed, dev)
+        feats, valid = net.encode(preprocess(mel.to(dev), raw.to(dev)))
+        for name, (wq, cq) in INT8_MODES.items():
+            if name != "bf16":
+                res = beam_search(net.decoder.prepare_decode_params(wq), feats, PREFIX,
+                                  beam_size=BEAM, max_len=INT8_FP32_MAX_LEN, eos_id=EOS,
+                                  encoder_valid=valid, cache_quant=cq)
+                tokens[dev, name] = res.sequences.cpu()
+        del net
+    out = {name: bool(torch.equal(tokens["cuda", name], tokens["cpu", name]))
+           for name in INT8_MODES if name != "bf16"}
+    log(f"int8 fp32 beam tokens card == CPU ({INT8_FP32_MAX_LEN} tokens, 2 + 2 layers): "
+        + json.dumps(out))
+    if not all(out.values()):
+        raise AssertionError(f"fp32 int8 beam tokens differ card vs CPU: {out}")
+    return out
+
+
+def check_int8_logits(net, feats, valid, rng) -> dict:
+    """Teacher-forced bf16 steps of each int8 mode against the bf16 step on
+    the same tokens: the largest |difference| over the step's spread
+    (largest minus smallest logit), which must stay below
+    ``INT8_LOGIT_SPREAD``, the JAX package's own bound."""
+    dev = feats.device
+    toks = torch.from_numpy(rng.integers(0, VOCAB, (INT8_LOGIT_STEPS, B, 1))).to(dev)
+
+    def steps(dec, cq):
+        cache = dec.init_cache(feats, max_len=INT8_LOGIT_STEPS, quant=cq)
+        return [dec.decode_step(toks[i], cache, i, valid)[0] for i in range(INT8_LOGIT_STEPS)]
+
+    base = net.decoder.prepare_decode_params()
+    ref = steps(base, None)
+    out = {}
+    for name, (wq, cq) in INT8_MODES.items():
+        if name == "bf16":
+            continue
+        got = steps(base if wq is None else net.decoder.prepare_decode_params(wq), cq)
+        out[name] = max(((g - r).abs().max() / (r.max() - r.min())).item()
+                        for g, r in zip(got, ref))
+    log(f"int8 bf16 step logits, max |diff| / spread over {INT8_LOGIT_STEPS} steps "
+        f"(bound {INT8_LOGIT_SPREAD}): " + json.dumps(out))
+    if not all(v < INT8_LOGIT_SPREAD for v in out.values()):
+        raise AssertionError(f"int8 logits leave the JAX package's bound: {out}")
+    return out
+
+
+def time_int8_decodes(net, batch, feats, valid) -> dict:
+    """The direct decode of phase 4 in each mode, in turns: device ms and
+    kernels per step over a window of ``INT8_WINDOW`` loop steps (two
+    device-only traced searches, with and without the window, so that the
+    cache and the prefix steps cancel), then one
+    timed ``AVWhisperNet.beam`` call (encode, decoder preparation and 156
+    steps) with its K1 launches and peak memory; the prepared decoder's and
+    the cache's bytes."""
+    enc_ms = cuda_ms(lambda: net.encode(batch), 3)
+    out = {"encode_ms": enc_ms}
+    for name, (wq, cq) in INT8_MODES.items():
+        t0 = time.perf_counter()
+        dec = net.decoder.prepare_decode_params(wq)
+        torch.cuda.synchronize()
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        windows, t_trace = [], time.perf_counter()
+        for loop_steps in (0, INT8_WINDOW):
+            _, records, _, _ = traced(lambda: beam_search(
+                dec, feats, PREFIX, beam_size=BEAM, max_len=len(PREFIX) + loop_steps,
+                eos_id=EOS, encoder_valid=valid, cache_quant=cq), cpu=False)
+            windows.append((sum(ev.device_time for ev in records) / 1e3, len(records)))
+        by_kernel: dict[str, float] = {}
+        for ev in records:  # the longer window's kernels, the prefix's included
+            by_kernel[ev.name[:60]] = by_kernel.get(ev.name[:60], 0.0) + ev.device_time / 1e3
+        top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
+        cache = cache_bytes(dec.init_cache(feats, max_len=MAX_TOKENS, beam_groups=BEAM,
+                                           quant=cq))
+        decoder_bytes = module_bytes(dec)
+        trace_s = time.perf_counter() - t_trace
+        del dec
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        res, wall_s = timed_call(lambda: net.beam(batch, PREFIX, beam_size=BEAM,
+                                                  max_len=MAX_TOKENS, eos_id=EOS,
+                                                  weight_quant=wq, cache_quant=cq))
+        launches = fa.launches
+        seq = res.sequences
+        if launches != 15:
+            raise AssertionError(f"int8 mode {name}: K1 launched {launches} times, expected 15")
+        if tuple(seq.shape) != (B, BEAM, MAX_TOKENS) or not torch.isfinite(res.scores).all() \
+                or not bool((seq[:, :, :len(PREFIX)] == torch.tensor(PREFIX, device=seq.device))
+                            .all()):
+            raise AssertionError(f"int8 mode {name}: bad beam output {tuple(seq.shape)}")
+        n_steps = MAX_TOKENS - len(PREFIX)
+        row = {"weight_quant": wq, "cache_quant": cq, "wall_ms": wall_s * 1e3,
+               "rtf": B * SECONDS_PER_CLIP / wall_s,
+               "decode_ms_per_step": (wall_s * 1e3 - enc_ms - prepare_ms) / n_steps,
+               "prepare_ms": prepare_ms,
+               "device_ms_per_step": (windows[1][0] - windows[0][0]) / INT8_WINDOW,
+               "device_ops_per_step": (windows[1][1] - windows[0][1]) / INT8_WINDOW,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "decoder_bytes": decoder_bytes, "cache_bytes": cache,
+               "k1_launches_per_batch": launches, "trace_s": trace_s,
+               "window_top_kernels_ms": top}
+        log(f"int8 mode {name}: " + json.dumps(row))
+        out[name] = row
+    return out
+
+
+def check_int8_audio(seed: int) -> dict:
+    """An int8 audio engine's rows against a direct int8 decode of the same
+    padded bucket; then ``transcribe(weight_quant="int8", word_times=True)``
+    over one 30 s window, whose alignment forward must run its 12 causal K1
+    launches on the int8 decoder."""
+    rng = np.random.default_rng(seed + 15)
+    asr = WhisperASR("whisper-small", precision=L.BF16, device="cuda")
+    load_jax_params(asr, random_asr_params(asr, seed)).eval()
+    wavs = [canonical_wav((0.1 * rng.standard_normal(16_000 * (3 + i))).astype(np.float32))
+            for i in range(3)]
+    kw = dict(beam_size=BEAM, max_len=INT8_ASR_MAX_LEN, eos_id=EOS, weight_quant="int8")
+    with make_audio_engine(asr, ASR_PREFIX, buckets=(4,), max_wait_s=1.0, **kw) as eng:
+        results = [f.result(timeout=WAIT_S) for f in [eng.submit(w) for w in wavs]]
+    (padded,) = pad_rows([(w,) for w in wavs], 4)
+    direct = asr.transcribe_tokens(torch.from_numpy(padded).cuda(), ASR_PREFIX,
+                                   **kw).cpu().numpy()
+    if [r.bucket for r in results] != [4, 4, 4]:
+        raise AssertionError(f"int8 audio engine buckets {[r.bucket for r in results]}")
+    for i, r in enumerate(results):
+        want = trim_at_eos(direct[i], EOS, len(ASR_PREFIX))
+        if r.tokens.tolist() != want.tolist():
+            raise AssertionError(f"int8 audio engine row {i} differs from the direct decode:\n"
+                                 f"{r.tokens.tolist()}\n{want.tolist()}")
+    out = {"engine_rows_equal_direct": True, "engine_decode_ms": [r.decode_ms for r in results]}
+
+    audio = longform_audio(rng, SECONDS_PER_CLIP)
+    fa.reset_launches()
+    result, wall_s = timed_call(lambda: asr.transcribe(
+        audio, PREFIX, temperatures=(0.0,), word_times=True, group_fn=token_words,
+        **kw))
+    by_mask = launches_by_mask(fa.launches_by_kernel)
+    check_segments("int8 transcribe", result["segments"], result["words"], SECONDS_PER_CLIP)
+    if by_mask != {"unmasked": 24, "unmasked_causal": 12} or not result["words"]:
+        raise AssertionError(f"int8 transcribe launched K1 {dict(fa.launches_by_kernel)} with "
+                             f"{len(result['words'] or [])} words; expected 12 + 12 encoder "
+                             "and 12 causal alignment launches")
+    out["transcribe"] = {"wall_ms": wall_s * 1e3, "words": len(result["words"]),
+                         "k1_launches_by_mask": by_mask}
+    log("int8 audio: " + json.dumps(out))
+    return out
+
+
+def run_int8_train(seed: int) -> dict:
+    """``Trainer.fit`` at phase 7's shape and dropout, the frozen encoder
+    stored in bf16 and in int8; the frozen encoder's bytes of each."""
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_int8")
+    shutil.rmtree(workdir, ignore_errors=True)
+    batch = synthetic_train_batch(np.random.default_rng(seed + 3), B, T_VIDEO,
+                                  torch.device("cuda"))
+    out = {}
+    try:
+        for name, overrides in (("bf16_storage", {"training.frozen_param_dtype": "bf16"}),
+                                ("int8", {"training.frozen_weight_quant": "int8"})):
+            out[name], trainer = fit_timed(f"frozen_{name}", seed, batch, workdir, overrides, 12)
+            enc = trainer.net.whisper_encoder
+            out[name]["frozen_encoder_bytes"] = module_bytes(enc)
+            out[name]["frozen_encoder_params"] = sum(p.numel() for p in enc.parameters())
+            del trainer, enc
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["fp32_frozen_encoder_bytes"] = out["bf16_storage"]["frozen_encoder_bytes"] * 2
+    return out
+
+
+def run_int8(seed: int, phase7_ms: float) -> dict:
+    """Phase 15: int8 weights and caches at full width, BF16, phase 4's
+    shape (see ``INT8_MODES``)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    part_s = {}
+
+    def part(name, fn):
+        t = time.perf_counter()
+        result = fn()
+        part_s[name] = time.perf_counter() - t
+        return result
+
+    out = {"linear_forms": part("linear_forms", lambda: linear_forms(dev)),
+           "fp32_card_vs_cpu": part("fp32_card_vs_cpu", lambda: check_int8_fp32(seed))}
+    net = part("build", lambda: build(seed, L.BF16, dev))
+    mb = make_batch(np.random.default_rng(seed + 1), B, T_VIDEO, dev)
+    batch = preprocess(*mb)
+    feats, valid = net.encode(batch)
+    out["logits_vs_bf16"] = part("logits", lambda: check_int8_logits(
+        net, feats, valid, np.random.default_rng(seed)))
+    out["decode"] = part("decode", lambda: time_int8_decodes(net, batch, feats, valid))
+    del net, feats, valid, batch, mb
+    torch.cuda.empty_cache()
+    out["audio"] = part("audio", lambda: check_int8_audio(seed))
+    out["train"] = part("train", lambda: run_int8_train(seed))
+    out["train"]["phase7_bf16_ms_per_step"] = phase7_ms
+    out["k1_launches_per_batch"] = {name: row["k1_launches_per_batch"]
+                                    for name, row in out["decode"].items()
+                                    if isinstance(row, dict)}
+    out["phase_s"], out["part_s"] = time.perf_counter() - t0, part_s
+    log("int8 path: " + json.dumps({k: out[k] for k in ("k1_launches_per_batch", "phase_s",
+                                                        "part_s")}))
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2244,6 +2525,7 @@ def main() -> int:
                   "continuous": run_continuous(args.seed)}
     data_path = run_data_path(args.seed, train_path["dropout_0.1"]["k1_launches_per_step"])
     longform_path = run_longform(args.seed)
+    int8_path = run_int8(args.seed, train_path["dropout_0.1"]["train_ms_per_step"])
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -2276,10 +2558,15 @@ def main() -> int:
               name: data_path[name]["k1_launches_per_step"] for name in DATA_MODES},
           "launches_per_quality_window": longform_path["k1_launches_per_quality_window"],
           "launches_per_alignment_forward": longform_path["alignment_forward"]["k1_launches"],
+          "launches_per_int8_batch": int8_path["k1_launches_per_batch"],
+          "launches_per_int8_alignment_forward":
+              int8_path["audio"]["transcribe"]["k1_launches_by_mask"]["unmasked_causal"],
+          "launches_per_int8_train_step": int8_path["train"]["int8"]["k1_launches_per_step"],
           "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
     print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
                       "serve_path": serve_path, "longform_path": longform_path,
-                      "data_path": data_path, "card": smi}), flush=True)
+                      "data_path": data_path, "int8_path": int8_path, "card": smi}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -121,7 +121,9 @@ TRAIN_DEFAULTS = dict(
     # (notebook-era feature-alignment pretraining, reference train.ipynb).
     loss_mode="ctc_ce",
     # "int8": store the frozen whisper-encoder kernels int8 (w8a16) inside
-    # the train step. Not ported yet: the trainer raises on it.
+    # the train step (AVNet.quantize_frozen_params; checkpoints hold the
+    # quantized encoder, so keep the knob constant across a run). Off: the
+    # int8 step is slower than bf16 storage (PERF.md).
     # (training.frozen_param_dtype="bf16", not a default key, stores the
     # frozen trees in bf16: AVNet.cast_frozen_params.)
     frozen_weight_quant=None,

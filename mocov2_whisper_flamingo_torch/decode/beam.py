@@ -13,10 +13,13 @@ package:
   worst pooled one (HF's heuristic).
 
 The self caches are reordered physically after each step (one
-``index_select`` over the stacked cache) where the JAX package folds a
-one-hot ancestry tensor into the attention; the cross K/V stays B-major and
-is never reordered. Ties between equal scores are broken towards the lower
-index, as ``lax.top_k`` does.
+``index_select`` over the stacked cache, and over its scales when it is int8)
+where the JAX package folds a one-hot ancestry tensor into the attention; the
+cross K/V stays B-major and is never reordered. With an int8 self cache the
+prefix steps dequantize it in the compute dtype and the loop steps fold its
+scales into the attention, the two reads the JAX package's search makes.
+Ties between equal scores are broken towards the lower index, as
+``lax.top_k`` does.
 """
 
 from __future__ import annotations
@@ -90,11 +93,8 @@ def beam_search(
     ``renorm_after_rules=True`` takes the log-softmax again after the rules
     (openai's convention), which makes the scores true log probabilities
     over the allowed set and can change the ranking across beams.
-    ``cache_quant`` is not ported yet (``ROADMAP.md`` Queue 1 item 11).
+    ``cache_quant``: ``"int8"`` or ``"int8-cross"`` (``init_cache``).
     """
-    if cache_quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 11)")
     if cache_layout not in ("rows", "bhjtd"):
         raise ValueError(f"unknown cache_layout {cache_layout!r}; expected 'rows' or 'bhjtd'")
     del read_windows
@@ -105,7 +105,8 @@ def beam_search(
     n_prefix = int(prefix.shape[0])
     denoms = _length_denominators(max_len, length_penalty, dev)
 
-    cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=k)
+    cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=k, quant=cache_quant)
+    self_names = [n for n in ("self_k", "self_v", "self_k_scale", "self_v_scale") if n in cache]
     run_tokens = torch.full((b, k, max_len), eos_id, dtype=torch.long, device=dev)
     run_tokens[:, :, :n_prefix] = prefix
     run_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
@@ -121,7 +122,7 @@ def beam_search(
 
     for i in range(n_prefix - 1, max_len - 1):
         cur = run_tokens.reshape(b * k, max_len)[:, i:i + 1]
-        logits, cache = decoder.decode_step(cur, cache, i, encoder_valid)
+        logits, cache = decoder.decode_step(cur, cache, i, encoder_valid, fold_scales=True)
         logp = torch.log_softmax(logits.float(), dim=-1)
         if logit_rules is not None:
             logp = logit_rules(logp, run_tokens.reshape(b * k, max_len), i + 1, n_prefix)
@@ -156,8 +157,8 @@ def beam_search(
         sel_beam = beam2k.gather(1, sel)
         run_tokens = _take_rows(cand_tokens, sel)
         rows = (row_base + sel_beam).reshape(-1)
-        cache["self_k"] = cache["self_k"].index_select(1, rows)
-        cache["self_v"] = cache["self_v"].index_select(1, rows)
+        for name in self_names:
+            cache[name] = cache[name].index_select(1, rows)
 
         # ---- early-stop heuristic (the pool can no longer improve) ----
         best_possible = run_scores[:, 0] / denom

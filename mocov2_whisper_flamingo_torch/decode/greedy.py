@@ -22,16 +22,14 @@ def greedy_decode(
     ``decoder`` is a prepared ``WhisperDecoder``. ``logit_rules``: an
     optional ``decode.logit_rules.LogitRules`` applied to the step's logits
     before the argmax (masking and forcing commute with it, so one rules
-    object serves greedy and beam decoding)."""
-    if cache_quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 11)")
+    object serves greedy and beam decoding). ``cache_quant``: ``"int8"`` or
+    ``"int8-cross"`` (``init_cache``)."""
     dev = encoder_out.device
     b = encoder_out.shape[0]
     prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
     n_prefix = int(prefix.shape[0])
 
-    cache = decoder.init_cache(encoder_out, max_len=max_len)
+    cache = decoder.init_cache(encoder_out, max_len=max_len, quant=cache_quant)
     tokens = torch.full((b, max_len), eos_id, dtype=torch.long, device=dev)
     tokens[:, :n_prefix] = prefix
     done = torch.zeros((b,), dtype=torch.bool, device=dev)

@@ -107,11 +107,8 @@ def sample_decode(
     log-softmaxed scores before both the draw and the scoring, which then
     renormalises. Step ``i`` draws its noise from ``draws.fold(i)``
     (default ``GumbelDraws(seed)``). Returns every row; callers rank by
-    ``avg_logprob``. ``cache_quant`` is not ported yet (``ROADMAP.md`` Queue
-    1 item 11)."""
-    if cache_quant is not None:
-        raise NotImplementedError("quantized KV caches are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 11)")
+    ``avg_logprob``. ``cache_quant``: ``"int8"`` or ``"int8-cross"``
+    (``init_cache``)."""
     dev = encoder_out.device
     rows = encoder_out.shape[0] * num_samples
     prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
@@ -119,7 +116,8 @@ def sample_decode(
     t = float(temperature)
     draws = draws if draws is not None else GumbelDraws(seed)
 
-    cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=num_samples)
+    cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=num_samples,
+                               quant=cache_quant)
     tokens = torch.full((rows, max_len), eos_id, dtype=torch.long, device=dev)
     tokens[:, :n_prefix] = prefix
     for i in range(n_prefix - 1):

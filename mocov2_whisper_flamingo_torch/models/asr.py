@@ -80,7 +80,8 @@ class WhisperASR(nn.Module):
         """wav -> token ids ``[B, max_len]`` (the best beam when ``beam_size
         > 1``). ``logit_rules``: an optional ``decode.logit_rules.LogitRules``.
         The decoder's weights are fused and cast to the compute dtype once
-        per call, not per token step. ``weight_quant`` is not ported yet."""
+        per call, not per token step; ``weight_quant="int8"`` quantizes the
+        decode step's weights instead (``prepare_decode_params``)."""
         enc = self.encode(self.features(audio, pad_to=pad_to))
         decoder = self.decoder.prepare_decode_params(weight_quant)
         if beam_size <= 1:
@@ -159,8 +160,8 @@ class WhisperASR(nn.Module):
         ``tokenizer`` is given; ``words`` (``decode.timestamps.WordTiming``)
         when ``word_times`` with a ``group_fn``, aligned per window by DTW
         and offset by the window's origin. The decoder is prepared once and
-        serves the decode and the alignment. ``weight_quant`` is not ported
-        yet."""
+        serves the decode, the no-speech probe and the alignment forward;
+        with ``weight_quant="int8"`` that is one int8 decoder."""
         from mocov2_whisper_flamingo_torch.decode.streaming import transcribe_long_form
 
         decoder = self.decoder.prepare_decode_params(weight_quant)

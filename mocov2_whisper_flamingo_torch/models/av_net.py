@@ -140,15 +140,25 @@ class AVNet(nn.Module):
         their matmul and conv operands are rounded to bf16 at every use
         anyway, so bf16 storage makes that cast a no-op and halves the bytes
         each step reads; only the fp32 LayerNorm islands then see rounded
-        weights. Trainable parameters stay as they are. In place."""
+        weights. Every floating parameter is cast, the int8 scales of
+        ``quantize_frozen_params`` included (the JAX package casts every
+        floating leaf of the frozen trees); int8 weights stay int8.
+        Trainable parameters stay as they are. In place."""
         for name in self.FROZEN:
             for param in getattr(self, name).parameters():
-                param.data = param.data.to(dtype)
+                if param.is_floating_point():
+                    param.data = param.data.to(dtype)
         return self
 
     def quantize_frozen_params(self) -> "AVNet":
-        raise NotImplementedError("int8 storage of the frozen Whisper encoder belongs to the "
-                                  "int8 slice of the port and is not ported yet")
+        """Weight-only int8 of the frozen Whisper encoder's q/k/v/out and
+        fc1/fc2 (``WhisperEncoder.quantize_encoder_params``): stored and read
+        each step at a quarter of their fp32 bytes. The quantized weights and
+        their scales are parameters (never trainable), so ``state_dict`` and
+        checkpoints hold them and ``cast_frozen_params`` reaches the scales.
+        Call it before ``cast_frozen_params``, on fp32 weights. In place."""
+        self.whisper_encoder.quantize_encoder_params()
+        return self
 
     # -- forward ----------------------------------------------------------------
 

@@ -88,11 +88,16 @@ class AVWhisperNet(nn.Module):
 
     def greedy(self, input_batch: tuple, prefix_ids, max_len: int = 224,
                eos_id: int = 0, logit_rules=None,
-               weight_quant: str | None = None) -> torch.Tensor:
+               weight_quant: str | None = None,
+               cache_quant: str | None = None) -> torch.Tensor:
+        """``weight_quant="int8"``: the decode step's weights in int8
+        (``WhisperDecoder.prepare_decode_params``); ``cache_quant``:
+        ``"int8"`` or ``"int8-cross"`` caches (``init_cache``)."""
         features, valid = self.encode(input_batch)
         return greedy_decode(self.decoder.prepare_decode_params(weight_quant),
                              features, prefix_ids, max_len, eos_id,
-                             encoder_valid=valid, logit_rules=logit_rules)
+                             encoder_valid=valid, logit_rules=logit_rules,
+                             cache_quant=cache_quant)
 
     def beam(self, input_batch: tuple, prefix_ids, beam_size: int = 5,
              max_len: int = 224, eos_id: int = 0, length_penalty: float = 1.0,

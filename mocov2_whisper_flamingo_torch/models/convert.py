@@ -2,12 +2,16 @@
 
 The JAX models keep their parameters as nested dicts (and lists) of arrays;
 given that tree as numpy arrays, ``from_jax_params`` returns the port's
-``state_dict`` (numpy, fp32) and ``load_jax_params`` installs it. Names
+``state_dict`` (numpy, fp32 or int8) and ``load_jax_params`` installs it. Names
 follow the tree (``trunk.fusion.layers.0.attn.q.kernel``); layouts change
 only where the port applies torch ops:
 
 - linear kernels stay ``[d_in, d_out]``; biases, LayerNorm, embeddings,
   ``pos_embed`` and the scalar fusion gates are copied as they are;
+- the int8 leaves of a quantized tree (``kernel_q``, ``embedding_q``) stay
+  int8, bit for bit, and their ``scale`` leaves are copied as fp32: they
+  load into a module quantized the same way (``layers.QuantLinear`` /
+  ``QuantEmbedding``, e.g. ``WhisperDecoder.prepare_decode_params("int8")``);
 - conv1d kernels ``WIO`` become ``[O, I, W]``;
 - every frozen BatchNorm of the MoCo frontend is folded into the conv before
   it (``fold_bn``): ResNet ``HWIO`` kernels become folded ``OIHW`` weights
@@ -70,10 +74,11 @@ def _frontend(tree: dict, prefix: str, out: dict) -> None:
     _convert(tree["body"], f"{prefix}body.", out)
 
 
+INT8_LEAVES = ("kernel_q", "embedding_q")
+
+
 def _convert(tree, prefix: str, out: dict) -> None:
     if isinstance(tree, dict):
-        if "kernel_q" in tree or "embedding_q" in tree:
-            raise NotImplementedError("int8 weights are not ported yet")
         if "stem_conv" in tree:
             _frontend(tree, prefix, out)
         elif "conv1" in tree and "bn1" in tree:
@@ -87,8 +92,14 @@ def _convert(tree, prefix: str, out: dict) -> None:
     elif isinstance(tree, str):
         return  # metadata entries (e.g. conversion reports) carry no weights
     else:
-        arr = np.asarray(tree, np.float32)
         name = prefix[:-1]
+        if name.split(".")[-1] in INT8_LEAVES:  # int8 weights, bit for bit
+            arr = np.asarray(tree)
+            if arr.dtype != np.int8:
+                raise ValueError(f"{name} must be int8, not {arr.dtype}")
+            out[name] = arr
+            return
+        arr = np.asarray(tree, np.float32)
         if arr.ndim == 3 and name.split(".")[-1] == "kernel":  # conv1d WIO -> [O, I, W]
             out[name[: -len("kernel")] + "weight"] = np.ascontiguousarray(arr.transpose(2, 1, 0))
         else:
@@ -96,7 +107,8 @@ def _convert(tree, prefix: str, out: dict) -> None:
 
 
 def from_jax_params(np_tree) -> dict[str, np.ndarray]:
-    """The port's state_dict (fp32 numpy) for a JAX parameter tree."""
+    """The port's state_dict (numpy: fp32, int8 for the int8 leaves) for a
+    JAX parameter tree."""
     out: dict[str, np.ndarray] = {}
     _convert(np_tree, "", out)
     return out

@@ -2,7 +2,9 @@
 
 Parameters are held in fp32 and cast to the policy's compute dtype at use;
 LayerNorm stays an fp32 island. Linear weights keep the JAX ``[d_in, d_out]``
-storage and are applied as ``x @ W``. Parameters are created zero-filled:
+storage and are applied as ``x @ W``. ``QuantLinear`` and ``QuantEmbedding``
+hold weight-only int8 (``kernel_q`` / ``embedding_q``) with fp32 scales under
+the JAX leaf names. Parameters are created zero-filled:
 the values come from the weight bridge (``models/convert.py``). They are
 created with ``requires_grad=False``; a model that trains turns it on for
 its trainable parameters (``AVNet``).
@@ -54,6 +56,61 @@ class Linear(nn.Module):
         return y
 
 
+def quantize_int8(w: torch.Tensor, dim: int, floor: float = 1e-12
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 with one scale per slice along ``dim``: ``scale =
+    max|w| / 127`` over ``dim`` (floored at ``floor``), ``q = round(w /
+    scale)`` (half to even), in fp32. Returns ``(q int8, scale fp32)`` with
+    ``dim`` reduced in the scale. A linear kernel ``[d_in, d_out]`` takes
+    ``dim=0`` (one scale per output channel), an embedding table ``[vocab,
+    D]`` ``dim=1`` (one per row, which serves the lookup and the tied
+    projection ``x @ table.T`` alike)."""
+    w = w.float()
+    scale = (w.abs().amax(dim=dim, keepdim=True) / 127.0).clamp_min(floor)
+    return torch.round(w / scale).to(torch.int8), scale.squeeze(dim)
+
+
+def int8_param(shape, device) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(shape, dtype=torch.int8, device=device),
+                        requires_grad=False)
+
+
+class QuantLinear(nn.Module):
+    """Weight-only int8 linear (w8a16): ``kernel_q`` int8 ``[d_in, d_out]``,
+    ``scale`` ``[d_out]`` and ``bias``. ``y = cast((cast(x) @ kernel_q) *
+    scale + bias)`` with the product and the affine in fp32 (the JAX
+    package's ``preferred_element_type=float32``). The operands are fp32:
+    compute-dtype and int8 values are exact there, so this is the fp32
+    accumulation of the compute-dtype product."""
+
+    def __init__(self, d_in: int, d_out: int, bias: bool = True,
+                 precision: Precision = FP32, device=None):
+        super().__init__()
+        self.precision = precision
+        self.kernel_q = int8_param((d_in, d_out), device)
+        self.scale = zeros_param((d_out,), device)
+        self.bias = zeros_param((d_out,), device) if bias else None
+
+    @classmethod
+    def from_linear(cls, lin: Linear) -> "QuantLinear":
+        d_in, d_out = lin.kernel.shape
+        out = cls(d_in, d_out, lin.bias is not None, lin.precision, lin.kernel.device)
+        q, scale = quantize_int8(lin.kernel.detach(), 0)
+        with torch.no_grad():
+            out.kernel_q.copy_(q)
+            out.scale.copy_(scale)
+            if lin.bias is not None:
+                out.bias.data = lin.bias.detach().clone()
+        return out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        prec = self.precision
+        y = torch.matmul(prec.cast(x).float(), self.kernel_q.float()) * self.scale.float()
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return prec.cast(y)
+
+
 class LayerNorm(nn.Module):
     """LayerNorm computed in fp32 and cast back to the input dtype."""
 
@@ -100,6 +157,29 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.embedding[ids]
+
+
+class QuantEmbedding(nn.Module):
+    """int8 table ``embedding_q [vocab, D]`` with per-row ``scale``: a
+    looked-up row is ``row * scale[row]`` in fp32."""
+
+    def __init__(self, vocab: int, dim: int, device=None):
+        super().__init__()
+        self.embedding_q = int8_param((vocab, dim), device)
+        self.scale = zeros_param((vocab,), device)
+
+    @classmethod
+    def from_embedding(cls, emb: Embedding) -> "QuantEmbedding":
+        vocab, dim = emb.embedding.shape
+        out = cls(vocab, dim, emb.embedding.device)
+        q, scale = quantize_int8(emb.embedding.detach(), 1)
+        with torch.no_grad():
+            out.embedding_q.copy_(q)
+            out.scale.copy_(scale)
+        return out
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embedding_q[ids].float() * self.scale[ids].float()[..., None]
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,

@@ -13,6 +13,15 @@ index; the cross K/V are ``[layers, B, T_enc, H, Dh]``, computed once per
 example and kept B-major however many beams share them. Beam search reorders
 the self cache physically (one ``index_select`` per step) instead of the JAX
 package's ancestry-mask attention, which exists to avoid TPU relayouts.
+
+int8 (``prepare_decode_params(weight_quant="int8")``,
+``init_cache(quant="int8" | "int8-cross")``, ``quantize_encoder_params``):
+weights with per-output-channel scales (``layers.QuantLinear``), caches with
+per-(position, head) scales (``quantize_kv``). A quantized self cache is read
+in one of the JAX package's two forms, chosen by ``decode_step(fold_scales=)``:
+dequantized in the compute dtype before the attention (its row-aligned read)
+or with the fp32 scales folded into the scores and probabilities (its
+ancestry read, which beam search's loop steps take).
 """
 
 from __future__ import annotations
@@ -93,6 +102,39 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(b, t, h * dh)
 
 
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per (position, head): ``x [..., H, Dh]`` -> (int8
+    values, fp32 scales ``[..., H]``), ``scale = max|x| / 127`` over Dh,
+    floored at 1e-8."""
+    return L.quantize_int8(x, -1, 1e-8)
+
+
+def _quantize_linears(pairs) -> None:
+    """Replace each ``(module, name)`` float linear by its int8 form."""
+    for owner, name in pairs:
+        lin = getattr(owner, name)
+        if isinstance(lin, L.Linear):
+            setattr(owner, name, L.QuantLinear.from_linear(lin))
+
+
+CACHE_QUANTS = (None, "int8", "int8-cross")
+
+
+def _folded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      k_scale: torch.Tensor, v_scale: torch.Tensor,
+                      kv_valid: torch.Tensor | None) -> torch.Tensor:
+    """Attention over an int8 cache ``k, v [B, T, H, Dh]`` with scales
+    ``[B, T, H]`` folded in fp32: ``k_scale`` times the scores after the QK
+    dot and before ``* Dh**-0.5``, ``v_scale`` times the probabilities
+    before their cast for the PV dot (the JAX ``_ancestry_attention``)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s * k_scale.transpose(1, 2)[:, :, None] * (q.shape[-1] ** -0.5)
+    if kv_valid is not None:
+        s = s.masked_fill(~kv_valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1) * v_scale.transpose(1, 2)[:, :, None]
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype), v.to(q.dtype))
+
+
 class EncoderLayer(nn.Module):
     def __init__(self, cfg: WhisperConfig, precision: L.Precision, device=None):
         super().__init__()
@@ -135,6 +177,16 @@ class WhisperEncoder(nn.Module):
             x = layer(x)
         return self.ln_post(x)
 
+    def quantize_encoder_params(self) -> "WhisperEncoder":
+        """Weight-only int8 of every layer's q/k/v/out and fc1/fc2, in place
+        (``layers.QuantLinear``, quantized from the weights as they are);
+        conv1/conv2, ``pos_embed`` and the LayerNorms stay as they are.
+        Layers already quantized are left alone."""
+        for layer in self.layers:
+            a, m = layer.self_attn, layer.mlp
+            _quantize_linears([(a, "q"), (a, "k"), (a, "v"), (a, "out"), (m, "fc1"), (m, "fc2")])
+        return self
+
 
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: WhisperConfig, precision: L.Precision, device=None):
@@ -152,7 +204,8 @@ class WhisperDecoder(nn.Module):
 
     Call ``prepare_decode_params`` once per decode: it returns a copy with
     fused self-attention QKV weights and every weight cast to the compute
-    dtype, which is the module ``init_cache``/``decode_step`` run on.
+    dtype (or the decode-hot ones quantized to int8), which is the module
+    ``init_cache``/``decode_step`` run on.
     """
 
     def __init__(self, config: WhisperConfig, precision: L.Precision = L.FP32,
@@ -196,7 +249,9 @@ class WhisperDecoder(nn.Module):
         probabilities as ``[layers, B, heads, T, Tk]`` (fp32), the alignment
         signal for word timestamps; that pass takes the explicit cross path,
         whose output is the kernel path's up to rounding. Works on a decoder
-        with or without ``fuse_decode_params`` / ``prepare_decode_params``."""
+        with or without ``fuse_decode_params`` / ``prepare_decode_params``;
+        on an int8 decoder the self-attention runs its quantized ``qkv``, as
+        the JAX package's ``apply`` does on a quantized tree."""
         cfg, prec = self.config, self.precision
         x = self.embed_tokens(tokens) + self.pos_embed[: tokens.shape[1]]
         x = prec.cast(x)
@@ -244,20 +299,45 @@ class WhisperDecoder(nn.Module):
             sa.qkv = fused
         return dec
 
+    def quantize_decode_params(self) -> "WhisperDecoder":
+        """A copy with exactly the weights the decode step reads quantized to
+        int8 (``layers.QuantLinear`` / ``QuantEmbedding``): the fused self
+        ``qkv`` (call ``fuse_decode_params`` first) and ``out``, the cross
+        ``q`` and ``out``, ``fc1``, ``fc2`` and the tied embedding table
+        (per-row scales). The self q/k/v and the cross k/v (read once per
+        utterance by ``cross_caches``) stay float."""
+        dec = copy.deepcopy(self)
+        for layer in dec.layers:
+            sa, ca, m = layer.self_attn, layer.cross_attn, layer.mlp
+            _quantize_linears([(sa, "qkv"), (sa, "out"), (ca, "q"), (ca, "out"),
+                               (m, "fc1"), (m, "fc2")])
+        dec.embed_tokens = L.QuantEmbedding.from_embedding(dec.embed_tokens)
+        dec.vocab_table = None
+        return dec
+
     def prepare_decode_params(self, weight_quant: str | None = None) -> "WhisperDecoder":
         """Fused QKV, then every float parameter cast to the compute dtype
         (LayerNorm parameters included, as in the JAX package). The vocab
         projection keeps an fp32 copy of the cast table so that logits are
-        fp32 products of compute-dtype operands."""
-        if weight_quant is not None:
-            raise NotImplementedError("int8 decode weights are not ported yet "
-                                      "(ROADMAP.md Queue 1 item 11)")
+        fp32 products of compute-dtype operands.
+
+        ``weight_quant="int8"``: fused QKV, then ``quantize_decode_params``
+        from the fp32 weights, then every float parameter cast except those
+        named ``scale``: the quantization scales and the LayerNorm scales
+        stay fp32, as in the JAX package. No fp32 copy of the int8 table is
+        kept; the logits cast it at use."""
+        if weight_quant not in (None, "int8"):
+            raise ValueError(f"unknown weight_quant {weight_quant!r}; expected None or 'int8'")
         dec = self.fuse_decode_params()
         dt = self.precision.compute_dtype
+        if weight_quant == "int8":
+            dec = dec.quantize_decode_params()
         with torch.no_grad():
-            for p in dec.parameters():
-                p.data = p.data.to(dt)
-        dec.vocab_table = dec.embed_tokens.embedding.float()
+            for name, p in dec.named_parameters():
+                if p.is_floating_point() and not (weight_quant and name.split(".")[-1] == "scale"):
+                    p.data = p.data.to(dt)
+        if weight_quant is None:
+            dec.vocab_table = dec.embed_tokens.embedding.float()
         return dec
 
     # -- incremental decode ---------------------------------------------------
@@ -275,25 +355,41 @@ class WhisperDecoder(nn.Module):
         return cross_k, cross_v
 
     def init_cache(self, encoder_out: torch.Tensor, max_len: int | None = None,
-                   beam_groups: int = 1) -> dict:
+                   beam_groups: int = 1, quant: str | None = None) -> dict:
         """Allocate the self caches (compute dtype) for ``B * beam_groups``
         rows and compute the cross K/V once per example from the un-repeated
-        encoder output."""
+        encoder output.
+
+        ``quant="int8"``: both caches int8, with fp32 per-(position, head)
+        scales beside them (``self_k_scale [layers, rows, max_len, H]``,
+        ``cross_k_scale [layers, B, T, H]``, the same for V); the cross K/V
+        are quantized here from their compute-dtype projections, the self
+        rows at write time. ``"int8-cross"``: only the cross cache."""
+        if quant not in CACHE_QUANTS:
+            raise ValueError(f"unknown cache quant {quant!r}; expected one of {CACHE_QUANTS}")
         cfg = self.config
         b = encoder_out.shape[0]
         max_len = max_len or cfg.max_target_positions
         dtype = self.precision.compute_dtype
-        cross_k, cross_v = self.cross_caches(encoder_out)
+        dev = encoder_out.device
         shape = (len(self.layers), b * beam_groups, max_len, cfg.n_heads, cfg.head_dim)
-        return {
-            "self_k": torch.zeros(shape, dtype=dtype, device=encoder_out.device),
-            "self_v": torch.zeros(shape, dtype=dtype, device=encoder_out.device),
-            "cross_k": cross_k,
-            "cross_v": cross_v,
-        }
+        cache = {}
+        for name, kv in zip(("cross_k", "cross_v"), self.cross_caches(encoder_out)):
+            if quant is None:
+                cache[name] = kv
+            else:
+                cache[name], cache[name + "_scale"] = quantize_kv(kv)
+        for name in ("self_k", "self_v"):
+            if quant == "int8":
+                cache[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
+                cache[name + "_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=dev)
+            else:
+                cache[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        return cache
 
     def _self_step(self, li: int, layer: DecoderLayer, x: torch.Tensor, cache: dict,
-                   index: int, where: tuple, write: bool = True) -> torch.Tensor:
+                   index: int, where: tuple, write: bool = True,
+                   fold_scales: bool = False) -> torch.Tensor:
         """``where``: the cache entries the step's K/V go to, and the key mask
         over ``0 .. index`` (None: every row stands at ``index``)."""
         cfg, sa = self.config, layer.self_attn
@@ -304,21 +400,41 @@ class WhisperDecoder(nn.Module):
             q, k, v = sa.q(y), sa.k(y), sa.v(y)
         q = _split_heads(q, cfg.n_heads)
         ck, cv = cache["self_k"][li], cache["self_v"][li]
+        quant = "self_k_scale" in cache
         write_at, valid = where
         if write:
-            ck[write_at] = _split_heads(k, cfg.n_heads)[:, 0].to(ck.dtype)
-            cv[write_at] = _split_heads(v, cfg.n_heads)[:, 0].to(cv.dtype)
+            k, v = _split_heads(k, cfg.n_heads)[:, 0], _split_heads(v, cfg.n_heads)[:, 0]
+            if quant:
+                ck[write_at], cache["self_k_scale"][li][write_at] = quantize_kv(k)
+                cv[write_at], cache["self_v_scale"][li][write_at] = quantize_kv(v)
+            else:
+                ck[write_at] = k.to(ck.dtype)
+                cv[write_at] = v.to(cv.dtype)
         # Positions past ``index`` are masked to exact zeros in the JAX
         # package; here they are simply not read.
-        out = multi_head_attention(q, ck[:, : index + 1].to(q.dtype),
-                                   cv[:, : index + 1].to(q.dtype), kv_valid=valid)
+        ck, cv = ck[:, : index + 1], cv[:, : index + 1]
+        if not quant:
+            out = multi_head_attention(q, ck.to(q.dtype), cv.to(q.dtype), kv_valid=valid)
+        else:
+            ks = cache["self_k_scale"][li][:, : index + 1]
+            vs = cache["self_v_scale"][li][:, : index + 1]
+            if fold_scales:
+                out = _folded_attention(q, ck, cv, ks, vs, valid)
+            else:  # dequantize at the consumer, in the compute dtype
+                out = multi_head_attention(q, ck.to(q.dtype) * ks[..., None].to(q.dtype),
+                                           cv.to(q.dtype) * vs[..., None].to(q.dtype),
+                                           kv_valid=valid)
         return sa.out(_merge_heads(out))
 
     def _cross_step(self, layer: DecoderLayer, x: torch.Tensor, cross_k: torch.Tensor,
-                    cross_v: torch.Tensor,
-                    encoder_valid: torch.Tensor | None) -> torch.Tensor:
+                    cross_v: torch.Tensor, encoder_valid: torch.Tensor | None,
+                    k_scale: torch.Tensor | None = None,
+                    v_scale: torch.Tensor | None = None) -> torch.Tensor:
         """Single-query cross-attention; the ``rows = B * groups`` queries
-        are grouped per example so each example's K/V is read once."""
+        are grouped per example so each example's K/V is read once. An int8
+        cross cache folds ``k_scale`` (``[B, T, H]``) into the fp32 scores
+        after the dot and ``v_scale`` into the probabilities before the cast
+        for the PV dot."""
         cfg = self.config
         h, dh = cfg.n_heads, cfg.head_dim
         rows = x.shape[0]
@@ -327,25 +443,32 @@ class WhisperDecoder(nn.Module):
         q = layer.cross_attn.q(layer.cross_attn_ln(x))[:, 0]
         q = q.reshape(b_enc, groups, h, dh)
         s = torch.einsum("bghd,bthd->bght", q.float(), cross_k.float()) * (dh ** -0.5)
+        if k_scale is not None:
+            s = s * k_scale.transpose(1, 2)[:, None]
         if encoder_valid is not None:
             ev = encoder_valid if encoder_valid.shape[0] == b_enc else encoder_valid[::groups]
             s = s.masked_fill(~ev[:, None, None, :], NEG_INF)
-        p = torch.softmax(s, dim=-1).to(q.dtype)
-        a = torch.einsum("bght,bthd->bghd", p, cross_v.to(q.dtype))
+        p = torch.softmax(s, dim=-1)
+        if v_scale is not None:
+            p = p * v_scale.transpose(1, 2)[:, None]
+        a = torch.einsum("bght,bthd->bghd", p.to(q.dtype), cross_v.to(q.dtype))
         return layer.cross_attn.out(a.reshape(rows, 1, h * dh))
 
     def _vocab_logits(self, x: torch.Tensor) -> torch.Tensor:
         """Tied-embedding projection to fp32 logits: fp32 products of
-        compute-dtype operands (the JAX dot's fp32 accumulation)."""
-        table = self.vocab_table if self.vocab_table is not None \
-            else self.embed_tokens.embedding.float()
+        compute-dtype operands (the JAX dot's fp32 accumulation). An int8
+        table is cast at use and its row scales multiply the output columns."""
+        emb = self.embed_tokens
+        if isinstance(emb, L.QuantEmbedding):
+            return torch.matmul(x.float(), emb.embedding_q.float().T) * emb.scale.float()
+        table = self.vocab_table if self.vocab_table is not None else emb.embedding.float()
         return torch.matmul(x.float(), table.T)
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict, index: int,
                     encoder_valid: torch.Tensor | None = None,
-                    positions: torch.Tensor | None = None, write: bool = True
-                    ) -> tuple[torch.Tensor, dict]:
+                    positions: torch.Tensor | None = None, write: bool = True,
+                    fold_scales: bool = False) -> tuple[torch.Tensor, dict]:
         """One step. ``tokens [rows, 1]``; ``index`` is the (Python int)
         position. Writes the step's K/V into ``cache`` in place and returns
         ``(logits [rows, V] fp32, cache)``.
@@ -357,7 +480,11 @@ class WhisperDecoder(nn.Module):
         caller knows on the host, and every row reads the keys ``0 ..
         index`` through one mask. ``write=False`` leaves the cache as it was
         (the JAX package's ``write_gate``: the streaming decode's steps past
-        the end of its token buffer)."""
+        the end of its token buffer).
+
+        ``fold_scales`` (int8 self cache only): False dequantizes the cached
+        K/V in the compute dtype before the attention, True folds their fp32
+        scales into the scores and probabilities (see the module doc)."""
         prec = self.precision
         if positions is None:
             pe = self.pos_embed[index]
@@ -368,10 +495,12 @@ class WhisperDecoder(nn.Module):
             rows = torch.arange(positions.shape[0], device=positions.device)
             where = ((rows, positions), keys[None, :] <= positions[:, None])
         x = prec.cast(self.embed_tokens(tokens) + pe)
+        cks, cvs = cache.get("cross_k_scale"), cache.get("cross_v_scale")
         for li, layer in enumerate(self.layers):
-            x = x + self._self_step(li, layer, x, cache, index, where, write)
-            x = x + self._cross_step(layer, x, cache["cross_k"][li],
-                                     cache["cross_v"][li], encoder_valid)
+            x = x + self._self_step(li, layer, x, cache, index, where, write, fold_scales)
+            x = x + self._cross_step(layer, x, cache["cross_k"][li], cache["cross_v"][li],
+                                     encoder_valid, None if cks is None else cks[li],
+                                     None if cvs is None else cvs[li])
             x = x + layer.mlp(layer.mlp_ln(x))
         x = self.ln_post(x)
         logits = self._vocab_logits(prec.cast(x))

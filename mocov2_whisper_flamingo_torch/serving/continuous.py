@@ -60,7 +60,7 @@ import torch
 from mocov2_whisper_flamingo_torch.decode.beam import (
     NEG_INF, _length_denominators, _take_rows, _top_k)
 from mocov2_whisper_flamingo_torch.serving.engine import (
-    ServeResult, _postprocess, _refuse_quant, pad_rows)
+    ServeResult, _postprocess, pad_rows)
 
 logger = logging.getLogger(__name__)
 
@@ -454,13 +454,13 @@ def make_continuous_av_engine(
     """Continuous-batching engine over ``models.av_whisper.AVWhisperNet``
     on the model's device, with ``make_av_engine``'s payload per request.
     ``max_len`` must be a multiple of ``seg_steps`` (the segment grid).
-    ``weight_quant`` is not ported yet."""
+    ``weight_quant="int8"``: int8 decode weights (the caches stay in the
+    compute dtype, as in the JAX engine)."""
     from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
 
     if max_len % seg_steps:
         raise ValueError(f"max_len={max_len} must be a multiple of seg_steps={seg_steps}")
-    _refuse_quant(weight_quant=weight_quant)
-    decoder = net.decoder.prepare_decode_params()
+    decoder = net.decoder.prepare_decode_params(weight_quant)
     device = decoder.pos_embed.device
     cuda = device.type == "cuda"
 

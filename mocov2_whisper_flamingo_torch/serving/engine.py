@@ -391,13 +391,6 @@ def canonical_wav(wav: np.ndarray, seconds: float = 30.0,
     return wav
 
 
-def _refuse_quant(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(f"{name}={value!r}: int8 weights and caches are not "
-                                      "ported yet (ROADMAP.md Queue 1 item 11)")
-
-
 def _postprocess(prefix: list[int], eos_id: int, tokenizer):
     def post(row):
         row = trim_at_eos(row, eos_id, len(prefix))
@@ -426,8 +419,7 @@ def make_audio_engine(
     """Serving engine over ``models.asr.WhisperASR`` on the model's device
     (audio only, clips of up to ``seconds``; the payload is one float32
     waveform row made canonical by ``canonical_wav``). Text output when a
-    tokenizer is given."""
-    _refuse_quant(weight_quant=weight_quant)
+    tokenizer is given. ``weight_quant="int8"``: int8 decode weights."""
     n_samples = int(seconds * sample_rate)
     prefix = [int(t) for t in prefix_ids]
 
@@ -435,7 +427,7 @@ def make_audio_engine(
         (wav,) = batch
         return asr.transcribe_tokens(
             wav, prefix, beam_size=beam_size, max_len=max_len, eos_id=eos_id,
-            pad_to=n_samples, logit_rules=logit_rules)
+            pad_to=n_samples, logit_rules=logit_rules, weight_quant=weight_quant)
 
     return ServingEngine(decode_batch, buckets=buckets, max_wait_s=max_wait_s,
                          postprocess=_postprocess(prefix, eos_id, tokenizer),
@@ -469,10 +461,10 @@ def make_av_engine(
     ``read_windows`` and ``cache_layout`` choose, in the JAX package, how a
     TPU reads and lays out the self cache, per bucket under ``"auto"``; they
     leave the tokens unchanged, and the port's beam search accepts them as
-    no-ops, so ``"auto"`` passes the plain choices on."""
+    no-ops, so ``"auto"`` passes the plain choices on. ``cache_quant`` and
+    ``weight_quant``: as ``AVWhisperNet.beam``."""
     from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
 
-    _refuse_quant(cache_quant=cache_quant, weight_quant=weight_quant)
     prefix = [int(t) for t in prefix_ids]
     windows = None if read_windows == "auto" else read_windows
     layout = "rows" if cache_layout == "auto" else cache_layout
@@ -483,7 +475,8 @@ def make_av_engine(
         return net.beam(
             (audio, audio_mask, video, video_mask, video_len), prefix,
             beam_size=beam_size, max_len=max_len, eos_id=eos_id, logit_rules=logit_rules,
-            read_windows=windows, cache_layout=layout).sequences[:, 0]  # top hypothesis per row
+            cache_quant=cache_quant, weight_quant=weight_quant, read_windows=windows,
+            cache_layout=layout).sequences[:, 0]  # top hypothesis per row
 
     return ServingEngine(decode_batch, buckets=buckets, max_wait_s=max_wait_s,
                          postprocess=_postprocess(prefix, eos_id, tokenizer),

@@ -127,9 +127,6 @@ class Trainer:
                 "mesh.data / mesh.model above 1 (data parallelism as DDP, the tensor-parallel "
                 "rules of parallel/mesh.py) belong to the multi-card slice of the port and "
                 "are not ported yet; the trainer runs on one device")
-        if config["training"].get("frozen_weight_quant") == "int8":
-            raise NotImplementedError("training.frozen_weight_quant='int8' belongs to the int8 "
-                                      "slice of the port and is not ported yet")
         self.config = config
         self.net = net
         self.tokenizer = tokenizer
@@ -217,6 +214,14 @@ class Trainer:
         """Build the optimizer over the trainable parameters and the
         generator of the train-mode draws."""
         training = self.config["training"]
+        # int8 first, from the fp32 weights; checkpoints then hold the
+        # quantized encoder, so keep both knobs constant across a run.
+        quant = training.get("frozen_weight_quant")
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown training.frozen_weight_quant {quant!r}; "
+                             "expected None or 'int8'")
+        if quant == "int8":
+            self.net.quantize_frozen_params()
         if training.get("frozen_param_dtype") == "bf16":
             self.net.cast_frozen_params(torch.bfloat16)
         accum = int(training.get("accumulate_grad_batches", 1) or 1)

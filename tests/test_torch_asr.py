@@ -125,11 +125,18 @@ def test_detect_language_matches_jax(pair):
         tasr.detect_language(wavs, PREFIX[0], [], pad_to=N_SAMPLES)
 
 
-def test_later_slice_paths_raise_with_their_roadmap_item(pair):
-    tasr, *_, wavs = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        tasr.transcribe_tokens(wavs, PREFIX, max_len=MAX_LEN, eos_id=EOS, pad_to=N_SAMPLES,
-                               weight_quant="int8")
+@pytest.mark.parametrize("beam_size", [1, 3])
+def test_int8_transcribe_tokens_match_jax(pair, beam_size):
+    """``weight_quant="int8"``: one int8 decoder for the greedy or beam
+    decode, tokens equal to the JAX package's."""
+    tasr, jasr, params, _, wavs = pair
+    run_ref = jax.jit(lambda p, a: jasr.transcribe_tokens(
+        p, a, PREFIX, beam_size=beam_size, max_len=MAX_LEN, eos_id=EOS, pad_to=N_SAMPLES,
+        weight_quant="int8"))
+    ours = tasr.transcribe_tokens(wavs, PREFIX, beam_size=beam_size, max_len=MAX_LEN,
+                                  eos_id=EOS, pad_to=N_SAMPLES, weight_quant="int8")
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(run_ref(params, jnp.asarray(wavs))))
+    assert len(np.unique(ours.numpy()[:, len(PREFIX):])) > 2
 
 
 def test_load_whisper_torch_matches_hf():

@@ -145,12 +145,31 @@ def test_beam_width_one_is_greedy(pair):
     np.testing.assert_array_equal(res.sequences[:, 0].numpy(), greedy.numpy())
 
 
-@pytest.mark.parametrize("kwargs", [dict(cache_quant="int8-cross"), dict(cache_quant="int8"),
-                                    dict(weight_quant="int8")])
-def test_later_slice_options_raise(pair, kwargs):
-    *_, tnet, _, tbatch = pair
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        tnet.beam(tbatch, PREFIX, beam_size=2, max_len=6, eos_id=EOS, **kwargs)
+INT8 = [dict(cache_quant="int8-cross"), dict(weight_quant="int8", cache_quant="int8")]
+INT8_IDS = ["c8x", "w8-c8"]
+
+
+@pytest.mark.parametrize("kwargs", INT8, ids=INT8_IDS)
+def test_int8_beam_matches_jax(pair, kwargs):
+    jnet, params, jbatch, tnet, _, tbatch = pair
+    rj = jnet.beam(params, jbatch, PREFIX, beam_size=3, max_len=12, eos_id=EOS, **kwargs)
+    rt = tnet.beam(tbatch, PREFIX, beam_size=3, max_len=12, eos_id=EOS, **kwargs)
+    np.testing.assert_array_equal(rt.sequences.numpy(), np.asarray(rj.sequences))
+    np.testing.assert_allclose(rt.scores.numpy(), np.asarray(rj.scores), atol=SLICE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kwargs", INT8, ids=INT8_IDS)
+def test_int8_greedy_matches_jax(pair, kwargs):
+    """The JAX ``AVWhisperNet.greedy`` takes no ``cache_quant``: its
+    ``greedy_decode`` on the same features is the reference."""
+    from mocov2_whisper_flamingo_tpu.decode.greedy import greedy_decode as jgreedy
+
+    jnet, params, jbatch, tnet, _, tbatch = pair
+    fj, vj = jnet.encode(params, jbatch)
+    want = jgreedy(jnet.decoder, jnet._decode_params(params, kwargs.get("weight_quant")), fj,
+                   PREFIX, 12, EOS, encoder_valid=vj, cache_quant=kwargs.get("cache_quant"))
+    got = tnet.greedy(tbatch, PREFIX, max_len=12, eos_id=EOS, **kwargs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("length_penalty", [0.0, 0.6, 1.0, 1.3, 2.0])

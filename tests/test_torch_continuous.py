@@ -231,16 +231,10 @@ def test_close_fails_pending(setup):
 # -- the AV builder ------------------------------------------------------------------
 
 
-def test_continuous_av_engine_matches_the_jax_engine():
-    """``make_continuous_av_engine`` on a tiny AV model (a Whisper that takes
-    3000-frame mels, as the JAX builder's length probe needs) against the JAX
-    package's engine on the same weights and payloads, and against the port's
-    direct ``net.beam``."""
-    from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
-    from mocov2_whisper_flamingo_tpu.models.av_whisper import AVWhisperNet as JNet
-    from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
-    from mocov2_whisper_flamingo_tpu.serving import make_continuous_av_engine as jax_engine
-
+@pytest.fixture(scope="module")
+def tiny_av():
+    """A tiny AV model whose Whisper takes 3000-frame mels (the JAX
+    builder's length probe needs them), and three uint8 payloads."""
     cfg = dict(CFG, vocab_size=64, d_model=32, max_source_positions=1500)
     modelargs = (32, 4, 2, 3000, 128, 0.0)
     tnet = TNet(modelargs=modelargs, vocab_size=64, device="cpu",
@@ -251,17 +245,52 @@ def test_continuous_av_engine_matches_the_jax_engine():
         layer["attn_gate"], layer["ff_gate"] = np.float32(0.5), np.float32(-0.3)
     _lively(tree["decoder"], rng)
     load_jax_params(tnet, tree)
+    t_video, hw = 6, 32
+    payloads = [(rng.standard_normal((80, 128)).astype(np.float32), np.ones(128, bool),
+                 rng.integers(0, 255, (t_video, 3, hw, hw)).astype(np.uint8),
+                 np.ones(t_video, bool), np.int32(t_video - i)) for i in range(3)]
+    return tnet, tree, cfg, modelargs, payloads, hw
+
+
+def test_int8_continuous_av_engine_matches_direct_beam(tiny_av):
+    """``weight_quant="int8"``: each row equals a direct int8 ``net.beam``
+    of its request (the caches stay in the compute dtype, as in the JAX
+    engine)."""
+    from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
+
+    tnet, _, _, _, payloads, hw = tiny_av
+    kw = dict(beam_size=K, max_len=MAX_LEN, eos_id=EOS, capacity=4, seg_steps=S,
+              video_resize=hw)
+    with make_continuous_av_engine(tnet, PREFIX, weight_quant="int8", **kw) as eng:
+        got = [f.result(timeout=WAIT) for f in [eng.submit(*p) for p in payloads]]
+    for p, g in zip(payloads, got):
+        audio, audio_mask, video_u8, video_mask, video_len = (
+            torch.from_numpy(np.asarray(x)[None]) for x in p)
+        video = eval_video_pipeline(video_u8, resize=hw)
+        direct = tnet.beam((audio, audio_mask, video, video_mask, video_len), PREFIX,
+                           beam_size=K, max_len=MAX_LEN, eos_id=EOS,
+                           weight_quant="int8").sequences[0, 0].numpy()
+        np.testing.assert_array_equal(g.tokens, trim_at_eos(direct, EOS, len(PREFIX)))
+    assert len({tuple(g.tokens) for g in got}) == 3
+
+
+def test_continuous_av_engine_matches_the_jax_engine(tiny_av):
+    """``make_continuous_av_engine`` on a tiny AV model (a Whisper that takes
+    3000-frame mels, as the JAX builder's length probe needs) against the JAX
+    package's engine on the same weights and payloads, and against the port's
+    direct ``net.beam``."""
+    from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
+    from mocov2_whisper_flamingo_tpu.models.av_whisper import AVWhisperNet as JNet
+    from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
+    from mocov2_whisper_flamingo_tpu.serving import make_continuous_av_engine as jax_engine
+
+    tnet, tree, cfg, modelargs, payloads, hw = tiny_av
     jnet = JNet(modelargs=modelargs, vocab_size=64, whisper_name="whisper-tiny", backend="xla")
     jcfg = JConfig(**cfg)
     jnet.whisper_config = jnet.trunk.whisper_config = jcfg
     jnet.trunk.whisper_encoder = JEncoder(jcfg, jnet.trunk.precision, "xla")
     jnet.decoder = JDecoder(jcfg, jnet.precision, "xla")
     params = jax.tree.map(jnp.asarray, tree)
-
-    t_video, hw = 6, 32
-    payloads = [(rng.standard_normal((80, 128)).astype(np.float32), np.ones(128, bool),
-                 rng.integers(0, 255, (t_video, 3, hw, hw)).astype(np.uint8),
-                 np.ones(t_video, bool), np.int32(t_video - i)) for i in range(3)]
     kw = dict(beam_size=K, max_len=MAX_LEN, eos_id=EOS, capacity=4, seg_steps=S,
               video_resize=hw)
     with make_continuous_av_engine(tnet, PREFIX, **kw) as eng:
@@ -281,7 +310,5 @@ def test_continuous_av_engine_matches_the_jax_engine():
 
 
 def test_continuous_av_engine_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        make_continuous_av_engine(None, PREFIX, weight_quant="int8")
     with pytest.raises(ValueError, match="multiple of seg_steps"):
         make_continuous_av_engine(None, PREFIX, max_len=100, seg_steps=32)

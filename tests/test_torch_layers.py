@@ -90,10 +90,20 @@ def test_gelu_embed_and_position_tables(rng):
                                   JL.interleaved_position_encoding(30, 64))
 
 
-def test_int8_leaves_are_refused():
-    p = _np_tree(JL.quantize_linear(JL.linear_init(jax.random.PRNGKey(0), 8, 8)))
-    with pytest.raises(NotImplementedError):
-        from_jax_params(p)
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_leaves_load_bit_for_bit(rng, bias):
+    """A quantized JAX linear through the bridge: int8 ``kernel_q`` and fp32
+    ``scale`` land unchanged in a ``QuantLinear``, whose output is the JAX
+    one."""
+    p = JL.quantize_linear(JL.linear_init(jax.random.PRNGKey(0), 24, 40, bias=bias))
+    tree = jax.tree.map(np.asarray, p)
+    sd = from_jax_params(tree)
+    assert sd["kernel_q"].dtype == np.int8 and sd["scale"].dtype == np.float32
+    lin = load_jax_params(TL.QuantLinear(24, 40, bias), tree)
+    np.testing.assert_array_equal(lin.kernel_q.numpy(), tree["kernel_q"])
+    np.testing.assert_array_equal(lin.scale.numpy(), tree["scale"])
+    x = rng.standard_normal((3, 24)).astype(np.float32)
+    _close(lin(torch.from_numpy(x)), JL.linear(p, jnp.asarray(x)))
 
 
 # -- video ------------------------------------------------------------------------

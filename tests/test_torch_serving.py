@@ -282,14 +282,19 @@ def test_engine_applies_logit_rules(asr_setup):
     np.testing.assert_array_equal(res.tokens, trim_at_eos(want, EOS, len(PREFIX)))
 
 
-@pytest.mark.parametrize("option", ["weight_quant", "cache_quant"])
-def test_quantized_engines_are_refused(asr_setup, option):
-    asr = asr_setup[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        if option == "weight_quant":
-            make_audio_engine(asr, PREFIX, weight_quant="int8")
-        else:
-            make_av_engine(None, PREFIX, cache_quant="int8")
+def test_int8_audio_engine_rows_match_direct_decodes(asr_setup):
+    """``weight_quant="int8"``: batched rows equal each clip's own int8
+    decode."""
+    asr, _, wavs, _ = asr_setup
+    n = int(SECONDS * 16_000)
+    with make_engine(asr, weight_quant="int8", max_wait_s=0.25) as eng:
+        results = [f.result(timeout=WAIT) for f in [eng.submit(w) for w in wavs[:3]]]
+    for w, r in zip(wavs[:3], results):
+        want = asr.transcribe_tokens(w[None], PREFIX, beam_size=BEAM, max_len=MAX_LEN,
+                                     eos_id=EOS, pad_to=n, weight_quant="int8").numpy()[0]
+        np.testing.assert_array_equal(r.tokens, trim_at_eos(want, EOS, len(PREFIX)))
+    assert [r.bucket for r in results] == [4, 4, 4]
+    assert len({tuple(r.tokens) for r in results}) == 3
 
 
 # -- the generic engine: failures, threads, defaults -----------------------------------
@@ -482,6 +487,27 @@ def test_av_engine_tensor_payloads_and_explicit_layout(av_setup):
                     cache_layout="bhjtd") as eng:
         futs = [eng.submit(*p) for p in rows]
         results = [f.result(timeout=WAIT) for f in futs]
+    for p, r in zip(payloads, results):
+        np.testing.assert_array_equal(r.tokens, direct(p))
+
+
+@pytest.mark.parametrize("quant", [dict(cache_quant="int8-cross"),
+                                   dict(cache_quant="int8", weight_quant="int8")],
+                         ids=["c8x", "w8-c8"])
+def test_int8_av_engine_matches_direct_beam(av_setup, quant):
+    net, payloads, _, hw = av_setup
+
+    def direct(p):
+        audio, audio_mask, video_u8, video_mask, video_len = (
+            torch.from_numpy(np.asarray(x)[None]) for x in p)
+        video = eval_video_pipeline(video_u8, resize=hw)
+        toks = net.beam((audio, audio_mask, video, video_mask, video_len), PREFIX,
+                        beam_size=BEAM, max_len=MAX_LEN, eos_id=EOS,
+                        **quant).sequences[0, 0].numpy()
+        return trim_at_eos(toks, EOS, len(PREFIX))
+
+    with _av_engine(net, hw, buckets=(1, 2), max_wait_s=0.25, **quant) as eng:
+        results = [f.result(timeout=WAIT) for f in [eng.submit(*p) for p in payloads]]
     for p, r in zip(payloads, results):
         np.testing.assert_array_equal(r.tokens, direct(p))
 

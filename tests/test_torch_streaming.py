@@ -106,6 +106,21 @@ def test_chunks_match_jax(pair, beam):
         assert any(len(o) < 7 for o in to)  # some chunk ended at EOS
 
 
+def test_int8_decoder_chunks_match_jax(pair):
+    """The streaming decode on an int8 prepared decoder (the JAX streaming
+    decoder fed the JAX int8 tree): identical tokens, beam 3 over 4 chunks."""
+    jdec, params, _, chunks, _ = pair
+    kw = dict(max_len=32, max_tokens_per_chunk=7, beam_size=3)
+    js = JStream(jdec, jdec.prepare_decode_params(params, "int8"), PREFIX, eos_id=EOS, **kw)
+    jo = [js.process_chunk(jnp.asarray(c)) for c in chunks[:4]]
+    tdec = load_jax_params(TDecoder(TConfig(**CFG), device="cpu"),
+                           jax.tree.map(np.asarray, params)).prepare_decode_params("int8")
+    ts = TStream(tdec, PREFIX, eos_id=EOS, **kw)
+    to = [ts.process_chunk(torch.from_numpy(c)) for c in chunks[:4]]
+    assert to == jo and ts.collected_tokens() == js.collected_tokens()
+    assert sum(map(len, to)) > 0
+
+
 ROLLOVERS = {
     "context_0": dict(context_tokens=0),
     "context_4": dict(context_tokens=4, sot_prev_id=SOT_PREV),

@@ -178,10 +178,9 @@ TRANSCRIBE = dict(beam_size=2, max_len=20, eos_id=0, chunk_seconds=CHUNK_SECONDS
                   detect_language_ids=[2, 40, 41, 60], word_times=True)
 
 
-@pytest.fixture(scope="module")
-def transcribed():
-    """One JAX and one port ``transcribe`` of the same 1.1 s of audio (four
-    windows), with the byte tokenizer of each package."""
+def _transcribe_both(weight_quant=None, windows=3.4):
+    """One JAX and one port ``transcribe`` of the same audio (by default
+    1.1 s, four windows), with the byte tokenizer of each package."""
     jasr = JASR(config=JConfig(**ASR_CFG), backend="xla")
     tree = jax.tree.map(lambda x: np.array(x, np.float32), jasr.init(jax.random.PRNGKey(6)))
     rng = np.random.default_rng(6)
@@ -191,26 +190,44 @@ def transcribed():
         layer["cross_attn"]["q"]["kernel"] *= np.float32(8.0)
         layer["cross_attn"]["v"]["kernel"] *= np.float32(16.0)
     tasr = load_jax_params(TASR(config=TConfig(**ASR_CFG), device="cpu"), tree)
-    audio = (0.3 * rng.standard_normal(int(3.4 * CHUNK_SECONDS * 16_000))).astype(np.float32)
+    audio = (0.3 * rng.standard_normal(int(windows * CHUNK_SECONDS * 16_000))).astype(np.float32)
     key = jax.random.PRNGKey(0)
     jtok, ttok = JTok(), TTok()
     want = jasr.transcribe(jax.tree.map(jnp.asarray, tree), jnp.asarray(audio),
                            jtok.prefix_token_ids, tokenizer=jtok,
-                           group_fn=jax_group_fn(jtok), key=key, **TRANSCRIBE)
+                           group_fn=jax_group_fn(jtok), key=key, weight_quant=weight_quant,
+                           **TRANSCRIBE)
     got = tasr.transcribe(audio, ttok.prefix_token_ids, tokenizer=ttok,
-                          group_fn=default_group_fn(ttok), draws=JaxDraws(key), **TRANSCRIBE)
+                          group_fn=default_group_fn(ttok), draws=JaxDraws(key),
+                          weight_quant=weight_quant, **TRANSCRIBE)
     return got, want
 
 
+@pytest.fixture(scope="module")
+def transcribed():
+    return _transcribe_both()
+
+
 def test_transcribe_matches_jax(transcribed):
-    got, want = transcribed
+    _assert_same_transcript(*transcribed)
+
+
+def test_int8_transcribe_matches_jax():
+    """``weight_quant="int8"``: one int8 decoder serves the decode rungs, the
+    language probe and the word-time alignment forward, in both packages."""
+    got, want = _transcribe_both("int8", windows=1.4)
+    _assert_same_transcript(got, want, n_segments=2)
+    assert got["words"]
+
+
+def _assert_same_transcript(got, want, n_segments=4):
     assert got.keys() == want.keys()
     assert got["tokens"] == [int(t) for t in want["tokens"]] and got["text"] == want["text"]
     assert got["language"] == want["language"]
     assert got["language_probs"].keys() == want["language_probs"].keys()
     for t, p in want["language_probs"].items():
         assert got["language_probs"][t] == pytest.approx(p, abs=PROB_ATOL)
-    assert len(got["segments"]) == len(want["segments"]) == 4
+    assert len(got["segments"]) == len(want["segments"]) == n_segments
     for s, w in zip(got["segments"], want["segments"]):
         assert s.keys() == w.keys()
         for name in ("id", "start", "end", "seek", "text", "temperature", "compression_ratio",
@@ -250,5 +267,3 @@ def test_transcribe_argument_errors(transcribed):
     with pytest.raises(ValueError, match="group_fn"):
         tasr.transcribe(audio, prefix, word_times=True, chunk_seconds=CHUNK_SECONDS,
                         temperatures=(0.0,), max_len=8, eos_id=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
-        tasr.transcribe(audio, prefix, weight_quant="int8")

@@ -548,16 +548,10 @@ def test_feature_mse_mode_trains_through_the_trainer(tmp_path):
 @pytest.mark.parametrize("overrides,match", [
     ({"mesh.data": 4}, "multi-card slice"),
     ({"mesh.model": 2}, "multi-card slice"),
-    ({"training.frozen_weight_quant": "int8"}, "int8 slice"),
 ])
 def test_later_slice_settings_raise(tmp_path, overrides, match):
     with pytest.raises(NotImplementedError, match=match):
         _trainer(tmp_path, **overrides)
-
-
-def test_quantize_frozen_params_waits_for_the_int8_slice():
-    with pytest.raises(NotImplementedError, match="int8"):
-        _torch_net(0.0).quantize_frozen_params()
 
 
 def test_frozen_param_dtype_bf16_casts_only_the_frozen_trees(tmp_path):
