@@ -58,6 +58,14 @@ tokens held card against CPU at small depth; an int8 audio engine against a
 direct decode of its bucket; ``transcribe(weight_quant="int8")`` with word
 times; and ``Trainer.fit`` with the frozen encoder in int8 beside bf16 storage.
 
+Then multi-rank training (phase 16): ``Trainer.fit`` at full width on a
+``("data", "model")`` mesh of two gloo processes sharing the card, at data=2
+and at model=2, each held in fp32 against one process on the same global
+batch, with K1 launched on each rank's heads; ``initialize_distributed``
+under torchrun's variables with one process (NCCL), one step bit for bit
+against no process group; and bf16 ms per step of each leg beside one
+process (two ranks share one card: not a scaling number).
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -67,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import collections
 import contextlib
 import dataclasses
 import io
@@ -75,6 +84,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import threading
@@ -83,6 +93,7 @@ import wave
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mocov2_whisper_flamingo_torch import train as train_entry
@@ -107,6 +118,11 @@ from mocov2_whisper_flamingo_torch.ops import kernels
 from mocov2_whisper_flamingo_torch.ops import losses
 from mocov2_whisper_flamingo_torch.ops.augment import packed_waveform_mel
 from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline, resize_bilinear
+from mocov2_whisper_flamingo_torch.parallel import (
+    gather_state_dict, initialize_distributed, shard_batch)
+from mocov2_whisper_flamingo_torch.parallel.mesh import sharded_dims
+from mocov2_whisper_flamingo_torch.parallel.tensor_parallel import (
+    all_gather_cat, all_reduce_sum)
 from mocov2_whisper_flamingo_torch.serving import (
     TranscriptionServer, canonical_wav, make_audio_engine, make_av_engine,
     make_continuous_av_engine, pad_rows, trim_at_eos)
@@ -191,6 +207,22 @@ INT8_MODES = {"bf16": (None, None), "w8": ("int8", None), "c8": (None, "int8"),
               "c8x": (None, "int8-cross"), "w8_c8": ("int8", "int8")}
 INT8_FP32_MAX_LEN, INT8_LOGIT_SPREAD, INT8_LOGIT_STEPS, INT8_WINDOW = 32, 0.05, 8, 16
 INT8_ASR_MAX_LEN = 32
+# Multi-rank training (phase 16): the legs' (data, model) meshes, two gloo
+# processes each on the one card; a rank's wall limit; fp32 micro-batches (2
+# updates at accumulation 2); the bf16 timed steps and their warm-up.
+MULTI_LEGS = {"data2": (2, 1), "model2": (1, 2)}
+MULTI_RANK_LIMIT_S, MULTI_FP32_STEPS, MULTI_STEPS, MULTI_WARMUP = 180, 4, 6, 2
+NOT_SCALING = "two ranks share one card; not a scaling number"
+# fp32, a leg against one process. The gradient at the starting weights, as a
+# share of its largest value: the legs sum the same fp32 products in other
+# orders (cuBLAS and cuDNN pick other kernels for a batch of 2 than of 4; row
+# shards add partial products), and CTC and the Adam moments amplify nothing
+# yet. The parameters after the two updates: an Adam update moves an element
+# by about the learning rate whatever the size of its gradient, so an element
+# whose gradient is within rounding of 0 may move either way; half the peak
+# learning rate (1e-3) bounds that, and a wrong reduce or loss normalisation
+# moves most elements by the full rate. The losses: phase 6's bound.
+MULTI_GRAD_RTOL, MULTI_PARAM_ATOL = 1e-3, 5e-4
 
 
 def log(msg: str) -> None:
@@ -329,6 +361,11 @@ def path_attention_cases() -> list[tuple]:
               ("forced_cross_audio", (B, FORCED_TOKENS, 1500, 12, 64), None, False),
               ("forced_cross_av", (B, FORCED_TOKENS, T_VIDEO, 12, 64), fusion_lens, False)]
     cases += [(f"align_causal_{t}", (1, t, t, 12, 64), None, True) for t in ALIGN_BUCKETS]
+    # tensor parallelism at model=2 (phase 16): a rank's 6 encoder heads (B=4,
+    # and B=2 a data index on a 2 x 2 mesh) and its 4 fusion heads
+    cases += [("encoder_tp2", (B, 1500, 1500, 6, 64), None, False),
+              ("encoder_tp2_dp2", (B // 2, 1500, 1500, 6, 64), None, False),
+              ("fusion_tp2", (B, T_VIDEO, T_VIDEO, 4, 64), fusion_lens, False)]
     return cases
 
 
@@ -2487,14 +2524,422 @@ def run_int8(seed: int, phase7_ms: float) -> dict:
     return out
 
 
+# -- phase 16: multi-rank training on one card ---------------------------------------------
+
+
+def multicard_batches(seed: int) -> list[dict]:
+    """Two global batches (B=4, 400 frames, 64 target tokens) on the CPU,
+    made from the seed alike in every process; a fit takes them in turn."""
+    rng = np.random.default_rng(seed + 16)
+    return [synthetic_train_batch(rng, B, T_VIDEO, "cpu") for _ in range(2)]
+
+
+class _MeshDataModule:
+    """Global batches; each data index takes its rows of them."""
+
+    def __init__(self, batches: list[dict], mesh, steps: int):
+        self.batches, self.steps = [shard_batch(mesh, b) for b in batches], steps
+
+    def train_dataloader(self):
+        dm = self
+
+        class Loader:
+            def __len__(self):
+                return dm.steps
+
+            def __iter__(self):
+                for i in range(dm.steps):
+                    yield dict(dm.batches[i % len(dm.batches)])
+
+        return Loader()
+
+    def val_dataloader(self):
+        batch = self.batches[0]
+        return [dict(batch, target_text=["synthetic"] * len(batch["target_ids"]))]
+
+    test_dataloader = val_dataloader
+
+
+def multicard_fit(seed: int, batches: list[dict], tree, mesh: tuple, precision: str,
+                  steps: int, workdir: str, overrides: dict | None = None, probe=None):
+    """``Trainer.fit`` at full width (whisper-small, MoCo ResNet-50, the
+    fusion at phase 7's settings with dropout 0, gates at 0.5) on the mesh
+    ``(data, model)`` of this process's run. ``tree``: the weights (None:
+    drawn from ``seed``); ``probe(trainer)`` runs before the fit, and its
+    result is kept as ``trainer.probe``. Returns (trainer, tree)."""
+    fp32 = precision == "float32"
+    config = get_config({
+        "training.epochs": 1, "training.accumulate_grad_batches": 2 if fp32 else 1,
+        "training.seed": seed, "model.dropout": 0.0, "precision.compute_dtype": precision,
+        "precision.rematerialize": False, "output.log_every_n_steps": 1,
+        "output.save_predictions": False, "mesh.data": mesh[0], "mesh.model": mesh[1],
+        "output.checkpoint_dir": os.path.join(workdir, "checkpoints"),
+        "output.log_dir": os.path.join(workdir, "logs"), **(overrides or {})})
+    net = AVNet("audiovisual", None, 96, MODELARGS[:5] + (0.0,), VOCAB,
+                whisper_name="whisper-small", precision=L.FP32 if fp32 else L.BF16,
+                device="cuda")
+    if tree is None:
+        tree = random_avnet_params(net, seed)
+        for layer in tree["fusion"]["layers"]:
+            layer["attn_gate"] = layer["ff_gate"] = np.float32(GATE)
+    load_jax_params(net, tree)
+    trainer = Trainer(config, net, ByteTokenizer())
+    if trainer.is_chief:
+        trainer.writer = _RecordingWriter(trainer.writer.path)
+    trainer.step_timestamps = []
+    trainer.probe = probe(trainer) if probe else None
+    trainer.fit(_MeshDataModule(batches, trainer.mesh, steps), max_steps=steps)
+    torch.cuda.synchronize()
+    return trainer, tree
+
+
+def _trainable(trainer) -> dict:
+    """The whole trainable parameters on the CPU (gathered over the model group)."""
+    whole = gather_state_dict(trainer.net, trainer.mesh)
+    return {n: whole[n].detach().float().cpu() for n, _ in trainer.net.trainable_parameters()}
+
+
+def global_gradient(trainer, batch: dict) -> dict:
+    """The trainable parameters' gradient of the global batch's loss at the
+    trainer's parameters (fp32, no dropout), whole on the CPU: this rank's
+    rows, summed over the data group, gathered over the model group. Taken
+    at the starting weights, it holds the reduce and the loss normalisation
+    against one process where two Adam updates would blur them: an update
+    moves an element by about the learning rate whatever its gradient, so
+    a gradient within rounding of 0 may move either way."""
+    placed = trainer._ready(trainer._put_batch(shard_batch(trainer.mesh, batch)))
+    placed.pop("target_text", None)
+    loss, _ = trainer.task.loss_fn(placed, None, train=True)
+    named = trainer.net.trainable_parameters()
+    grads = torch.autograd.grad(loss, [p for _, p in named])
+    dims = sharded_dims(trainer.net)
+    out = {}
+    for (name, _), grad in zip(named, grads):
+        grad = all_reduce_sum(grad.contiguous(), trainer.mesh.data_group)
+        if name in dims:
+            grad = all_gather_cat(grad, trainer.mesh.model_group, dims[name])
+        out[name] = grad.float().cpu()
+    return out
+
+
+def _compare(ours: dict, ref: dict, atol: float) -> dict:
+    """Largest absolute difference and its tensor; the largest difference
+    relative to its tensor's largest reference value, with that tensor and
+    value; the share of elements that differ by more than ``atol``."""
+    diffs = {n: (ours[n] - ref[n]).abs() for n in ref}
+    worst = max(diffs, key=lambda n: diffs[n].max().item())
+    scale = {n: ref[n].abs().max().item() for n in ref}
+    rel = max(diffs, key=lambda n: diffs[n].max().item() / max(scale[n], 1e-30))
+    beyond = sum(int((d > atol).sum()) for d in diffs.values())
+    top = max(scale.values())
+    return {"max_abs": diffs[worst].max().item(), "max_abs_in": worst,
+            "max_abs_tensor_scale": scale[worst], "largest_value": top,
+            "max_abs_over_largest_value": diffs[worst].max().item() / top,
+            "max_rel": diffs[rel].max().item() / max(scale[rel], 1e-30), "max_rel_in": rel,
+            "max_rel_tensor_scale": scale[rel],
+            "share_beyond": beyond / sum(d.numel() for d in diffs.values()), "atol": atol}
+
+
+def _ms_per_step(trainer) -> float:
+    ts = trainer.step_timestamps
+    return (ts[-1] - ts[MULTI_WARMUP - 1]) * 1e3 / (len(ts) - MULTI_WARMUP)
+
+
+def multicard_rank(spec_path: str, rank: int) -> int:
+    """One rank of a phase-16 leg (``--multicard-rank SPEC RANK``): the fp32
+    fit, whose whole trainable parameters rank 0 saves, then the bf16 timed
+    fit. K1's launches are counted by shape, and the host's time inside the
+    collectives is summed over the timed steps."""
+    spec = json.load(open(spec_path))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(f"file://{spec['store']}", spec["world"], rank, backend="gloo",
+                           timeout_s=MULTI_RANK_LIMIT_S)
+    shapes = collections.Counter()
+    launch = fa._launch
+
+    def counted_launch(q, k, v, *args, **kwargs):
+        shapes[str([q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]])] += 1
+        return launch(q, k, v, *args, **kwargs)
+
+    fa._launch = counted_launch
+    calls = []
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                calls.append((t0, time.perf_counter() - t0))
+        return wrapper
+
+    dist.all_reduce, dist.all_gather = timed(dist.all_reduce), timed(dist.all_gather)
+    batches = multicard_batches(spec["seed"])
+    mesh = tuple(spec["mesh"])
+    out = {"rank": rank}
+    fa.reset_launches()
+    def probe(trainer):  # the gradient at the start; its launches are not the fit's
+        grad = global_gradient(trainer, batches[0])
+        fa.reset_launches()
+        shapes.clear()
+        return grad
+
+    trainer, tree = multicard_fit(spec["seed"], batches, None, mesh, "float32",
+                                  MULTI_FP32_STEPS, os.path.join(spec["workdir"], "fp32"),
+                                  probe=probe)
+    out["fp32"] = {"mesh_index": [trainer.mesh.data_index, trainer.mesh.model_index],
+                   "k1_launches": fa.launches,
+                   "k1_by_kernel": dict(fa.launches_by_kernel), "k1_by_shape": dict(shapes),
+                   "scalars": getattr(trainer.writer, "scalars", None)}
+    params, grad = _trainable(trainer), trainer.probe
+    if rank == 0:
+        torch.save({"params": params, "grad": grad},
+                   os.path.join(spec["workdir"], "fp32_params.pt"))
+    del trainer, params, grad
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    shapes.clear()
+    trainer, _ = multicard_fit(spec["seed"], batches, tree, mesh, "bfloat16", MULTI_STEPS,
+                               os.path.join(spec["workdir"], "bf16"))
+    ts = trainer.step_timestamps
+    comm = sum(dt for t0, dt in calls if ts[MULTI_WARMUP - 1] <= t0 < ts[-1])
+    out["bf16"] = {"ms_per_step": _ms_per_step(trainer),
+                   "collective_ms_per_step": comm * 1e3 / (len(ts) - MULTI_WARMUP),
+                   "k1_by_kernel": dict(fa.launches_by_kernel), "k1_by_shape": dict(shapes),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    with open(os.path.join(spec["workdir"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_world_one(spec_path: str) -> int:
+    """``--nccl-world-one SPEC``: under torchrun's variables with one
+    process, ``initialize_distributed()`` joins an NCCL group; one fp32 step
+    (the feature-alignment loss: ``F.ctc_loss``'s backward on CUDA is not
+    deterministic, and this compares bits) is saved for the parent."""
+    spec = json.load(open(spec_path))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = train_entry.rank_device("cuda")
+    torch.cuda.set_device(torch.device(device))
+    initialize_distributed()
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": device}
+    trainer, _ = multicard_fit(spec["seed"], multicard_batches(spec["seed"]), None, (-1, 1),
+                               "float32", 1, os.path.join(spec["workdir"], "nccl"),
+                               NCCL_OVERRIDES)
+    torch.save(_trainable(trainer), os.path.join(spec["workdir"], "nccl_params.pt"))
+    with open(os.path.join(spec["workdir"], "nccl.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+NCCL_OVERRIDES = {"training.loss_mode": "feature_mse", "training.accumulate_grad_batches": 1}
+
+
+def _spawn(args: list[str], workdir: str, name: str, env: dict | None = None):
+    log_path = os.path.join(workdir, f"{name}.log")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="4", **(env or {}))
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__), *args], cwd=root,
+                            env=env, stdout=open(log_path, "w"), stderr=subprocess.STDOUT), log_path
+
+
+def _wait(procs: list, limit_s: float, what: str) -> None:
+    """Wait for every process; any that exits non-zero or runs past
+    ``limit_s`` stops them all and fails the phase."""
+    deadline = time.monotonic() + limit_s
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            failed = [(p, path) for p, path in procs if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+        bad = [(i, p.poll(), path) for i, (p, path) in enumerate(procs) if p.poll() != 0]
+        if bad:
+            tails = "\n".join(f"--- {what} process {i} (exit {rc}) ---\n"
+                              + open(path).read()[-4000:] for i, rc, path in bad)
+            raise AssertionError(f"{what}: a process failed or ran past {limit_s} s\n{tails}")
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_multicard(seed: int) -> dict:
+    """Phase 16: multi-rank training at full width, two gloo processes
+    sharing the card. Against one process on the same global batch, in
+    fp32: each leg's gradient at the starting weights, its parameters after
+    two updates and its losses, within the ``MULTI_*`` tolerances; the
+    data=2 gradient equals the mean of the two halves' gradients in one
+    process bit for bit; each rank launches K1 at its shard shapes. The NCCL
+    world-1 step equals the step without a process group bit for bit. bf16
+    ms per step of the legs and of one process, in turns."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # fp32 products as the child processes take them (no TF32 in cuBLAS or cuDNN)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_multicard")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    out = {"shape": {"global_batch": B, "frames": T_VIDEO, "target_tokens": TARGET_TOKENS,
+                     "fp32_micro_batches": MULTI_FP32_STEPS, "accumulate_grad_batches": 2,
+                     "bf16_steps": MULTI_STEPS, "warmup_steps": MULTI_WARMUP},
+           "note": NOT_SCALING}
+    try:
+        spec = os.path.join(workdir, "spec.json")
+        with open(spec, "w") as f:
+            json.dump({"seed": seed, "workdir": workdir}, f)
+        nccl = _spawn(["--nccl-world-one", spec], workdir, "nccl", {
+            "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(_free_port())})
+        batches = multicard_batches(seed)
+        two_halves = {}
+
+        def ref_probe(trainer):
+            """The gradient at the start, and the data=2 leg's arithmetic in
+            this process: the mean of the gradients of the batch's two halves
+            (each half's loss is its rows' share of the global loss, whose
+            token and row counts split evenly here)."""
+            grad = global_gradient(trainer, batches[0])
+            halves = [global_gradient(trainer, {k: v[i:i + B // 2] for k, v in batches[0].items()})
+                      for i in (0, B // 2)]
+            two_halves.update({n: (halves[0][n] + halves[1][n]) / 2 for n in grad})
+            fa.reset_launches()
+            return grad
+
+        fa.reset_launches()
+        ref, tree = multicard_fit(seed, batches, None, (1, 1), "float32", MULTI_FP32_STEPS,
+                                  os.path.join(workdir, "single_fp32"),
+                                  probe=ref_probe)
+        ref_launches = fa.launches
+        ref_params, ref_grad = _trainable(ref), ref.probe
+        if ref_launches != 15 * (MULTI_FP32_STEPS + 1):
+            raise AssertionError(f"one-process fp32 fit launched K1 {ref_launches} times, "
+                                 f"expected {15 * (MULTI_FP32_STEPS + 1)}")
+        ref_losses = _train_scalars(ref.writer.scalars)
+        del ref
+        plain, _ = multicard_fit(seed, batches, tree, (1, 1), "float32", 1,
+                                 os.path.join(workdir, "single_nccl_ref"), NCCL_OVERRIDES)
+        plain_params = _trainable(plain)
+        del plain
+        torch.cuda.empty_cache()
+        _wait([nccl], MULTI_RANK_LIMIT_S, "NCCL world-1 step")
+        nccl_info = json.load(open(os.path.join(workdir, "nccl.json")))
+        nccl_params = torch.load(os.path.join(workdir, "nccl_params.pt"), weights_only=True)
+        differ = [n for n in plain_params if not torch.equal(plain_params[n], nccl_params[n])]
+        if nccl_info["backend"] != "nccl" or differ:
+            raise AssertionError(f"NCCL world-1 step: backend {nccl_info['backend']}, "
+                                 f"parameters that differ from no process group: {differ[:5]}")
+        out["nccl_world_one"] = dict(nccl_info, bit_equal=True, params=len(plain_params))
+        log(f"multicard NCCL world 1: {json.dumps(out['nccl_world_one'])}")
+
+        timed = {}
+        single, _ = multicard_fit(seed, batches, tree, (1, 1), "bfloat16", MULTI_STEPS,
+                                  os.path.join(workdir, "single_bf16_1"))
+        timed["single_ms_per_step"] = [_ms_per_step(single)]
+        del single
+        torch.cuda.empty_cache()
+        expected = {"data2": {str([B // 2, 1500, 1500, 12, 64]): 12,
+                              str([B // 2, T_VIDEO, T_VIDEO, 8, 64]): 3},
+                    "model2": {str([B, 1500, 1500, 6, 64]): 12,
+                               str([B, T_VIDEO, T_VIDEO, 4, 64]): 3}}
+        for leg, mesh in MULTI_LEGS.items():
+            legdir = os.path.join(workdir, leg)
+            os.makedirs(legdir)
+            leg_spec = os.path.join(legdir, "spec.json")
+            with open(leg_spec, "w") as f:
+                json.dump({"seed": seed, "workdir": legdir, "world": 2, "mesh": mesh,
+                           "store": os.path.join(legdir, "store")}, f)
+            t0 = time.perf_counter()
+            _wait([_spawn(["--multicard-rank", leg_spec, str(r)], legdir, f"rank{r}")
+                   for r in range(2)], MULTI_RANK_LIMIT_S, f"leg {leg}")
+            ranks = [json.load(open(os.path.join(legdir, f"rank{r}.json"))) for r in range(2)]
+            saved = torch.load(os.path.join(legdir, "fp32_params.pt"), weights_only=True)
+            params = _compare(saved["params"], ref_params, TRAIN_PARAM_ATOL)
+            grads = _compare(saved["grad"], ref_grad, 0.0)
+            if leg == "data2":
+                grads["vs_two_halves_in_one_process"] = _compare(
+                    saved["grad"], two_halves, 0.0)
+            losses = _train_scalars(ranks[0]["fp32"]["scalars"])
+            loss_err = max(abs(losses[k] - v) for k, v in ref_losses.items())
+            passes = MULTI_FP32_STEPS + 1  # the train micro-batches and the validation batch
+            want = {shape: n * passes for shape, n in expected[leg].items()}
+            for r in ranks:
+                if r["fp32"]["k1_by_shape"] != want:
+                    raise AssertionError(f"leg {leg} rank {r['rank']}: K1 launches by shape "
+                                         f"{r['fp32']['k1_by_shape']}, expected {want}")
+            out[leg] = {
+                "mesh": {"data": mesh[0], "model": mesh[1]},
+                "fp32_params_vs_one_process": params, "fp32_grad_vs_one_process": grads,
+                "fp32_max_loss_diff": loss_err,
+                "fp32_k1_by_shape_per_rank": [r["fp32"]["k1_by_shape"] for r in ranks],
+                "fp32_k1_by_kernel_per_rank": [r["fp32"]["k1_by_kernel"] for r in ranks],
+                "bf16_k1_by_kernel_per_rank": [r["bf16"]["k1_by_kernel"] for r in ranks],
+                "bf16_ms_per_step_per_rank": [r["bf16"]["ms_per_step"] for r in ranks],
+                "bf16_collective_ms_per_step_per_rank":
+                    [r["bf16"]["collective_ms_per_step"] for r in ranks],
+                "bf16_peak_mem_gib_per_rank": [r["bf16"]["peak_mem_gib"] for r in ranks],
+                "leg_s": time.perf_counter() - t0}
+            log(f"multicard leg {leg} ({NOT_SCALING}): " + json.dumps(out[leg]))
+            if (not grads["max_abs_over_largest_value"] <= MULTI_GRAD_RTOL
+                    or not params["max_abs"] <= MULTI_PARAM_ATOL
+                    or not loss_err <= TRAIN_LOSS_ATOL
+                    or grads.get("vs_two_halves_in_one_process", {}).get("max_abs", 0.0) != 0.0):
+                raise AssertionError(
+                    f"leg {leg}: fp32 against one process: gradient "
+                    f"{grads['max_abs_over_largest_value']:.3e} of its largest value (rtol "
+                    f"{MULTI_GRAD_RTOL:g}), parameters {params['max_abs']:.3e} (atol "
+                    f"{MULTI_PARAM_ATOL:g}), losses {loss_err:.3e} (atol {TRAIN_LOSS_ATOL:g}), "
+                    f"data=2 against its two halves in one process "
+                    f"{grads.get('vs_two_halves_in_one_process')}")
+        single, _ = multicard_fit(seed, batches, tree, (1, 1), "bfloat16", MULTI_STEPS,
+                                  os.path.join(workdir, "single_bf16_2"))
+        timed["single_ms_per_step"].append(_ms_per_step(single))
+        del single
+        out["single"] = timed
+        out["single_fp32_k1_launches"] = ref_launches
+        log(f"multicard one process bf16 ms per step, before and after the legs "
+            f"({NOT_SCALING}): {timed['single_ms_per_step']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multicard phase: {out['phase_s']:.1f} s")
+    return out
+
+
+def _train_scalars(scalars) -> dict:
+    return {f"{tag}@{step}": v for tag, v, step in scalars if tag.startswith("train/")}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    # phase 16's child processes
+    parser.add_argument("--multicard-rank", nargs=2, metavar=("SPEC", "RANK"),
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--nccl-world-one", metavar="SPEC", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one card",
               file=sys.stderr)
         return 1
+    if args.multicard_rank:
+        return multicard_rank(args.multicard_rank[0], int(args.multicard_rank[1]))
+    if args.nccl_world_one:
+        return nccl_world_one(args.nccl_world_one)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2526,6 +2971,7 @@ def main() -> int:
     data_path = run_data_path(args.seed, train_path["dropout_0.1"]["k1_launches_per_step"])
     longform_path = run_longform(args.seed)
     int8_path = run_int8(args.seed, train_path["dropout_0.1"]["train_ms_per_step"])
+    multicard_path = run_multicard(args.seed)
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -2562,10 +3008,13 @@ def main() -> int:
           "launches_per_int8_alignment_forward":
               int8_path["audio"]["transcribe"]["k1_launches_by_mask"]["unmasked_causal"],
           "launches_per_int8_train_step": int8_path["train"]["int8"]["k1_launches_per_step"],
+          "launches_per_multicard_fp32_fit_by_shape": {
+              leg: multicard_path[leg]["fp32_k1_by_shape_per_rank"] for leg in MULTI_LEGS},
           "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
     print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
                       "serve_path": serve_path, "longform_path": longform_path,
-                      "data_path": data_path, "int8_path": int8_path, "card": smi}),
+                      "data_path": data_path, "int8_path": int8_path,
+                      "multicard_path": multicard_path, "card": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

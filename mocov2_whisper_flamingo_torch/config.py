@@ -4,8 +4,8 @@
 Every leaf can be overridden from the command line with dotted keys
 (``--set model.d_model=256``); importing the module has no side effects (the
 trainer creates the checkpoint and log directories when it starts). The
-``mesh`` section is kept for the key names: the port trains on one card, and
-``mesh.data`` or ``mesh.model`` above 1 is refused by the trainer.
+``mesh`` section lays the processes of a run (one per card) out as
+``(data, model)`` (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -193,10 +193,10 @@ OUTPUT_DEFAULTS = dict(
 )
 
 MESH_DEFAULTS = dict(
-    # Devices laid out (data, model). One card only for now: the trainer
-    # raises on either axis above 1.
-    data=-1,   # -1 = all remaining devices
-    model=1,
+    # Processes (one per card) laid out (data, model); data x model must be
+    # the number of processes, or the trainer raises ValueError.
+    data=-1,   # -1 = all processes over model
+    model=1,   # tensor-parallel ranks per data index (the innermost axis)
 )
 
 PRECISION_DEFAULTS = dict(

@@ -10,8 +10,8 @@ datamodule/data_module.py:154-274): ``DataModule(config)`` with
 - loaders are plain Python iterables backed by a thread-pool prefetcher
   (no torch DataLoader; ``num_workers`` maps to prefetch threads);
 - with ``torch.distributed`` initialised, ``ShardedSampler`` deals the
-  batches over its ranks (one card per process) instead of torch's
-  DistributedSampler;
+  batches over the mesh's data indices (``mesh.model`` ranks share one)
+  instead of torch's DistributedSampler;
 - the tokenizer is the extended Whisper tokenizer when a local directory is
   configured (``data.updated_tokenizer_dir``, reference:
   data_module.py:171-174), else a self-contained byte tokenizer.
@@ -37,13 +37,17 @@ from mocov2_whisper_flamingo_torch.utils.tokenizer import load_tokenizer
 logger = logging.getLogger(__name__)
 
 
-def _world() -> tuple[int, int]:
-    """``(world size, rank)`` of ``torch.distributed`` when it is
-    initialised, else ``(1, 0)``."""
+def _data_shard(n_model: int = 1) -> tuple[int, int]:
+    """``(data axis size, data index)`` of this process in a mesh with a
+    model axis of ``n_model`` over the processes of ``torch.distributed``
+    (rank = data index * n_model + model index, ``parallel/mesh.py``);
+    ``(1, 0)`` without a process group. The ranks of one model group share
+    a data index, so they receive the same batches."""
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size(), dist.get_rank()
+        n_model = int(n_model or 1)
+        return dist.get_world_size() // n_model, dist.get_rank() // n_model
     return 1, 0
 
 
@@ -321,7 +325,7 @@ class DataModule:
             seed=self.seed,
             max_frames=max_frames,
         )
-        world, rank = _world()
+        world, rank = _data_shard(self.config.get("mesh", {}).get("model", 1))
         multi_rank = world > 1
         if self.quantize_batch_sizes:
             # One card per process, so any piece size places (min_size 1).

@@ -122,6 +122,22 @@ class AVNet(nn.Module):
             state_dict, self.whisper_config.encoder_layers))
         return self
 
+    def tensor_parallel_units(self) -> list:
+        """The CTC head, split over the vocabulary and gathered whole
+        (``parallel/mesh.py``); it stays whole where the vocabulary does not
+        divide by the model axis."""
+        return [(None, [(self.decoder, "gather")])]
+
+    def set_attention_backend(self, backend: str) -> None:
+        """``"flash"`` (the default: the hand-written kernel on CUDA tensors)
+        or ``"plain"`` for every attention of the encoder and the fusion.
+        Under tensor parallelism each rank calls the kernel on its own heads,
+        so no backend needs a mesh of its own."""
+        if backend not in ("flash", "plain"):
+            raise ValueError(f"unknown attention backend {backend!r}; expected 'flash' or 'plain'")
+        for layer in (*self.whisper_encoder.layers, *self.fusion.layers):
+            layer.backend = backend
+
     FROZEN = ("whisper_encoder", "visual_frontend")
 
     @classmethod

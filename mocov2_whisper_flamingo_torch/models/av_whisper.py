@@ -59,6 +59,13 @@ class AVWhisperNet(nn.Module):
         self.d_model = modelargs[0]
         self.precision = precision
 
+    def set_attention_backend(self, backend: str) -> None:
+        """See ``AVNet.set_attention_backend``; also the decoder's
+        teacher-forced forward (its decode step always runs the plain
+        attention)."""
+        self.trunk.set_attention_backend(backend)
+        self.decoder.backend = backend
+
     def load_whisper_torch(self, state_dict) -> "AVWhisperNet":
         """Install an HF ``WhisperModel`` state dict's encoder and decoder
         (in place)."""

@@ -49,19 +49,29 @@ class GatedBlock(nn.Module):
         self.ff2 = L.Linear(4 * d_model, d_model, True, precision, device)
         self.attn_gate = L.zeros_param((), device)
         self.ff_gate = L.zeros_param((), device)
+        self.backend = "flash"
+
+    def tensor_parallel_units(self) -> list:
+        """The cross-attention's q/k/v column-parallel and ``out``
+        row-parallel, ``ff1`` / ``ff2`` likewise (``parallel/mesh.py``)."""
+        a = self.attn
+        return [(self.n_heads, [(a.q, "column"), (a.k, "column"), (a.v, "column"),
+                                (a.out, "row")]),
+                (None, [(self.ff1, "column"), (self.ff2, "row")])]
 
     def forward(self, x: torch.Tensor, xa: torch.Tensor, video_valid: torch.Tensor | None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``generator``: the train-mode dropout draws (attention first,
         then feed-forward); None runs the block without dropout."""
         b, tq, d = x.shape
-        tk, h = xa.shape[1], self.n_heads
-        q = self.attn.q(self.attn_ln(x)).reshape(b, tq, h, d // h)
-        k = self.attn.k(xa).reshape(b, tk, h, d // h)
-        v = self.attn.v(xa).reshape(b, tk, h, d // h)
-        attn = multi_head_attention(q, k, v, kv_valid=video_valid, backend="flash",
+        tk, dh = xa.shape[1], d // self.n_heads
+        # [B, T, heads, Dh]: all heads, or under tensor parallelism this rank's
+        q = self.attn.q(self.attn_ln(x)).reshape(b, tq, -1, dh)
+        k = self.attn.k(xa).reshape(b, tk, -1, dh)
+        v = self.attn.v(xa).reshape(b, tk, -1, dh)
+        attn = multi_head_attention(q, k, v, kv_valid=video_valid, backend=self.backend,
                                     dropout_rate=self.dropout_rate, generator=generator)
-        attn = self.attn.out(attn.reshape(b, tq, d))
+        attn = self.attn.out(attn.reshape(b, tq, -1))
         x = x + attn * torch.tanh(self.attn_gate).to(attn.dtype)
         ff = self.ff2(L.gelu(self.ff1(self.ff_ln(x))))
         ff = L.dropout(ff, self.dropout_rate, generator, deterministic=False)

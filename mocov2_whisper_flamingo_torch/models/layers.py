@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mocov2_whisper_flamingo_torch.parallel import tensor_parallel as TP
+
 
 @dataclasses.dataclass(frozen=True)
 class Precision:
@@ -38,7 +40,33 @@ def zeros_param(shape, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class Linear(nn.Module):
+class _TensorParallel:
+    """A linear's place in a tensor-parallel unit, set by
+    ``parallel.mesh.shard_module``: ``tp_mode`` "column" (this rank holds a
+    slice of the output features), "row" (a slice of the input features:
+    the partial products are summed over ``tp_group`` before the bias) or
+    "gather" (a column slice whose outputs are gathered whole); None for a
+    whole linear."""
+
+    tp_mode: str | None = None
+    tp_group = None
+
+    def _tp_input(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_mode in ("column", "gather"):
+            return TP.copy_to_model_group(x, self.tp_group)
+        return x
+
+    def _tp_output(self, y: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        if self.tp_mode == "row":
+            y = TP.reduce_from_model_group(y, self.tp_group)
+        if bias is not None:
+            y = y + bias
+        if self.tp_mode == "gather":
+            y = TP.gather_from_model_group(y, self.tp_group)
+        return y
+
+
+class Linear(_TensorParallel, nn.Module):
     """``y = cast(x) @ cast(kernel) + cast(bias)``, kernel ``[d_in, d_out]``."""
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True,
@@ -50,13 +78,11 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         prec = self.precision
-        y = torch.matmul(prec.cast(x), prec.cast(self.kernel))
-        if self.bias is not None:
-            y = y + prec.cast(self.bias)
-        return y
+        y = torch.matmul(prec.cast(self._tp_input(x)), prec.cast(self.kernel))
+        return self._tp_output(y, None if self.bias is None else prec.cast(self.bias))
 
 
-def quantize_int8(w: torch.Tensor, dim: int, floor: float = 1e-12
+def quantize_int8(w: torch.Tensor, dim: int, floor: float = 1e-12, group=None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 with one scale per slice along ``dim``: ``scale =
     max|w| / 127`` over ``dim`` (floored at ``floor``), ``q = round(w /
@@ -64,9 +90,13 @@ def quantize_int8(w: torch.Tensor, dim: int, floor: float = 1e-12
     ``dim`` reduced in the scale. A linear kernel ``[d_in, d_out]`` takes
     ``dim=0`` (one scale per output channel), an embedding table ``[vocab,
     D]`` ``dim=1`` (one per row, which serves the lookup and the tied
-    projection ``x @ table.T`` alike)."""
+    projection ``x @ table.T`` alike). ``group``: ``w`` is this rank's slice
+    along ``dim`` and the maximum is taken over the group's slices."""
     w = w.float()
-    scale = (w.abs().amax(dim=dim, keepdim=True) / 127.0).clamp_min(floor)
+    amax = w.abs().amax(dim=dim, keepdim=True)
+    if group is not None:
+        amax = TP.all_gather_cat(amax, group, dim).amax(dim=dim, keepdim=True)
+    scale = (amax / 127.0).clamp_min(floor)
     return torch.round(w / scale).to(torch.int8), scale.squeeze(dim)
 
 
@@ -75,7 +105,7 @@ def int8_param(shape, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class QuantLinear(nn.Module):
+class QuantLinear(_TensorParallel, nn.Module):
     """Weight-only int8 linear (w8a16): ``kernel_q`` int8 ``[d_in, d_out]``,
     ``scale`` ``[d_out]`` and ``bias``. ``y = cast((cast(x) @ kernel_q) *
     scale + bias)`` with the product and the affine in fp32 (the JAX
@@ -95,7 +125,11 @@ class QuantLinear(nn.Module):
     def from_linear(cls, lin: Linear) -> "QuantLinear":
         d_in, d_out = lin.kernel.shape
         out = cls(d_in, d_out, lin.bias is not None, lin.precision, lin.kernel.device)
-        q, scale = quantize_int8(lin.kernel.detach(), 0)
+        out.tp_mode, out.tp_group = lin.tp_mode, lin.tp_group
+        # A row shard holds a slice of the input features: its scales are
+        # the whole kernel's.
+        q, scale = quantize_int8(lin.kernel.detach(), 0,
+                                 group=lin.tp_group if lin.tp_mode == "row" else None)
         with torch.no_grad():
             out.kernel_q.copy_(q)
             out.scale.copy_(scale)
@@ -105,10 +139,9 @@ class QuantLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         prec = self.precision
-        y = torch.matmul(prec.cast(x).float(), self.kernel_q.float()) * self.scale.float()
-        if self.bias is not None:
-            y = y + self.bias.float()
-        return prec.cast(y)
+        y = torch.matmul(prec.cast(self._tp_input(x)).float(),
+                         self.kernel_q.float()) * self.scale.float()
+        return prec.cast(self._tp_output(y, None if self.bias is None else self.bias.float()))
 
 
 class LayerNorm(nn.Module):

@@ -97,6 +97,13 @@ def _split_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
     return x.reshape(b, t, n_heads, d // n_heads)
 
 
+def _split_head_dim(x: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """``[B, T, H * head_dim] -> [B, T, H, head_dim]`` for however many
+    heads ``x`` holds (all of them, or a tensor-parallel rank's share)."""
+    b, t, _ = x.shape
+    return x.reshape(b, t, -1, head_dim)
+
+
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     b, t, h, dh = x.shape
     return x.reshape(b, t, h * dh)
@@ -136,19 +143,33 @@ def _folded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class EncoderLayer(nn.Module):
+    """Under tensor parallelism (``parallel/mesh.py::shard_module``) the
+    projections hold this rank's heads, ``n_heads / M`` of them, and the
+    attention kernel runs on ``[B, T, n_heads / M, Dh]``."""
+
     def __init__(self, cfg: WhisperConfig, precision: L.Precision, device=None):
         super().__init__()
         self.n_heads = cfg.n_heads
+        self.head_dim = cfg.head_dim
+        self.backend = "flash"
         self.self_attn = Attention(cfg.d_model, precision, device)
         self.self_attn_ln = L.LayerNorm(cfg.d_model, device=device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff, precision, device)
         self.mlp_ln = L.LayerNorm(cfg.d_model, device=device)
 
+    def tensor_parallel_units(self) -> list:
+        """q/k/v column-parallel and ``out`` row-parallel, ``fc1`` / ``fc2``
+        likewise (``parallel/mesh.py``)."""
+        a, m = self.self_attn, self.mlp
+        return [(self.n_heads, [(a.q, "column"), (a.k, "column"), (a.v, "column"),
+                                (a.out, "row")]),
+                (None, [(m.fc1, "column"), (m.fc2, "row")])]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, h = self.self_attn, self.n_heads
+        a, dh = self.self_attn, self.head_dim
         y = self.self_attn_ln(x)
-        out = multi_head_attention(_split_heads(a.q(y), h), _split_heads(a.k(y), h),
-                                   _split_heads(a.v(y), h), backend="flash")
+        out = multi_head_attention(_split_head_dim(a.q(y), dh), _split_head_dim(a.k(y), dh),
+                                   _split_head_dim(a.v(y), dh), backend=self.backend)
         x = x + a.out(_merge_heads(out))
         return x + self.mlp(self.mlp_ln(x))
 
@@ -219,6 +240,7 @@ class WhisperDecoder(nn.Module):
                                     for _ in range(cfg.decoder_layers))
         self.ln_post = L.LayerNorm(cfg.d_model, device=device)
         self.vocab_table: torch.Tensor | None = None  # set by prepare_decode_params
+        self.backend = "flash"  # the teacher-forced forward's attention
 
     # -- full-sequence (teacher forcing) ------------------------------------------
 
@@ -263,7 +285,7 @@ class WhisperDecoder(nn.Module):
             q, k, v = sa.qkv(y).chunk(3, dim=-1) if sa.qkv is not None \
                 else (sa.q(y), sa.k(y), sa.v(y))
             out = multi_head_attention(*(_split_heads(t, cfg.n_heads) for t in (q, k, v)),
-                                       causal=True, backend="flash")
+                                       causal=True, backend=self.backend)
             x = x + sa.out(_merge_heads(out))
             y = layer.cross_attn_ln(x)
             if return_cross_weights:
@@ -273,7 +295,7 @@ class WhisperDecoder(nn.Module):
                 out = multi_head_attention(
                     _split_heads(ca.q(y), cfg.n_heads), _split_heads(ca.k(enc), cfg.n_heads),
                     _split_heads(ca.v(enc), cfg.n_heads), kv_valid=encoder_valid,
-                    backend="flash")
+                    backend=self.backend)
                 h = ca.out(_merge_heads(out))
             x = x + h
             x = x + layer.mlp(layer.mlp_ln(x))

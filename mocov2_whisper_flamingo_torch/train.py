@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Training entry point of the port (counterpart of the root ``train.py``):
 config -> tokenizer -> data module -> AVNet -> Trainer (top-k checkpoints,
-early stopping, LR logging) -> fit -> test, on one CUDA card.
+early stopping, LR logging) -> fit -> test, one process per CUDA card.
 
 Usage:
   python -m mocov2_whisper_flamingo_torch.train --set data.root_dir=/data/avsr
@@ -9,6 +9,16 @@ Usage:
       --set augmentation.on_device=true --set augmentation.on_device_mel=true
   python -m mocov2_whisper_flamingo_torch.train --smoke          # 2-step synthetic run
   python -m mocov2_whisper_flamingo_torch.train --smoke --device cpu
+  python -m mocov2_whisper_flamingo_torch.train --smoke --profile logs/profile
+  # 4 cards, data 2 x model 2 (NCCL), or 2 CPU processes over gloo:
+  torchrun --nproc_per_node 4 -m mocov2_whisper_flamingo_torch.train \
+      --set data.root_dir=/data/avsr --set mesh.data=2 --set mesh.model=2
+  torchrun --nproc_per_node 2 -m mocov2_whisper_flamingo_torch.train --smoke \
+      --device cpu --set mesh.data=2
+
+Under torchrun each process joins the process group
+(``parallel.initialize_distributed``) before the net is built and takes the
+card ``cuda:{LOCAL_RANK}``; ``config["mesh"]`` lays the processes out.
 
 The dataset lies under ``data.root_dir`` as
 ``{split}/{split}_video_seg12s/<folder>/<clip>.{npy,npz,mp4}`` with a sibling
@@ -22,7 +32,9 @@ Whisper encoder starts from random weights, as in the JAX package's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
+import os
 import sys
 
 import numpy as np
@@ -65,6 +77,21 @@ def build_net(config, vocab_size: int, device: str | torch.device | None = "cuda
     if moco_file:
         net.load_moco(moco_file)
     return net
+
+
+def rank_device(device: str) -> str:
+    """The device of this process: under torchrun (``LOCAL_RANK`` set) a
+    CUDA device is the card ``cuda:{LOCAL_RANK}``. Raises when
+    ``LOCAL_RANK`` names a card the host does not have: processes never
+    share a card silently."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is None or torch.device(device).type != "cuda":
+        return device
+    cards = torch.cuda.device_count()
+    if int(local) >= cards:
+        raise ValueError(f"LOCAL_RANK={local} but this host has {cards} CUDA card(s): "
+                         "start one process per card")
+    return f"cuda:{int(local)}"
 
 
 class _SmokeDataModule:
@@ -118,10 +145,19 @@ def main(argv: list[str] | None = None) -> int:
                         help="checkpoint path to resume from ('last' for the last one)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="'cuda' (default; fails without a card) or 'cpu'")
+    parser.add_argument("--profile", type=str, default=None, metavar="DIR",
+                        help="trace the fit with torch.profiler into DIR (one trace per rank)")
     args = parser.parse_args(argv)
 
     config = config_from_args(args)
     setup_logging()
+
+    from mocov2_whisper_flamingo_torch.parallel import initialize_distributed
+
+    device = rank_device(args.device)
+    if torch.device(device).index is not None:  # torchrun: this process's card
+        torch.cuda.set_device(torch.device(device))
+    initialize_distributed(backend=None if torch.device(device).type == "cuda" else "gloo")
 
     from mocov2_whisper_flamingo_torch.training.trainer import Trainer
     from mocov2_whisper_flamingo_torch.utils.tokenizer import load_tokenizer
@@ -130,7 +166,6 @@ def main(argv: list[str] | None = None) -> int:
         config.set_dotted("training.epochs", 1)
         config.set_dotted("training.accumulate_grad_batches", 1)
         config.set_dotted("output.log_every_n_steps", 1)
-        config.set_dotted("mesh.model", 1)
         # shrink the model so the smoke run is quick
         config.set_dotted("whisper.model_name", "whisper-tiny")
         config.set_dotted("model.d_model", 64)
@@ -154,12 +189,19 @@ def main(argv: list[str] | None = None) -> int:
         vocab_size = datamodule.vocab_size
 
     logger.info("vocab size = %d", vocab_size)
-    net = build_net(config, vocab_size, args.device, moco_file=config["data"]["moco_file"])
-    trainer = Trainer(config, net, tokenizer, device=args.device)
+    net = build_net(config, vocab_size, device, moco_file=config["data"]["moco_file"])
+    trainer = Trainer(config, net, tokenizer, device=device)
+
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from mocov2_whisper_flamingo_torch.utils.profiling import trace
+
+        profile_ctx = trace(args.profile)
 
     logger.info("starting training...")
-    trainer.fit(datamodule, max_steps=args.max_steps or (2 if args.smoke else None),
-                resume=args.resume)
+    with profile_ctx:
+        trainer.fit(datamodule, max_steps=args.max_steps or (2 if args.smoke else None),
+                    resume=args.resume)
 
     logger.info("starting testing...")
     metrics = trainer.test(datamodule)

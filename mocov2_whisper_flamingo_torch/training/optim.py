@@ -13,6 +13,13 @@ applies one update every ``accum`` micro-batches (``optax.MultiSteps``); the
 clip divides by the norm itself (``torch.nn.utils.clip_grad_norm_`` divides
 by ``norm + 1e-6``, so it is written out here); the schedule is read at the
 count of updates made so far.
+
+On a mesh (``parallel/mesh.py``) the step also does what the JAX step gets
+from GSPMD: each micro-batch's gradients are summed over the data group in
+one all-reduce of a flat buffer (the task scales each rank's loss by the
+global batch's counts, so the sum is the global batch's gradient), and the
+clip's global norm sums the squares of split parameters over the model
+group while counting each whole (replicated) parameter once.
 """
 
 from __future__ import annotations
@@ -20,6 +27,8 @@ from __future__ import annotations
 from typing import Any, Callable, Iterable
 
 import torch
+
+from mocov2_whisper_flamingo_torch.parallel.tensor_parallel import all_gather_cat, all_reduce_sum
 
 NO_DECAY_NAMES = {"bias", "scale", "attn_gate", "ff_gate"}
 
@@ -61,9 +70,17 @@ class Optimizer:
 
     def __init__(self, named_params: Iterable[tuple[str, torch.nn.Parameter]],
                  training_config: Any, total_steps: int,
-                 decay_mask: Callable[[str, torch.Tensor], bool] | None = None):
+                 decay_mask: Callable[[str, torch.Tensor], bool] | None = None,
+                 mesh=None, split_dims: dict[str, int] | None = None):
+        """``mesh``: the data and model groups to reduce over (None: one
+        process); ``split_dims``: ``{name: dimension}`` of the parameters
+        split over the model group (``parallel.mesh.sharded_dims``)."""
         named = list(named_params)
         self.params = [p for _, p in named]
+        self.data_group = getattr(mesh, "data_group", None)
+        self.model_group = getattr(mesh, "model_group", None)
+        split_dims = split_dims or {}
+        self.split_dims = [split_dims.get(n) for n, _ in named]
         self.schedule = one_cycle_lr(max_lr=training_config["max_lr"], total_steps=total_steps,
                                      pct_start=training_config.get("warmup_ratio", 0.1))
         self.clip = training_config.get("gradient_clip_val", 1.0)
@@ -83,6 +100,10 @@ class Optimizer:
     def step(self, grads: list[torch.Tensor]) -> None:
         """Take one micro-batch's gradients (in the order of the parameters
         given); apply an update when ``accum`` of them have come in."""
+        if self.data_group is not None:
+            flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), self.data_group)
+            grads = [part.view_as(g) for part, g in
+                     zip(flat.split([g.numel() for g in grads]), grads)]
         if self.accum > 1:
             if self._mean is None:
                 self._mean = [torch.zeros_like(p) for p in self.params]
@@ -94,7 +115,7 @@ class Optimizer:
                 return
             grads, self._mean, self.mini_step = self._mean, None, 0
         if self.clip is not None:
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(grads)
             scale = torch.where(norm < self.clip, torch.ones_like(norm), self.clip / norm)
             grads = torch._foreach_mul(grads, scale)
         lr = self.schedule(self.count)
@@ -106,6 +127,52 @@ class Optimizer:
         for p in self.params:
             p.grad = None
         self.count += 1
+
+    def _global_norm(self, grads: list[torch.Tensor]) -> torch.Tensor:
+        norms = torch._foreach_norm(grads)
+        whole = [n for n, d in zip(norms, self.split_dims) if d is None]
+        split = [n for n, d in zip(norms, self.split_dims) if d is not None]
+        norm = torch.linalg.vector_norm(torch.stack(whole)) if whole else norms[0] * 0
+        if not split:
+            return norm
+        return torch.sqrt(norm.square()
+                          + all_reduce_sum(torch.stack(split).square().sum(), self.model_group))
+
+    def _split_dim_by_slot(self) -> dict[int, int | None]:
+        """AdamW's state index of each parameter -> its split dimension."""
+        dims = {id(p): d for p, d in zip(self.params, self.split_dims)}
+        order = [p for group in self.adamw.param_groups for p in group["params"]]
+        return {i: dims[id(p)] for i, p in enumerate(order)}
+
+    def _map_split(self, state: dict, fn) -> dict:
+        """``state`` with ``fn(tensor, dim)`` applied to every moment and
+        running mean of a split parameter."""
+        state = dict(state, adamw=dict(state["adamw"]))
+        slots = self._split_dim_by_slot()
+        state["adamw"]["state"] = {
+            i: {k: fn(v, slots[i]) if slots[i] is not None and v.ndim else v
+                for k, v in moments.items()}
+            for i, moments in state["adamw"]["state"].items()}
+        if state["mean"] is not None:
+            state["mean"] = [m if d is None else fn(m, d)
+                             for m, d in zip(state["mean"], self.split_dims)]
+        return state
+
+    def whole_state_dict(self) -> dict:
+        """``state_dict`` with the moments and running means of split
+        parameters gathered whole over the model group (a collective)."""
+        state = self.state_dict()
+        if self.model_group is None:
+            return state
+        return self._map_split(state, lambda v, d: all_gather_cat(v, self.model_group, d))
+
+    def load_whole_state_dict(self, state: dict, model_index: int, n_model: int) -> None:
+        """Load a whole state (``whole_state_dict``, or one process's):
+        each split parameter's moments and means take this rank's slice."""
+        if n_model > 1:
+            state = self._map_split(
+                state, lambda v, d: v.chunk(n_model, d)[model_index].contiguous())
+        self.load_state_dict(state)
 
     def state_dict(self) -> dict:
         return {"adamw": self.adamw.state_dict(), "count": self.count,
@@ -121,11 +188,12 @@ class Optimizer:
 
 def make_optimizer(training_config: Any, total_steps: int,
                    named_params: Iterable[tuple[str, torch.nn.Parameter]],
-                   decay_mask: Callable[[str, torch.Tensor], bool] | None = None
+                   decay_mask: Callable[[str, torch.Tensor], bool] | None = None,
+                   mesh=None, split_dims: dict[str, int] | None = None
                    ) -> tuple[Optimizer, Callable[[int], float]]:
     """The optimizer over ``named_params`` (the trainable ones only) and its
     schedule. ``total_steps`` counts updates, not micro-batches.
     ``decay_mask`` (see ``no_decay_mask``) restricts weight decay to
-    matmul-shaped weights."""
-    opt = Optimizer(named_params, training_config, total_steps, decay_mask)
+    matmul-shaped weights; ``mesh`` / ``split_dims`` as for ``Optimizer``."""
+    opt = Optimizer(named_params, training_config, total_steps, decay_mask, mesh, split_dims)
     return opt, opt.schedule

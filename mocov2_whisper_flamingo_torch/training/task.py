@@ -15,6 +15,16 @@ before the CE.
 A batch is a dict of tensors on the model's device with the reference
 collate keys: ``audio``, ``audio_mask``, ``audio_lengths``, ``video``,
 ``video_mask``, ``video_lengths``, ``target_ids``, ``target_lengths``.
+
+With a ``data_group`` (data parallelism) the batch is this rank's rows of
+the global batch, and the losses are those of the global batch, as the JAX
+step computes them on the sharded global array: each rank divides its CE
+token sum by the global count of valid tokens and its CTC row sum (of
+``nll / target_len``) by the global row count, so the rank losses, and their
+gradients, sum to the global batch's over the data group. A mean of per-rank
+means would differ wherever ranks hold different numbers of valid tokens.
+The reported losses, and the non-finite guard's decision, are the global
+ones, the same on every rank.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import numpy as np
 import torch
 
 from mocov2_whisper_flamingo_torch.ops.losses import ctc_loss, label_smoothed_cross_entropy
+from mocov2_whisper_flamingo_torch.parallel.tensor_parallel import all_reduce_sum
 
 
 def _inputs(batch: dict) -> tuple:
@@ -51,8 +62,26 @@ class AVSRTask:
     # Optional on-device augmentation ``(batch, generator) -> batch``, applied
     # in the train step only (``ops.augment.make_batch_augment``).
     augment_fn: Callable | None = None
+    # The mesh's data group (None: the batch is the whole global batch).
+    data_group: Any = None
 
     # -- losses -----------------------------------------------------------------
+
+    def _global_counts(self, device, *counts) -> list[torch.Tensor]:
+        """Counts (ints, or tensors on ``device``) summed over the data group,
+        each at least 1. An int is filled on the device: copying it there
+        would wait for the step's kernels."""
+        total = all_reduce_sum(torch.stack([
+            c.float() if torch.is_tensor(c) else torch.full((), float(c), device=device)
+            for c in counts]), self.data_group)
+        return list(torch.clamp(total, min=1))
+
+    def _global_losses(self, losses: dict) -> dict:
+        """Detached per-rank shares -> the global batch's losses."""
+        names = sorted(losses)
+        total = all_reduce_sum(torch.stack([losses[k].detach().float() for k in names]),
+                               self.data_group)
+        return dict(zip(names, total))
 
     def compute_losses(self, logits: torch.Tensor, batch: dict) -> dict:
         """logits ``[B, T', V]``; batch carries target_ids ``[B, L]``,
@@ -61,15 +90,19 @@ class AVSRTask:
         target_lengths = batch["target_lengths"].reshape(-1)
         input_lengths = torch.clamp(batch["audio_lengths"].reshape(-1), max=logits.shape[1])
 
-        ctc = ctc_loss(logits, targets, input_lengths, target_lengths, blank_id=self.ctc_blank)
-
         t_min = min(logits.shape[1], targets.shape[1])
         ce_targets = targets[:, :t_min]
         if self.pad_to_ignore:
             pos = torch.arange(t_min, device=targets.device)[None, :]
             ce_targets = torch.where(pos < target_lengths[:, None], ce_targets, -100)
+        nll = ctc_loss(logits, targets, input_lengths, target_lengths, blank_id=self.ctc_blank,
+                       reduction="none")
+        rows, tokens = self._global_counts(nll.device, nll.shape[0], (ce_targets != -100).sum())
+        per_row = nll / torch.clamp(target_lengths.to(nll.device), min=1).to(nll.dtype)
+        ctc = per_row.sum() / rows
         ce = label_smoothed_cross_entropy(logits[:, :t_min], ce_targets,
-                                          label_smoothing=self.label_smoothing)
+                                          label_smoothing=self.label_smoothing,
+                                          reduction="sum") / tokens
         return {"ctc_loss": ctc, "ce_loss": ce, "loss": ctc + ce}
 
     def feature_mse_losses(self, batch: dict, generator: torch.Generator | None = None,
@@ -78,12 +111,13 @@ class AVSRTask:
                                                          generator=generator)
         features = features.float()
         audio_feat = audio_feat.detach().float()
-        mse = (features - audio_feat).square().mean()
+        sq = (features - audio_feat).square()
         fm, am = features.mean(dim=1), audio_feat.mean(dim=1)
         cos = (fm * am).sum(dim=-1) / torch.clamp(
             torch.linalg.vector_norm(fm, dim=-1) * torch.linalg.vector_norm(am, dim=-1),
             min=1e-8)
-        return {"loss": mse, "cosine_sim": cos.mean()}
+        elements, rows = self._global_counts(sq.device, sq.numel(), cos.shape[0])
+        return {"loss": sq.sum() / elements, "cosine_sim": cos.sum() / rows}
 
     def loss_fn(self, batch: dict, generator: torch.Generator | None = None,
                 train: bool = True) -> tuple[torch.Tensor, dict]:
@@ -114,10 +148,10 @@ class AVSRTask:
         grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, optimizer.params)]
-        losses = {k: v.detach() for k, v in losses.items()}
+        losses = self._global_losses(losses)
         ok = True
         if skip_nonfinite:
-            ok = bool(torch.isfinite(loss.detach()))
+            ok = bool(torch.isfinite(losses["loss"]))
             losses["skipped"] = torch.tensor(0.0 if ok else 1.0, device=loss.device)
         if ok:
             with torch.no_grad():
@@ -133,9 +167,9 @@ class AVSRTask:
             # the trainer's eval loop uniform.
             preds = torch.zeros((batch["target_ids"].shape[0], 1), dtype=torch.long,
                                 device=batch["target_ids"].device)
-            return losses, preds
+            return self._global_losses(losses), preds
         logits = self.net(_inputs(batch), train=False)
-        return self.compute_losses(logits, batch), logits.argmax(dim=-1)
+        return self._global_losses(self.compute_losses(logits, batch)), logits.argmax(dim=-1)
 
     # -- decode ---------------------------------------------------------------
 

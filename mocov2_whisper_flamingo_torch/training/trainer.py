@@ -1,4 +1,5 @@
-"""Training loop (counterpart of ``training/trainer.py``), on one device.
+"""Training loop (counterpart of ``training/trainer.py``), one process per
+card.
 
 - bf16 compute with fp32 parameters (the net's precision policy);
 - AdamW + OneCycle per-update schedule, clip 1.0, accumulation
@@ -11,8 +12,24 @@
 - early stopping on the validation loss with the reference's patience;
 - a hyperparameter snapshot (``hparams.json`` / ``hparams.yaml``).
 
-Data and tensor parallelism are not ported yet: ``mesh.data`` or
-``mesh.model`` above 1 raises.
+``config["mesh"]`` lays the processes of ``torch.distributed`` out as a
+``("data", "model")`` mesh (``parallel/mesh.py``): the trainer splits the net
+over the model group (Megatron tensor parallelism; the attention kernel runs
+on each rank's heads), each data index trains on its own rows with the
+global batch's loss, and gradients are summed over the data group
+(``training/optim.py``). What the JAX trainer computes on the same global
+batch, this computes: the same losses, updates, checkpoints and WER.
+
+- Scalars, ``hparams.*``, predictions and checkpoints are written by global
+  rank 0 alone.
+- A checkpoint holds the whole ``state_dict`` (and optimizer state),
+  gathered over the model group, so a tensor-parallel run's checkpoint
+  loads on one card; restoring splits it again.
+- ``validate`` / ``test`` report one loss and one corpus WER over the rows of
+  every data index.
+- The train-mode draws come from a generator seeded by the data index: the
+  ranks of one model group draw the same dropout masks on their (whole)
+  activations, or they would drift apart.
 """
 
 from __future__ import annotations
@@ -27,6 +44,8 @@ import numpy as np
 import torch
 
 from mocov2_whisper_flamingo_torch.device import resolve_device
+from mocov2_whisper_flamingo_torch.parallel.mesh import (
+    gather_state_dict, load_whole_state_dict, make_mesh, shard_module, sharded_dims)
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer, no_decay_mask
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.utils.tb_writer import SummaryWriter
@@ -40,6 +59,18 @@ class _PlacedBatch(dict):
     its host-to-device copies (None off the card)."""
 
     ready: torch.cuda.Event | None = None
+
+
+class _NullWriter:
+    """The scalar writer of a rank other than 0: writes nothing."""
+
+    path = None
+
+    def add_scalar(self, tag, value, step):
+        pass
+
+    def flush(self):
+        pass
 
 
 class EarlyStopping:
@@ -113,20 +144,21 @@ class Trainer:
 
     The datamodule provides ``train_dataloader()/val_dataloader()/
     test_dataloader()`` yielding dict batches (numpy arrays or tensors) with
-    the reference collate keys. ``net`` must already live on ``device``,
-    which is the CUDA card unless the caller asks for the CPU.
+    the reference collate keys; under data parallelism, this data index's
+    rows. ``net`` must already live on ``device``, which is the CUDA card
+    unless the caller asks for the CPU; it holds the whole weights, and the
+    trainer keeps this rank's shard of them (``parallel.mesh.shard_module``).
+    A mesh that does not fit the processes of the run raises ``ValueError``.
     """
 
     def __init__(self, config, net, tokenizer, device: str | torch.device | None = "cuda"):
         self.device = resolve_device(device)
         if any(p.device.type != self.device.type for p in net.parameters()):
             raise ValueError(f"the net does not live on the trainer's device {self.device}")
-        mesh = config.get("mesh", {})
-        if (mesh.get("data", -1) or 1) > 1 or (mesh.get("model", 1) or 1) > 1:
-            raise NotImplementedError(
-                "mesh.data / mesh.model above 1 (data parallelism as DDP, the tensor-parallel "
-                "rules of parallel/mesh.py) belong to the multi-card slice of the port and "
-                "are not ported yet; the trainer runs on one device")
+        mesh_cfg = config.get("mesh", {})
+        self.mesh = make_mesh(mesh_cfg.get("data", -1), mesh_cfg.get("model", 1))
+        self.is_chief = self.mesh.rank == 0  # the mesh covers the world: its rank is global
+        shard_module(net, self.mesh)
         self.config = config
         self.net = net
         self.tokenizer = tokenizer
@@ -143,15 +175,19 @@ class Trainer:
             pad_to_ignore=bool(config["training"].get("pad_to_ignore", False)),
             loss_mode=config["training"].get("loss_mode", "ctc_ce"),
             augment_fn=augment_fn,
+            data_group=self.mesh.data_group,
         )
         self.log_every = config["output"].get("log_every_n_steps", 100)
         self.log_gates = bool(config["output"].get("log_gates", True))
 
         out_cfg = config["output"]
-        os.makedirs(out_cfg["log_dir"], exist_ok=True)
-        run_dir = self._next_version_dir(os.path.join(out_cfg["log_dir"], "avsr_logs"))
-        self.writer = SummaryWriter(run_dir)
-        self._dump_hparams(run_dir)
+        if self.is_chief:
+            os.makedirs(out_cfg["log_dir"], exist_ok=True)
+            run_dir = self._next_version_dir(os.path.join(out_cfg["log_dir"], "avsr_logs"))
+            self.writer = SummaryWriter(run_dir)
+            self._dump_hparams(run_dir)
+        else:
+            self.writer = _NullWriter()
         self.ckpt = CheckpointManager(
             out_cfg["checkpoint_dir"], out_cfg.get("save_top_k", 3),
             out_cfg.get("monitor_mode", "min"))
@@ -227,9 +263,12 @@ class Trainer:
         accum = int(training.get("accumulate_grad_batches", 1) or 1)
         self.optimizer, self.schedule = make_optimizer(
             training, max(total_steps // accum, 1), self.net.trainable_parameters(),
-            decay_mask=no_decay_mask if training.get("no_decay_groups") else None)
+            decay_mask=no_decay_mask if training.get("no_decay_groups") else None,
+            mesh=self.mesh, split_dims=sharded_dims(self.net))
         self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(int(training.get("seed", 0)))
+        # One stream of draws per data index (the same on every rank of a
+        # model group); data index 0 draws what one process draws.
+        self.generator.manual_seed(int(training.get("seed", 0)) + (self.mesh.data_index << 32))
 
     def _put_batch(self, batch: dict) -> "_PlacedBatch":
         """Host batch -> tensors on the trainer's device (``target_text``
@@ -276,8 +315,18 @@ class Trainer:
         return dict(placed)
 
     def _state(self) -> dict:
-        return {"params": self.net.state_dict(), "opt_state": self.optimizer.state_dict(),
-                "step": self.global_step}
+        """The whole resumable state, gathered over the model group (a
+        collective of the group)."""
+        return {"params": gather_state_dict(self.net, self.mesh),
+                "opt_state": self.optimizer.whole_state_dict(), "step": self.global_step}
+
+    def _save_checkpoint(self, metric: float) -> None:
+        """Rank 0 writes the whole state; the other ranks of its model group
+        take part in gathering it."""
+        if self.mesh.data_index == 0:
+            state = self._state()
+            if self.is_chief:
+                self.ckpt.save(state, self.global_step, metric=metric)
 
     # -- loops ---------------------------------------------------------------------
 
@@ -300,8 +349,9 @@ class Trainer:
         if resume:
             restored = self.ckpt.restore(None if resume == "last" else resume,
                                          map_location=self.device)
-            self.net.load_state_dict(restored["params"])
-            self.optimizer.load_state_dict(restored["opt_state"])
+            load_whole_state_dict(self.net, restored["params"], self.mesh)
+            self.optimizer.load_whole_state_dict(restored["opt_state"], self.mesh.model_index,
+                                                 self.mesh.shape["model"])
             self.global_step = int(restored["step"])
             logger.info("resumed at step %d", self.global_step)
 
@@ -341,7 +391,7 @@ class Trainer:
             self.writer.flush()
 
             # Full resumable state: params + optimizer state + step.
-            self.ckpt.save(self._state(), self.global_step, metric=val_metrics["loss"])
+            self._save_checkpoint(val_metrics["loss"])
             if self.early_stopping.update(val_metrics["loss"]):
                 logger.info("early stopping at epoch %d", epoch)
                 break
@@ -368,21 +418,34 @@ class Trainer:
         self.writer.flush()
 
     def _evaluate(self, loader) -> tuple[dict, list[str], list[str]]:
-        """Per-sample weighted loss totals, references and hypotheses."""
-        totals: dict[str, float] = {}
-        refs: list[str] = []
-        hyps: list[str] = []
-        n = 0
+        """Per-sample weighted loss totals, references and hypotheses of the
+        global batches: each batch's loss is the global batch's
+        (``AVSRTask.eval_step``) and weighs by its global row count; the
+        texts of every data index are gathered in global-batch order."""
+        losses_by_batch: list[dict] = []
+        rows: list[tuple[int, list[str], list[str]]] = []
         for batch in loader:
             placed = self._ready(self._put_batch(batch))
             texts = placed.pop("target_text", [])
             losses, preds = self.task.eval_step(placed)
+            losses_by_batch.append({k: float(v) for k, v in losses.items()})
+            rows.append((len(texts) or int(placed["target_ids"].shape[0]), list(texts),
+                         self.task.decode_predictions(preds, self.tokenizer)))
+        if self.mesh.data_group is not None:
+            everyone = [None] * self.mesh.shape["data"]
+            torch.distributed.all_gather_object(everyone, rows, group=self.mesh.data_group)
+            rows = [(sum(r[i][0] for r in everyone), [t for r in everyone for t in r[i][1]],
+                     [h for r in everyone for h in r[i][2]]) for i in range(len(rows))]
+        totals: dict[str, float] = {}
+        refs: list[str] = []
+        hyps: list[str] = []
+        n = 0
+        for losses, (bs, texts, decoded) in zip(losses_by_batch, rows):
             # Per-sample weighting: batches vary in size, so a 1-row batch
             # must not carry the weight of a 16-row one.
-            bs = len(texts) or int(placed["target_ids"].shape[0])
             for k, v in losses.items():
-                totals[k] = totals.get(k, 0.0) + float(v) * bs
-            hyps.extend(self.task.decode_predictions(preds, self.tokenizer))
+                totals[k] = totals.get(k, 0.0) + v * bs
+            hyps.extend(decoded)
             refs.extend(texts)
             n += bs
         return {k: v / max(n, 1) for k, v in totals.items()}, refs, hyps
@@ -397,7 +460,7 @@ class Trainer:
         metrics = {"wer": corpus_wer(refs, hyps) if refs else 1.0}
         self.writer.add_scalar("test/wer", metrics["wer"], self.global_step)
         self.writer.flush()
-        if self.config["output"].get("save_predictions") and refs:
+        if self.is_chief and self.config["output"].get("save_predictions") and refs:
             # Pred:/Target: dump, one pair per sample.
             path = os.path.join(os.path.dirname(self.writer.path), "predictions.txt")
             with open(path, "w", encoding="utf-8") as f:

@@ -314,6 +314,32 @@ def test_waveform_mode_mel_matches_the_jax_reference_mel():
     assert not ours[0, :, mask[0].sum():].any()
 
 
+def test_batches_are_dealt_by_data_index_at_model_2(clean_root, monkeypatch):
+    """4 processes at ``mesh.model: 2``: the two ranks of one model group
+    (ranks 0 and 1, data index 0; ranks 2 and 3, data index 1) receive the
+    same batches, and the two data indices disjoint ones that together hold
+    every clip. Dealing by global rank over the world would hand each rank
+    of a model group its own rows."""
+    import torch.distributed as dist
+
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 4)
+    seen = {}
+    for rank in range(4):
+        monkeypatch.setattr(dist, "get_rank", lambda group=None, r=rank: r)
+        dm = TDataModule(t_get_config(_overrides(clean_root, "host", **{"mesh.model": 2})))
+        dm.setup()
+        seen[rank] = list(dm.train_dataloader())
+    texts = {r: [t for b in batches for t in b["target_text"]] for r, batches in seen.items()}
+    for a, b in ((0, 1), (2, 3)):
+        assert texts[a] == texts[b] and len(seen[a]) == len(seen[b]) >= 1
+        for x, y in zip(seen[a], seen[b]):
+            for key in ("audio", "video", "target_ids"):
+                np.testing.assert_array_equal(x[key], y[key])
+    assert not set(texts[0]) & set(texts[2])
+    assert sorted(texts[0] + texts[2]) == [f"xin chao {i}" for i in range(4)]
+
+
 # -- Trainer.fit from the data module ---------------------------------------------------------
 
 

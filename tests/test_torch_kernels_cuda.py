@@ -84,6 +84,11 @@ def _cuda_mask(lens, tk):
     ("align_causal_128", (1, 128, 128, 12, 64), None, True, True),
     ("align_causal_256", (1, 256, 256, 12, 64), None, True, True),
     ("align_causal_448", (1, 448, 448, 12, 64), None, True, True),
+    # a rank's heads under tensor parallelism at model=2: the encoder's 6 (B=4,
+    # and B=2 a data index on a 2 x 2 mesh) and the fusion's 4
+    ("encoder_tp2", (4, 1500, 1500, 6, 64), None, False, False),
+    ("encoder_tp2_dp2", (2, 1500, 1500, 6, 64), None, False, False),
+    ("fusion_tp2", (4, 400, 400, 4, 64), (400, 317, 64, 1), False, False),
 ])
 def test_bf16_kernel_matches_plain_at_serving_and_edge_shapes(name, shape, lens, causal, strided):
     """bf16 K1 on its route (Hopper kernel at Dh 64/128, mma.sync at Dh 32)

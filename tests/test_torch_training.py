@@ -545,13 +545,23 @@ def test_feature_mse_mode_trains_through_the_trainer(tmp_path):
     assert ratio.max().item() < 1.0 and ratio.min().item() > 0.999
 
 
-@pytest.mark.parametrize("overrides,match", [
-    ({"mesh.data": 4}, "multi-card slice"),
-    ({"mesh.model": 2}, "multi-card slice"),
-])
-def test_later_slice_settings_raise(tmp_path, overrides, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _trainer(tmp_path, **overrides)
+@pytest.mark.parametrize("case", ["mesh_larger_than_the_world", "local_rank_beyond_the_cards"])
+def test_later_slice_settings_raise(tmp_path, monkeypatch, case):
+    """The multi-card settings that cannot run raise ``ValueError``: a mesh
+    larger than the processes of the run (as the JAX ``make_mesh`` raises),
+    and a torchrun ``LOCAL_RANK`` that names a card the host does not have
+    (processes never share a card silently)."""
+    if case == "mesh_larger_than_the_world":
+        with pytest.raises(ValueError, match="does not cover the 1 processes"):
+            _trainer(tmp_path, **{"mesh.data": 4})
+    else:
+        from mocov2_whisper_flamingo_torch import train
+
+        monkeypatch.setenv("LOCAL_RANK", "2")
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        with pytest.raises(ValueError, match="LOCAL_RANK=2 but this host has 2 CUDA"):
+            train.rank_device("cuda")
+        assert train.rank_device("cpu") == "cpu"
 
 
 def test_frozen_param_dtype_bf16_casts_only_the_frozen_trees(tmp_path):
