@@ -66,6 +66,16 @@ under torchrun's variables with one process (NCCL), one step bit for bit
 against no process group; and bf16 ms per step of each leg beside one
 process (two ranks share one card: not a scaling number).
 
+Then the model and data tools (phase 17): ``tools/verify_model.py``'s
+stability, memory and shape checks at full width with K1's launches counted
+by shape and its logits held against the plain backend's;
+``tools/export_model.py``'s ``torch.export`` forward (exported at B=2, run
+at B=3 against the live net on the plain backend and with K1, in process
+and in a fresh child on the card) and its beam program (B=1, beam 5, 8
+steps, tokens against the live plain-backend beam), each export and reload
+timed; ``convert_checkpoint``, ``smoke_test`` and ``max_frame_count`` on
+phase 13's dataset and MoCo checkpoint.
+
 Every phase raises on failure. The last two lines of stdout are the
 ``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
 without a CUDA card.
@@ -129,6 +139,8 @@ from mocov2_whisper_flamingo_torch.serving import (
 from mocov2_whisper_flamingo_torch.serving import continuous
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
+from mocov2_whisper_flamingo_torch.tools import (
+    convert_checkpoint, export_model, max_frame_count, smoke_test, verify_model)
 from mocov2_whisper_flamingo_torch.tools import transcribe as transcribe_cli
 from mocov2_whisper_flamingo_torch.training.trainer import Trainer
 from mocov2_whisper_flamingo_torch.utils.tokenizer import ByteTokenizer
@@ -366,6 +378,11 @@ def path_attention_cases() -> list[tuple]:
     cases += [("encoder_tp2", (B, 1500, 1500, 6, 64), None, False),
               ("encoder_tp2_dp2", (B // 2, 1500, 1500, 6, 64), None, False),
               ("fusion_tp2", (B, T_VIDEO, T_VIDEO, 4, 64), fusion_lens, False)]
+    # the model tools (phase 17): the encoder at the export check's B=3, and the
+    # fusion at verify_model's and the export's (B, frames), every frame valid
+    cases.append(("encoder_b3", (3, 1500, 1500, 12, 64), None, False))
+    cases += [(f"fusion_tools_b{b}_t{t}", (b, t, t, 8, 64), (t,) * b, False)
+              for b, t in TOOLS_FUSION]
     return cases
 
 
@@ -2645,6 +2662,29 @@ def _ms_per_step(trainer) -> float:
     return (ts[-1] - ts[MULTI_WARMUP - 1]) * 1e3 / (len(ts) - MULTI_WARMUP)
 
 
+def count_k1_shapes(counter: collections.Counter):
+    """From now on count K1's launches by ``[B, Tq, Tk, H, Dh]`` into
+    ``counter``; returns the launch function it wraps."""
+    launch = fa._launch
+
+    def counted(q, k, v, *args, **kwargs):
+        counter[str([q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]])] += 1
+        return launch(q, k, v, *args, **kwargs)
+
+    fa._launch = counted
+    return launch
+
+
+@contextlib.contextmanager
+def k1_shapes(counter: collections.Counter):
+    """``count_k1_shapes`` inside the block only."""
+    launch = count_k1_shapes(counter)
+    try:
+        yield counter
+    finally:
+        fa._launch = launch
+
+
 def multicard_rank(spec_path: str, rank: int) -> int:
     """One rank of a phase-16 leg (``--multicard-rank SPEC RANK``): the fp32
     fit, whose whole trainable parameters rank 0 saves, then the bf16 timed
@@ -2656,13 +2696,7 @@ def multicard_rank(spec_path: str, rank: int) -> int:
     initialize_distributed(f"file://{spec['store']}", spec["world"], rank, backend="gloo",
                            timeout_s=MULTI_RANK_LIMIT_S)
     shapes = collections.Counter()
-    launch = fa._launch
-
-    def counted_launch(q, k, v, *args, **kwargs):
-        shapes[str([q.shape[0], q.shape[1], k.shape[1], q.shape[2], q.shape[3]])] += 1
-        return launch(q, k, v, *args, **kwargs)
-
-    fa._launch = counted_launch
+    count_k1_shapes(shapes)
     calls = []
 
     def timed(fn):
@@ -2920,6 +2954,198 @@ def run_multicard(seed: int) -> dict:
     return out
 
 
+# -- phase 17: the model and data tools ----------------------------------------------------
+
+# verify_model's batches (the JAX CLI's: B=2, 3000 mel, 16 frames of 64x64) and their K1
+# launches: 12 encoder + 3 fusion a forward, 3 more in the backward's recompute of the
+# checkpointed fusion (the config's ``precision.rematerialize``).
+TOOLS_FORWARD_LAUNCHES, TOOLS_GRAD_LAUNCHES = 15, 18
+# (B, frames) of the fusion's K1 calls in phase 17: verify_model's batches
+# (16 frames at B=2; its shape sweep) and the export check's B=3 at 16 frames.
+TOOLS_FUSION = ((2, 16), (1, 8), (2, 12), (4, 10), (3, 16))
+VERIFY_K1_RTOL = 2e-2  # K1 against plain logits, bf16: TOL[bf16] of the logits' largest value
+EXPORT_PLAIN_ATOL = 1e-3  # the artifact against the live net on the plain backend
+EXPORT_K1_ATOL = 0.1  # the artifact against the live net with K1: the JAX CLI's bf16 atol
+TOOLS_BEAM_LEN = 8
+
+
+def launched(fn, expected: int, what: str):
+    """Run ``fn`` with the K1 counts at 0 and hold the count to ``expected``."""
+    fa.reset_launches()
+    out, s = timed_call(fn)
+    if fa.launches != expected:
+        raise AssertionError(f"{what} launched K1 {fa.launches} times, expected {expected}")
+    return out, s
+
+
+def run_verify_model(net, seed: int) -> dict:
+    """``tools/verify_model.py``'s three checks at full width on the card,
+    each with its K1 launches counted; then the K1 logits against the plain
+    backend's on one AV batch."""
+    shapes = collections.Counter()
+    with k1_shapes(shapes):
+        stability, stab_s = launched(lambda: verify_model.test_model_stability(net),
+                                     3 * TOOLS_FORWARD_LAUNCHES, "verify_model stability")
+        memory, mem_s = launched(lambda: verify_model.test_memory_usage(net),
+                                 TOOLS_GRAD_LAUNCHES, "verify_model forward+backward")
+        in_shapes, shapes_s = launched(lambda: verify_model.test_input_shapes(net),
+                                       3 * TOOLS_FORWARD_LAUNCHES, "verify_model shapes")
+    if not all(r["finite"] for r in stability.values()):
+        raise AssertionError(f"verify_model: non-finite logits {stability}")
+    if not memory["grads_finite"] or not 0 < memory["bytes_in_use"] <= memory["peak_bytes_in_use"]:
+        raise AssertionError(f"verify_model memory report {memory}")
+    want = {(b, ta, tv): (b, tv, VOCAB) for b, ta, tv in ((1, 500, 8), (2, 1000, 12), (4, 750, 10))}
+    if in_shapes != want:
+        raise AssertionError(f"verify_model shapes {in_shapes}, expected {want}")
+    batch = verify_model._make_batch(np.random.default_rng(seed), 2, 2400, 16, device="cuda")
+    with torch.no_grad():
+        k1 = net(batch)
+        with export_model.plain_attention(net):
+            plain = net(batch)
+    err, scale = (k1 - plain).abs().max().item(), plain.abs().max().item()
+    out = {"stability": {m: {"shape": list(r["shape"]), "logit_range": list(r["logit_range"])}
+                         for m, r in stability.items()},
+           "memory": memory, "peak_gib": memory["peak_bytes_in_use"] / 2**30,
+           "in_use_gib": memory["bytes_in_use"] / 2**30,
+           "k1_launches": {"stability": 3 * TOOLS_FORWARD_LAUNCHES,
+                           "forward_backward": TOOLS_GRAD_LAUNCHES,
+                           "shapes": 3 * TOOLS_FORWARD_LAUNCHES},
+           "k1_by_shape": dict(shapes), "s": {"stability": stab_s, "memory": mem_s,
+                                              "shapes": shapes_s},
+           "k1_vs_plain_logits": {"max_abs_err": err, "logit_absmax": scale,
+                                  "atol": VERIFY_K1_RTOL * scale}}
+    log("verify_model: " + json.dumps(out))
+    if not err <= VERIFY_K1_RTOL * scale:
+        raise AssertionError(f"K1 logits differ from the plain backend's by {err} "
+                             f"(largest logit {scale})")
+    return out
+
+
+def run_export(net, dnet, workdir: str) -> dict:
+    """``tools/export_model.py`` on the card: the forward exported at B=2 and
+    run at B=3, against the live net on the plain backend and with K1, in
+    process and in a fresh child, and at B=1 against the plain backend; the
+    beam program at B=1 against the live plain-backend beam. Each export and
+    reload timed."""
+    out = {}
+    fwd_path = os.path.join(workdir, "forward.pt2")
+    _, out["forward_export_s"] = timed_call(lambda: export_model.export_forward(
+        net, export_model._example_batch(2, device="cuda"), fwd_path))
+    out["forward_bytes"] = os.path.getsize(fwd_path)
+    b3 = export_model._example_batch(3, device="cuda")
+    with torch.no_grad():
+        with export_model.plain_attention(net):
+            plain = net(b3)
+        k1, _ = launched(lambda: net(b3), TOOLS_FORWARD_LAUNCHES, "the live B=3 forward")
+    b1 = export_model._example_batch(1, device="cuda")  # below the example's B=2
+    with torch.no_grad(), export_model.plain_attention(net):
+        plain1 = net(b1)
+    program, out["forward_reload_s"] = timed_call(lambda: torch.export.load(fwd_path).module())
+    with torch.no_grad():
+        got, out["forward_run_s"] = launched(lambda: program(b3), 0, "the forward artifact")
+        out["forward_b1_vs_plain_max_abs_err"] = (program(b1) - plain1).abs().max().item()
+    del program
+    out["forward_vs_plain_max_abs_err"] = (got - plain).abs().max().item()
+    out["forward_vs_k1_max_abs_err"] = (got - k1).abs().max().item()
+    fresh, out["fresh_process_s"] = timed_call(lambda: export_model.verify_export_fresh_process(
+        fwd_path, b3, reference_out=plain, atol=EXPORT_PLAIN_ATOL))
+    log(f"export forward B=2 -> B=3: plain err {out['forward_vs_plain_max_abs_err']:.3e} "
+        f"(atol {EXPORT_PLAIN_ATOL:g}), K1 err {out['forward_vs_k1_max_abs_err']:.3e} "
+        f"(atol {EXPORT_K1_ATOL:g}), fresh process {fresh}")
+    if not (out["forward_vs_plain_max_abs_err"] <= EXPORT_PLAIN_ATOL
+            and out["forward_b1_vs_plain_max_abs_err"] <= EXPORT_PLAIN_ATOL
+            and out["forward_vs_k1_max_abs_err"] <= EXPORT_K1_ATOL and fresh):
+        raise AssertionError(f"the forward artifact fails its checks: {out}")
+    os.remove(fwd_path)
+
+    beam_path = os.path.join(workdir, "beam.pt2")
+    bb = export_model._example_batch(1, device="cuda")
+    bb = (bb[0].transpose(1, 2).contiguous(),) + bb[1:]  # mel as [B, 80, T]
+    with export_model.plain_attention(dnet):
+        live = dnet.beam(bb, PREFIX, beam_size=BEAM, max_len=TOOLS_BEAM_LEN, eos_id=EOS)
+    _, out["beam_export_s"] = timed_call(lambda: export_model.export_beam(
+        dnet, bb, PREFIX, beam_path, beam_size=BEAM, max_len=TOOLS_BEAM_LEN, eos_id=EOS))
+    out["beam_bytes"] = os.path.getsize(beam_path)
+    program, out["beam_reload_s"] = timed_call(lambda: torch.export.load(beam_path).module())
+    with torch.no_grad():
+        (seqs, scores), out["beam_run_s"] = launched(lambda: program(bb), 0,
+                                                     "the beam artifact")
+    out["beam_tokens_equal"] = bool(torch.equal(seqs, live.sequences))
+    out["beam_score_max_abs_err"] = (scores - live.scores).abs().max().item()
+    log("export: " + json.dumps(out))
+    if not out["beam_tokens_equal"]:
+        raise AssertionError(f"beam artifact tokens {seqs} differ from the live beam's "
+                             f"{live.sequences}")
+    return out
+
+
+def run_data_tools(net, seed: int) -> dict:
+    """``convert_checkpoint --kind moco``, ``smoke_test`` and
+    ``max_frame_count`` on phase 13's dataset and MoCo checkpoint (written
+    again from phase 13's seed)."""
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_data")
+    data = write_dataset(root, seed + 13)
+    out = {}
+    try:
+        converted_path = os.path.join(root, "moco_converted.pt")
+        rc, out["convert_s"] = timed_call(lambda: convert_checkpoint.main(
+            ["--kind", "moco", "--input", data["moco"], "--output", converted_path]))
+        converted = torch.load(converted_path, weights_only=True)
+        net.load_moco(data["moco"])
+        installed = net.visual_frontend.state_dict()
+        diff = [k for k, v in converted["state_dict"].items()
+                if not torch.equal(installed[k].cpu(), v)]
+        out["convert"] = {"rc": rc, "tensors": len(converted["state_dict"]),
+                          "report": converted["conversion_report"], "differ": diff}
+        if rc != 0 or diff or converted["conversion_report"]["blocks_loaded"] != 16:
+            raise AssertionError(f"convert_checkpoint --kind moco: {out['convert']}")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc, out["smoke_test_s"] = timed_call(lambda: smoke_test.main(
+                ["--set", f"data.root_dir={root}", "--num-batches", "2"]))
+        lines = text.getvalue().splitlines()
+        log("smoke_test: " + " | ".join(lines))
+        n_batches = int(lines[0].removeprefix("train batches: ")) if lines else 0
+        if rc != 0 or not n_batches or len(lines) != 1 + min(2, n_batches) or not all(
+                "'video'" in ln for ln in lines[1:]):
+            raise AssertionError(f"smoke_test printed {lines}")
+        out["smoke_test"] = lines
+        scan, out["max_frame_count_s"] = timed_call(lambda: max_frame_count.scan(root, workers=4))
+        if scan != max_frame_count.scan(root, workers=1) or scan["n_videos"] != sum(
+                DATA_CLIPS.values()) or not DATA_FRAMES[0] <= scan["max_frames"] <= DATA_FRAMES[1]:
+            raise AssertionError(f"max_frame_count: {scan}")
+        out["max_frame_count"] = scan
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("data tools: " + json.dumps({k: v for k, v in out.items() if k != "smoke_test"}))
+    return out
+
+
+def run_tools(seed: int) -> dict:
+    """Phase 17: the model and data tools at full width (whisper-small +
+    ResNet-50, BF16, the config's defaults through ``train.build_net``)."""
+    t_phase = time.perf_counter()
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "chip_smoke_tools")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    try:
+        net = train_entry.build_net(get_config({"training.seed": seed}), VOCAB, device="cuda")
+        with torch.no_grad():
+            for layer in net.fusion.layers:
+                layer.attn_gate.fill_(GATE)
+                layer.ff_gate.fill_(GATE)
+        out = {"verify_model": run_verify_model(net, seed)}
+        out["export"] = run_export(net, build(seed, L.BF16, "cuda"), workdir)
+        out["data_tools"] = run_data_tools(net, seed)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def _train_scalars(scalars) -> dict:
     return {f"{tag}@{step}": v for tag, v, step in scalars if tag.startswith("train/")}
 
@@ -2953,25 +3179,41 @@ def main() -> int:
         log(f"ptxas: {line}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    phase_end_s = {}  # seconds since the start of the run at the end of each phase
+
+    def done(name: str) -> None:
+        phase_end_s[name] = time.perf_counter() - t0
+        log(f"{name} done at {phase_end_s[name]:.1f} s")
+
     gen = torch.Generator().manual_seed(args.seed)
     rows = check_kernel(gen)
     routes = {f"{dt}/{d}": fa.route(dtype, d) for dt, dtype in
               (("bfloat16", torch.bfloat16), ("float32", torch.float32)) for d in fa.HEAD_DIMS}
+    done("phase 2 (kernel)")
     check_end_to_end(args.seed)
     main_path = run_main_path(args.seed)
+    done("phases 3-4 (main path)")
     k1_grad = check_kernel_gradient(gen)
     train_check = check_train_steps(args.seed)
     train_path = run_train_path(args.seed)
     train_path["fp32_card_vs_cpu"] = train_check
+    done("phases 5-7 (training)")
     serve_path = {"av_engine": run_av_engine(args.seed),
                   "audio_server": run_audio_server(args.seed),
-                  "teacher_forcing": run_teacher_forcing(args.seed),
-                  "streaming": run_streaming(args.seed),
-                  "continuous": run_continuous(args.seed)}
+                  "teacher_forcing": run_teacher_forcing(args.seed)}
+    done("phases 8-10 (serving)")
+    serve_path.update(streaming=run_streaming(args.seed), continuous=run_continuous(args.seed))
+    done("phases 11-12 (streaming, continuous)")
     data_path = run_data_path(args.seed, train_path["dropout_0.1"]["k1_launches_per_step"])
+    done("phase 13 (data)")
     longform_path = run_longform(args.seed)
+    done("phase 14 (long-form)")
     int8_path = run_int8(args.seed, train_path["dropout_0.1"]["train_ms_per_step"])
+    done("phase 15 (int8)")
     multicard_path = run_multicard(args.seed)
+    done("phase 16 (multicard)")
+    tools_path = run_tools(args.seed)
+    done("phase 17 (tools)")
 
     # Launches of each serving shape's kernel in one encoded batch, read from
     # the profiled encode by kernel instantiation.
@@ -3010,11 +3252,14 @@ def main() -> int:
           "launches_per_int8_train_step": int8_path["train"]["int8"]["k1_launches_per_step"],
           "launches_per_multicard_fp32_fit_by_shape": {
               leg: multicard_path[leg]["fp32_k1_by_shape_per_rank"] for leg in MULTI_LEGS},
+          "launches_per_verify_model_run": tools_path["verify_model"]["k1_launches"],
+          "launches_per_verify_model_run_by_shape": tools_path["verify_model"]["k1_by_shape"],
           "backward": "recompute, torch ops", "fusion_forward_backward": k1_grad}
     print(json.dumps({"kernels": [k1], "main_path": main_path, "train_path": train_path,
                       "serve_path": serve_path, "longform_path": longform_path,
                       "data_path": data_path, "int8_path": int8_path,
-                      "multicard_path": multicard_path, "card": smi}),
+                      "multicard_path": multicard_path, "tools_path": tools_path,
+                      "phase_end_s": phase_end_s, "card": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -200,12 +200,18 @@ class AVNet(nn.Module):
         video_feat = self.video_ln(self.video_proj(video_raw))
         video_feat = video_feat + prec.cast(self._pe[: video_feat.shape[1]])
 
-        min_len = min(audio_feat.shape[1], video_feat.shape[1])
-        audio_feat = audio_feat[:, :min_len]
+        # Both streams cut to the shorter. Written so that torch.export can
+        # keep the video length symbolic (tools/export_model.py): the
+        # comparison is decided by the length's range, where min() is not,
+        # and the audio stream is gathered, where a slice's contiguity
+        # would depend on whether the lengths are equal.
+        t_a, t_v = audio_feat.shape[1], video_feat.shape[1]
+        min_len = t_v if t_v <= t_a else t_a
+        frames = torch.arange(min_len, device=audio_feat.device)
+        audio_feat = audio_feat.index_select(1, frames)
         video_feat = video_feat[:, :min_len]
         video_len = torch.clamp(video_len.to(audio_feat.device), max=min_len)
-        video_valid = (torch.arange(min_len, device=audio_feat.device)[None, :]
-                       < video_len[:, None])
+        video_valid = frames[None, :] < video_len[:, None]
         fused = self.fusion(audio_feat, video_feat, video_valid, train=train,
                             generator=generator, return_gates=return_gates)
         gates = None

@@ -103,9 +103,10 @@ def restore_params(net, checkpoint_path: str) -> None:
     if os.path.isdir(checkpoint_path):
         raise SystemExit(
             f"--checkpoint {checkpoint_path!r} is a directory (an orbax checkpoint of the JAX "
-            "package?): this command reads a torch.save'd state_dict; converting an orbax "
-            "checkpoint is the job of tools/convert_checkpoint, which is not ported yet "
-            "(ROADMAP.md Queue 1 item 14)")
+            "package?): this command reads a torch.save'd state_dict; convert the source torch "
+            "checkpoint with tools/convert_checkpoint (python -m "
+            "mocov2_whisper_flamingo_torch.tools.convert_checkpoint); orbax stays out of the "
+            "port, which imports no JAX (ROADMAP.md Queue 1 item 14)")
     state = torch.load(checkpoint_path, map_location="cpu", weights_only=True)
     net.load_state_dict(state.get("params", state), strict=True)
 

@@ -37,9 +37,10 @@ def load_checkpoint(model, path: str) -> None:
     if os.path.isdir(path):
         raise SystemExit(
             f"--checkpoint {path!r} is a directory (an orbax checkpoint of the JAX package?): "
-            "this command reads a torch.save'd state_dict; converting an orbax checkpoint is "
-            "the job of tools/convert_checkpoint, which is not ported yet (ROADMAP.md Queue 1 "
-            "item 14)")
+            "this command reads a torch.save'd state_dict; convert the source torch checkpoint "
+            "with tools/convert_checkpoint (python -m "
+            "mocov2_whisper_flamingo_torch.tools.convert_checkpoint --kind whisper); orbax "
+            "stays out of the port, which imports no JAX (ROADMAP.md Queue 1 item 14)")
     state = torch.load(path, map_location="cpu", weights_only=True)
     state = state.get("state_dict", state)
     if any(key.endswith(".kernel") for key in state):  # the port's own names

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``mocov2_whisper_flamingo_torch`` (nor
-``chip_smoke.py``, ``k1_ablation.py``, the card-only kernel tests, nor the rank worker of the
-multi-process tests) imports JAX or the JAX
+``chip_smoke.py``, ``k1_ablation.py``, the card-only kernel tests, the rank worker of the
+multi-process tests, nor the port's examples) imports JAX or the JAX
 package, and its entry points default to the CUDA card, refusing to fall
 back to the CPU silently."""
 
@@ -13,7 +13,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mocov2_whisper_flamingo_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "k1_ablation.py",
-    ROOT / "tests" / "test_torch_kernels_cuda.py", ROOT / "tests" / "torch_multicard_worker.py"]
+    ROOT / "tests" / "test_torch_kernels_cuda.py", ROOT / "tests" / "torch_multicard_worker.py",
+    ROOT / "examples" / "torch_end_to_end.py", ROOT / "examples" / "torch_serving_demo.py",
+    ROOT / "examples" / "torch_transcribe_demo.py"]
 FORBIDDEN = ("jax", "jaxlib", "mocov2_whisper_flamingo_tpu")
 
 

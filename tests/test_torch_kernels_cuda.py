@@ -89,6 +89,14 @@ def _cuda_mask(lens, tk):
     ("encoder_tp2", (4, 1500, 1500, 6, 64), None, False, False),
     ("encoder_tp2_dp2", (2, 1500, 1500, 6, 64), None, False, False),
     ("fusion_tp2", (4, 400, 400, 4, 64), (400, 317, 64, 1), False, False),
+    # the model tools: the export check's encoder at B=3, the fusion at
+    # verify_model's and the export's (B, frames), every frame valid
+    ("encoder_b3", (3, 1500, 1500, 12, 64), None, False, False),
+    ("fusion_tools_b2_t16", (2, 16, 16, 8, 64), (16, 16), False, False),
+    ("fusion_tools_b1_t8", (1, 8, 8, 8, 64), (8,), False, False),
+    ("fusion_tools_b2_t12", (2, 12, 12, 8, 64), (12, 12), False, False),
+    ("fusion_tools_b4_t10", (4, 10, 10, 8, 64), (10,) * 4, False, False),
+    ("fusion_tools_b3_t16", (3, 16, 16, 8, 64), (16,) * 3, False, False),
 ])
 def test_bf16_kernel_matches_plain_at_serving_and_edge_shapes(name, shape, lens, causal, strided):
     """bf16 K1 on its route (Hopper kernel at Dh 64/128, mma.sync at Dh 32)
