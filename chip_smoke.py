@@ -9,7 +9,10 @@ serving shapes (device time per call from ``torch.profiler``, beside the wall
 time per call), checks the port end to end against its own CPU run, then
 times the serving path: full audio-visual beam-5 decoding (whisper-small +
 MoCo ResNet-50 + gated fusion, BF16, B=4, 30 s mel, 400 uint8 88x88 lip
-frames, 160 tokens) with random weights made from ``--seed``.
+frames, 160 tokens) with random weights made from ``--seed``, whose decode
+is a replayed CUDA graph (``decode/programs.py``), held bit for bit against
+the eager loop in turns with it (bf16 here, fp32 beside the card-vs-CPU
+check), with the capture's seconds and its memory pool.
 
 Then the training path: the kernel's gradients through its autograd wrapper
 against autograd through the plain version; three fp32 optimizer steps on
@@ -18,14 +21,14 @@ width (BF16, B=4, 400 frames, 64 target tokens) with the config's dropout,
 with dropout 0, with activation checkpointing and with on-device
 augmentation, each timed per step, with one step split into its parts.
 
-Then the request server: the AV engine (``make_av_engine``, buckets 1 and 4)
-answers nine requests at full width and its rows are held against direct
-decodes of the same padded buckets, and an fp32 engine on the card against
-one on the CPU; the audio server (``WhisperASR`` behind ``TranscriptionServer``
-on a loopback port, logit rules on) answers sequential and concurrent HTTP
-requests; and the teacher-forced ``AVWhisperNet.decoder_logits`` runs the
-kernel's causal and cross-attention instantiations and is held against the
-cached decode step.
+Then the request server: the AV engine (``make_av_engine``, buckets 1 and 4,
+each bucket's decode captured at warm-up) answers nine requests at full
+width and its rows are held against the eager loop of the same padded
+buckets, and an fp32 engine on the card against one on the CPU; the audio
+server (``WhisperASR`` behind ``TranscriptionServer`` on a loopback port,
+logit rules on) answers sequential and concurrent HTTP requests; and the
+teacher-forced ``AVWhisperNet.decoder_logits`` runs the kernel's causal and
+cross-attention instantiations and is held against the cached decode step.
 
 Then the streaming decode (``StreamingDecoder`` over the AV encode, beam 5,
 448-token windows, 40 tokens per 30 s chunk): 10 chunks (5 min) and 20
@@ -71,8 +74,8 @@ stability, memory and shape checks at full width with K1's launches counted
 by shape and its logits held against the plain backend's;
 ``tools/export_model.py``'s ``torch.export`` forward (exported at B=2, run
 at B=3 against the live net on the plain backend and with K1, in process
-and in a fresh child on the card) and its beam program (B=1, beam 5, 8
-steps, tokens against the live plain-backend beam), each export and reload
+and in a fresh child on the card) and its beam program (B=1, beam 5,
+max_len 6, tokens against the live decode), each export and reload
 timed; ``convert_checkpoint``, ``smoke_test`` and ``max_frame_count`` on
 phase 13's dataset and MoCo checkpoint.
 
@@ -526,7 +529,7 @@ def preprocess(mel, raw):
             torch.full((b,), t, dtype=torch.long, device=dev))
 
 
-def check_end_to_end(seed: int) -> None:
+def check_end_to_end(seed: int) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(seed)
@@ -535,7 +538,7 @@ def check_end_to_end(seed: int) -> None:
     for dev in ("cuda", "cpu"):
         net = build(seed, L.FP32, dev)
         batch = preprocess(mel.to(dev), raw.to(dev))
-        feats, _ = net.encode(batch)
+        feats, valid = net.encode(batch)
         fa.reset_launches()
         res = net.beam(batch, PREFIX, beam_size=BEAM, max_len=48, eos_id=EOS)
         if dev == "cuda":
@@ -543,6 +546,11 @@ def check_end_to_end(seed: int) -> None:
             if fa.launches != 15:
                 raise AssertionError(f"fp32 card run launched K1 {fa.launches} times, "
                                      "expected 15 (12 encoder + 3 fusion)")
+            # The card's decode is a replayed graph: against the eager loop.
+            eager = beam_search(net.decoder.prepare_decode_params(), feats, PREFIX,
+                                beam_size=BEAM, max_len=48, eos_id=EOS, encoder_valid=valid)
+            graph_equal = bool(torch.equal(res.sequences, eager.sequences)
+                               and torch.equal(res.scores, eager.scores))
         results[dev] = (feats.cpu(), res.sequences.cpu(), res.scores.cpu())
         del net
     f_gpu, s_gpu, sc_gpu = results["cuda"]
@@ -553,11 +561,16 @@ def check_end_to_end(seed: int) -> None:
     same = bool(torch.equal(s_gpu, s_cpu))
     log(f"e2e fp32 whisper-small B=1 32 frames: feature max_abs_err {err:.3e} "
         f"(atol {FEATURE_ATOL:g}); beam tokens identical: {same}; score diff "
-        f"{(sc_gpu - sc_cpu).abs().max().item():.3e}")
+        f"{(sc_gpu - sc_cpu).abs().max().item():.3e}; card graph vs card eager loop, tokens "
+        f"and scores bit-equal: {graph_equal}")
     if not err <= FEATURE_ATOL:
         raise AssertionError(f"fp32 encoder features card vs CPU differ by {err}")
     if not same:
         raise AssertionError(f"fp32 beam tokens differ card vs CPU:\n{s_gpu}\n{s_cpu}")
+    if not graph_equal:
+        raise AssertionError("fp32 beam on the card: the decode program differs from the "
+                             "eager loop")
+    return {"fp32_graph_vs_eager_bit_equal": graph_equal, "fp32_card_vs_cpu_tokens_equal": same}
 
 
 def run_main_path(seed: int) -> dict:
@@ -573,8 +586,10 @@ def run_main_path(seed: int) -> dict:
         return net.beam(preprocess(*mb), PREFIX, beam_size=BEAM, max_len=MAX_TOKENS,
                         eos_id=EOS)
 
-    decode(batches[0])  # warm-up: cuDNN plans, allocator
+    t0 = time.perf_counter()
+    decode(batches[0])  # warm-up: cuDNN plans, allocator, the decode program's capture
     torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - t0
 
     fa.reset_launches()
     res = decode(batches[0])
@@ -614,21 +629,83 @@ def run_main_path(seed: int) -> dict:
         "k1_launches_per_batch": launches,
     }
     log("main path bf16 B=4 beam 5 160 tokens: " + json.dumps(out))
+    out["program"] = program_leg(net, batches, first_call_s)
     out["profile"] = {"encode": profile(lambda: encode(batches[0])),
-                      "decode_16_steps": profile(lambda: net.beam(
-                          preprocess(*batches[0]), PREFIX, beam_size=BEAM, max_len=20,
-                          eos_id=EOS))}
+                      **out["program"].pop("profile")}
     return out
 
 
-def profile(fn, top: int = 6) -> dict:
+def pool_bytes(programs) -> int:
+    """Bytes the caching allocator holds in the CUDA graph memory pool of a
+    ``DecodePrograms``."""
+    if programs.pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(programs.pool))
+
+
+def program_leg(net, batches, first_call_s: float) -> dict:
+    """Phase 4's decode through the eager loop and through the decode
+    program (``AVWhisperNet.decode_programs``, captured by the main path's
+    warm-up) in turns on the same features, one batch each: wall ms per
+    decode and per step, tokens and scores bit for bit. Then the capture's
+    seconds, the pool's bytes, one replay profiled (device busy share; a
+    replayed kernel carries no PyTorch op name, so the op table comes from a
+    16-step eager profile), and the prepared decoder's refresh (timed) against
+    the per-call preparation it replaced."""
+    programs = net.decode_programs
+    prepared = net.decoder.prepare_decode_params()
+    kw = dict(beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS)
+    n_steps = MAX_TOKENS - len(PREFIX)
+    eager_s, program_s, equal = [], [], []
+    for mb in batches:
+        feats, valid = net.encode(preprocess(*mb))
+        want, wall_s = timed_call(lambda: beam_search(prepared, feats, PREFIX,
+                                                      encoder_valid=valid, **kw))
+        eager_s.append(wall_s)
+        got, wall_s = timed_call(lambda: programs.beam(feats, valid, PREFIX, **kw))
+        program_s.append(wall_s)
+        equal.append(bool(torch.equal(got.sequences, want.sequences)
+                          and torch.equal(got.scores, want.scores)))
+    if not all(equal):
+        raise AssertionError(f"bf16 decode program against the eager loop, bit-equal: {equal}")
+    (capture,) = programs.captures
+    t0 = time.perf_counter()
+    net.decoder.prepare_decode_params()
+    torch.cuda.synchronize()
+    prepare_ms = (time.perf_counter() - t0) * 1e3
+    refresh = lambda: net.decoder.refresh_decode_params(programs.prepared_decoder())
+    out = {
+        "eager_ms_per_decode": [x * 1e3 for x in eager_s],
+        "program_ms_per_decode": [x * 1e3 for x in program_s],
+        "eager_ms_per_step": [x * 1e3 / n_steps for x in eager_s],
+        "program_ms_per_step": [x * 1e3 / n_steps for x in program_s],
+        "tokens_and_scores_bit_equal": equal,
+        "first_call_s": first_call_s, "capture_s": capture["capture_s"],
+        "instantiate_s": capture["instantiate_s"], "pool_bytes": pool_bytes(programs),
+        "refresh_ms": cuda_ms(refresh, 10), "refresh_device_ms": device_ms(refresh, 10)[0],
+        "prepare_per_call_ms_before": prepare_ms,
+    }
+    log("decode program bf16 B=4 beam 5 160 tokens, eager loop and program in turns: "
+        + json.dumps(out))
+    out["profile"] = {
+        "decode_replay": profile(lambda: programs.beam(feats, valid, PREFIX, **kw), cpu=False),
+        "eager_decode_16_steps": profile(lambda: beam_search(
+            prepared, feats, PREFIX, beam_size=BEAM, max_len=len(PREFIX) + 16, eos_id=EOS,
+            encoder_valid=valid))}
+    out["replay_device_busy_share"] = out["profile"]["decode_replay"]["device_busy_share"]
+    return out
+
+
+def profile(fn, top: int = 6, cpu: bool = True) -> dict:
     """Device busy share and the kernels that take the most device time over
     one call of ``fn``, from ``torch.profiler`` (a trace that holds all of
     the call's K1 launches; see ``traced``). The profiler's own host
-    overhead lengthens the wall time, so the busy share is a lower bound."""
+    overhead lengthens the wall time, so the busy share is a lower bound.
+    ``cpu=False`` traces the device alone (no op table)."""
     from torch.autograd import DeviceType
 
-    prof, records, wall_s, attempt = traced(fn)
+    prof, records, wall_s, attempt = traced(fn, cpu=cpu)
     kernels_us: dict[str, float] = {}
     k1: dict[str, int] = {}  # K1 launches by kernel instantiation
     for ev in records:
@@ -1083,16 +1160,31 @@ def av_payload(rng) -> tuple:
             np.ones(T_VIDEO, bool), np.int32(T_VIDEO))
 
 
-def direct_av_rows(net, payloads, bucket: int, max_len: int) -> list[np.ndarray]:
+def direct_av_rows(net, payloads, bucket: int, max_len: int,
+                   decoder=None) -> list[np.ndarray]:
     """The engine's decode of one padded bucket, made by hand: the same
-    collate, preprocessing and ``net.beam`` call on the caller's stream."""
+    collate, preprocessing and encode on the caller's stream, then the
+    eager ``beam_search`` over ``decoder`` (prepared from ``net``'s), or
+    without one ``net``'s decode program, as the engine decodes."""
     dev = next(net.parameters()).device
     audio, audio_mask, video_u8, video_mask, video_len = (
         torch.as_tensor(x).to(dev) for x in pad_rows(payloads, bucket))
     video = eval_video_pipeline(video_u8, resize=64)
-    rows = net.beam((audio, audio_mask, video, video_mask, video_len), PREFIX,
-                    beam_size=BEAM, max_len=max_len, eos_id=EOS).sequences[:, 0].cpu().numpy()
+    feats, valid = net.encode((audio, audio_mask, video, video_mask, video_len))
+    kw = dict(beam_size=BEAM, max_len=max_len, eos_id=EOS)
+    if decoder is None:
+        res = net.decode_programs.beam(feats, valid, PREFIX, **kw)
+    else:
+        res = beam_search(decoder, feats, PREFIX, encoder_valid=valid, **kw)
+    rows = res.sequences[:, 0].cpu().numpy()
     return [trim_at_eos(row, EOS, len(PREFIX)) for row in rows[:len(payloads)]]
+
+
+def captures_by_rows(programs, since: int = 0) -> dict:
+    """Capture and instantiation seconds of a ``DecodePrograms``' graphs
+    captured after its first ``since``, by rows (the bucket)."""
+    return {str(c["shape"][0]): {"capture_s": c["capture_s"], "instantiate_s": c["instantiate_s"]}
+            for c in programs.captures[since:]}
 
 
 def percentiles(values) -> dict:
@@ -1124,10 +1216,11 @@ def small_av_net(seed: int, device) -> AVWhisperNet:
 
 
 def run_av_engine(seed: int) -> dict:
-    """``make_av_engine`` at full width on the card: warm-up, nine requests
-    submitted at once, every row against a direct decode of its padded
-    bucket; then three requests in fp32 through a shallow engine on the card
-    and one on the CPU."""
+    """``make_av_engine`` at full width on the card: warm-up (each bucket's
+    decode program captured), nine requests submitted at once, every row
+    against the eager loop of its padded bucket; then three requests in fp32
+    through a shallow engine on the card (graphs) and one on the CPU (the
+    eager loop)."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 4)
     payloads = [av_payload(rng) for _ in range(AV_REQUESTS)]
@@ -1143,6 +1236,8 @@ def run_av_engine(seed: int) -> dict:
         eng.warmup(payloads[0])
         out["warmup_s"] = time.perf_counter() - t0
         out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
+        out["capture_by_bucket"] = captures_by_rows(net.decode_programs)
+        out["graph_pool_bytes"] = pool_bytes(net.decode_programs)
         eng.batch_log.clear()
         fa.reset_launches()
         t0 = time.perf_counter()
@@ -1160,27 +1255,31 @@ def run_av_engine(seed: int) -> dict:
                              f"{expected_batches}; stats {stats}")
     if stats["requests"] != AV_REQUESTS or sum(stats["bucket_counts"].values()) != 3:
         raise AssertionError(f"AV engine stats do not add up: {stats}")
-    if stats["compiled_buckets"] != sorted(AV_BUCKETS):
-        raise AssertionError(f"warm-up marked {stats['compiled_buckets']}")
+    if stats["compiled_buckets"] != sorted(AV_BUCKETS) \
+            or sorted(out["capture_by_bucket"], key=int) != [str(b) for b in sorted(AV_BUCKETS)] \
+            or len(net.decode_programs.captures) != len(AV_BUCKETS):
+        raise AssertionError(f"warm-up marked {stats['compiled_buckets']} and captured "
+                             f"{net.decode_programs.captures}; traffic must only replay")
     by_mask = launches_by_mask(by_kernel)
     if launches != 45 or by_mask != {"unmasked": 36, "masked": 9}:
         raise AssertionError(f"AV engine launched K1 {launches} times over 3 batches "
                              f"({by_kernel}), expected 3 x (12 encoder + 3 fusion)")
-    # Each row against a direct decode of the same padded bucket (timed, as
+    # Each row against the eager loop of the same padded bucket (timed, as
     # this run's yardstick for the engine's decode_ms).
     start = 0
     direct_ms: dict[str, list] = {}
+    decoder = net.decoder.prepare_decode_params()
     for count in expected_batches:
         group = payloads[start:start + count]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        direct = direct_av_rows(net, group, count, MAX_TOKENS)
+        direct = direct_av_rows(net, group, count, MAX_TOKENS, decoder)
         direct_ms.setdefault(str(count), []).append((time.perf_counter() - t0) * 1e3)
         for i, want in enumerate(direct):
             got = results[start + i]
             if got.bucket != count or not np.array_equal(got.tokens, want):
                 raise AssertionError(f"AV engine request {start + i} (bucket {got.bucket}) "
-                                     f"differs from a direct decode of its bucket:\n"
+                                     f"differs from the eager loop of its bucket:\n"
                                      f"{got.tokens}\n{want}")
         start += count
     hidden = [max(0.0, min(nxt["t_dispatch"], cur["t_ready"]) - nxt["t_collate"]) * 1e3
@@ -1191,7 +1290,7 @@ def run_av_engine(seed: int) -> dict:
         "decode_ms": percentiles([r.decode_ms for r in results]),
         "total_ms": percentiles([r.total_ms for r in results]),
         "decode_ms_by_bucket": {str(b["bucket"]): [] for b in batches},
-        "direct_decode_ms_by_bucket": direct_ms,
+        "eager_decode_ms_by_bucket": direct_ms,
         "collate_ms_per_batch": [(b["t_dispatch"] - b["t_collate"]) * 1e3 for b in batches],
         "h2d_host_ms_per_batch": [(b["t_copied"] - b["t_dispatch"]) * 1e3 for b in batches],
         "h2d_device_ms_per_batch": [b["h2d_device_ms"] for b in batches],
@@ -1199,7 +1298,7 @@ def run_av_engine(seed: int) -> dict:
         "device_tail_ms_per_batch": [(b["t_ready"] - b["t_launched"]) * 1e3 for b in batches],
         "collate_ms_hidden_under_previous_batch": hidden,
         "k1_launches_per_batch": launches // 3, "k1_launches_by_kernel": by_kernel,
-        "bucket_counts": stats["bucket_counts"], "rows_equal_direct_decode": True})
+        "bucket_counts": stats["bucket_counts"], "rows_equal_eager_loop": True})
     for b in batches:
         out["decode_ms_by_bucket"][str(b["bucket"])].append((b["t_ready"] - b["t_dispatch"]) * 1e3)
     log("AV engine bf16 buckets (1, 4), 9 requests: " + json.dumps(out))
@@ -1247,8 +1346,9 @@ def http_json(address, method: str, path: str, body: dict | None = None) -> tupl
 def run_audio_server(seed: int) -> dict:
     """``WhisperASR`` behind ``make_audio_engine`` and ``TranscriptionServer``
     on a loopback port of this machine: health, three sequential requests
-    against direct B=1 decodes under the same logit rules, six concurrent
-    ones, the metrics."""
+    against the eager loop at B=1 under the same logit rules (the engine
+    replays each bucket's decode program, captured at warm-up), six
+    concurrent ones, the metrics."""
     rng = np.random.default_rng(seed + 5)
     asr = WhisperASR("whisper-small", precision=L.BF16, device="cuda")
     load_jax_params(asr, random_asr_params(asr, seed)).eval()
@@ -1258,12 +1358,21 @@ def run_audio_server(seed: int) -> dict:
     n_req = ASR_SEQUENTIAL + ASR_CONCURRENT
     wavs = [(0.1 * rng.standard_normal(16_000 * (2 + i))).astype(np.float32)
             for i in range(n_req)]
-    out = {"buckets": list(ASR_BUCKETS), "max_len": ASR_MAX_TOKENS}
+    decoder = asr.decoder.prepare_decode_params()  # the eager reference's
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' pools, so that "reserved" is this phase's
+    out = {"buckets": list(ASR_BUCKETS), "max_len": ASR_MAX_TOKENS,
+           "reserved_gib_before_warmup": torch.cuda.memory_reserved() / 2**30}
     with make_audio_engine(asr, ASR_PREFIX, beam_size=BEAM, max_len=ASR_MAX_TOKENS, eos_id=EOS,
                            logit_rules=rules, buckets=ASR_BUCKETS, max_wait_s=0.05) as eng:
         t0 = time.perf_counter()
         eng.warmup((canonical_wav(wavs[0]),))
         out["warmup_s"] = time.perf_counter() - t0
+        out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
+        out["capture_by_bucket"] = captures_by_rows(asr.decode_programs)
+        out["graph_pool_bytes"] = pool_bytes(asr.decode_programs)
+        if sorted(out["capture_by_bucket"], key=int) != [str(b) for b in sorted(ASR_BUCKETS)]:
+            raise AssertionError(f"audio warm-up captured {asr.decode_programs.captures}")
         with TranscriptionServer(eng, host="127.0.0.1", port=0) as srv:
             address = srv.address
             status, body = http_json(address, "GET", "/healthz")
@@ -1284,13 +1393,13 @@ def run_audio_server(seed: int) -> dict:
                     raise AssertionError(f"an audio batch launched K1 {fa.launches} times "
                                          f"({dict(fa.launches_by_kernel)}), expected 12")
                 launches_per_batch.add(fa.launches)
-                want = asr.transcribe_tokens(
-                    canonical_wav(wavs[i])[None], ASR_PREFIX, beam_size=BEAM,
-                    max_len=ASR_MAX_TOKENS, eos_id=EOS, logit_rules=rules)[0].cpu().numpy()
-                want = trim_at_eos(want, EOS, len(ASR_PREFIX))
+                enc = asr.encode(asr.features(canonical_wav(wavs[i])[None]))
+                want = beam_search(decoder, enc, ASR_PREFIX, beam_size=BEAM,
+                                   max_len=ASR_MAX_TOKENS, eos_id=EOS, logit_rules=rules)
+                want = trim_at_eos(want.sequences[0, 0].cpu().numpy(), EOS, len(ASR_PREFIX))
                 if body["tokens"] != [int(t) for t in want]:
-                    raise AssertionError(f"request {i} over HTTP differs from a direct B=1 "
-                                         f"decode:\n{body['tokens']}\n{want.tolist()}")
+                    raise AssertionError(f"request {i} over HTTP differs from the eager loop "
+                                         f"at B=1:\n{body['tokens']}\n{want.tolist()}")
                 first = body["tokens"][len(ASR_PREFIX)]
                 if not TIMESTAMP_BEGIN <= first <= TIMESTAMP_BEGIN + 1:
                     raise AssertionError(f"request {i}: the first generated token {first} "
@@ -1334,7 +1443,12 @@ def run_audio_server(seed: int) -> dict:
             status, err = http_json(address, "POST", "/v1/transcribe", {"nope": 1})
             if status != 400:
                 raise AssertionError(f"a bad body answered {status} {err}")
+        if len(asr.decode_programs.captures) != len(ASR_BUCKETS):
+            raise AssertionError(f"traffic captured again: {asr.decode_programs.captures}")
+    out["reserved_gib_after_traffic"] = torch.cuda.memory_reserved() / 2**30
+    concurrent_audio_s = sum(len(wavs[i]) for i in range(ASR_SEQUENTIAL, n_req)) / 16_000
     out.update({"sequential": sequential, "concurrent_wall_s": concurrent_s,
+                "concurrent_audio_seconds_per_second": concurrent_audio_s / concurrent_s,
                 "concurrent_total_ms": percentiles([a[1]["total_ms"] for a in answers.values()]),
                 "concurrent_buckets": sorted(a[1]["bucket"] for a in answers.values()),
                 "bucket_counts": metrics["bucket_counts"], "latency_ms": metrics["latency_ms"],
@@ -1631,8 +1745,9 @@ def run_continuous(seed: int) -> dict:
     if sorted({k for _, k in encodes}) != [15] or traffic_launches != 15 * len(traffic_encodes):
         raise AssertionError(f"the traffic launched K1 {traffic_launches} times over admission "
                              f"encodes {traffic_encodes}, expected 15 each")
-    # Each row against a B=1 net.beam of its payload: reported, not held (bf16
-    # rows are reproducible per batch shape, not across shapes).
+    # Each row against a B=1 net.beam of its payload (its decode program):
+    # reported, not held (bf16 rows are reproducible per batch shape, not
+    # across shapes).
     direct = [direct_av_rows(net, [p], 1, MAX_TOKENS)[0] for p in payloads]
     served = results + results_in_flight + [probe]
     which = list(range(CONT_REQUESTS)) + list(range(CONT_INFLIGHT)) + [0]
@@ -2384,10 +2499,10 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
     """The direct decode of phase 4 in each mode, in turns: device ms and
     kernels per step over a window of ``INT8_WINDOW`` loop steps (two
     device-only traced searches, with and without the window, so that the
-    cache and the prefix steps cancel), then one
-    timed ``AVWhisperNet.beam`` call (encode, decoder preparation and 156
-    steps) with its K1 launches and peak memory; the prepared decoder's and
-    the cache's bytes."""
+    cache and the prefix steps cancel), then a first ``AVWhisperNet.beam``
+    call, which captures the mode's decode program (its seconds), and a
+    timed one (encode and 156 replayed steps) with its K1 launches and peak
+    memory; the prepared decoder's and the cache's bytes."""
     enc_ms = cuda_ms(lambda: net.encode(batch), 3)
     out = {"encode_ms": enc_ms}
     for name, (wq, cq) in INT8_MODES.items():
@@ -2410,12 +2525,13 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
         decoder_bytes = module_bytes(dec)
         trace_s = time.perf_counter() - t_trace
         del dec
-        torch.cuda.synchronize()
+        decode = lambda: net.beam(batch, PREFIX, beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS,
+                                  weight_quant=wq, cache_quant=cq)
+        _, first_s = timed_call(decode)
+        capture = net.decode_programs.captures[-1]
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
-        res, wall_s = timed_call(lambda: net.beam(batch, PREFIX, beam_size=BEAM,
-                                                  max_len=MAX_TOKENS, eos_id=EOS,
-                                                  weight_quant=wq, cache_quant=cq))
+        res, wall_s = timed_call(decode)
         launches = fa.launches
         seq = res.sequences
         if launches != 15:
@@ -2427,8 +2543,9 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
         n_steps = MAX_TOKENS - len(PREFIX)
         row = {"weight_quant": wq, "cache_quant": cq, "wall_ms": wall_s * 1e3,
                "rtf": B * SECONDS_PER_CLIP / wall_s,
-               "decode_ms_per_step": (wall_s * 1e3 - enc_ms - prepare_ms) / n_steps,
-               "prepare_ms": prepare_ms,
+               "decode_ms_per_step": (wall_s * 1e3 - enc_ms) / n_steps,
+               "prepare_ms": prepare_ms, "first_call_s": first_s,
+               "capture_s": capture["capture_s"], "instantiate_s": capture["instantiate_s"],
                "device_ms_per_step": (windows[1][0] - windows[0][0]) / INT8_WINDOW,
                "device_ops_per_step": (windows[1][1] - windows[0][1]) / INT8_WINDOW,
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -2966,7 +3083,9 @@ TOOLS_FUSION = ((2, 16), (1, 8), (2, 12), (4, 10), (3, 16))
 VERIFY_K1_RTOL = 2e-2  # K1 against plain logits, bf16: TOL[bf16] of the logits' largest value
 EXPORT_PLAIN_ATOL = 1e-3  # the artifact against the live net on the plain backend
 EXPORT_K1_ATOL = 0.1  # the artifact against the live net with K1: the JAX CLI's bf16 atol
-TOOLS_BEAM_LEN = 8
+# The beam program's max_len: 4 forced tokens and 2 searched steps. The export unrolls every
+# step, so its time grows with max_len; the script's time budget keeps it short.
+TOOLS_BEAM_LEN = 6
 
 
 def launched(fn, expected: int, what: str):
@@ -3190,8 +3309,9 @@ def main() -> int:
     routes = {f"{dt}/{d}": fa.route(dtype, d) for dt, dtype in
               (("bfloat16", torch.bfloat16), ("float32", torch.float32)) for d in fa.HEAD_DIMS}
     done("phase 2 (kernel)")
-    check_end_to_end(args.seed)
+    e2e_fp32 = check_end_to_end(args.seed)
     main_path = run_main_path(args.seed)
+    main_path["fp32_check"] = e2e_fp32
     done("phases 3-4 (main path)")
     k1_grad = check_kernel_gradient(gen)
     train_check = check_train_steps(args.seed)

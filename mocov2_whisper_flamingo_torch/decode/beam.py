@@ -48,13 +48,23 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def prefix_tensor(prefix_ids, device) -> torch.Tensor:
+    """The forced prefix as a long tensor on ``device``: a long tensor
+    already there is taken as it is (no host copy, so a CUDA graph can
+    capture the loop), a sequence of ints is copied up."""
+    if isinstance(prefix_ids, torch.Tensor):
+        return prefix_ids.to(device=device, dtype=torch.long)
+    return torch.as_tensor(list(prefix_ids), dtype=torch.long, device=device)
+
+
 def _length_denominators(max_len: int, length_penalty: float, device) -> list[torch.Tensor]:
     """``gen_len ** length_penalty`` for ``gen_len`` in ``range(max_len)`` as
     0-d fp32 tensors on ``device``, made from one ``arange`` so that no step
-    of the search copies a host scalar to the card. Each entry is the 0-d
-    power a step would take by itself (a vector power rounds some entries
-    differently)."""
-    lp = torch.tensor(float(length_penalty), dtype=torch.float32, device=device)
+    of the search copies a host scalar to the card (the exponent is a
+    filled 0-d tensor, not a copy, so a CUDA graph can capture it). Each
+    entry is the 0-d power a step would take by itself (a vector power
+    rounds some entries differently)."""
+    lp = torch.full((), float(length_penalty), dtype=torch.float32, device=device)
     gen_lens = torch.arange(max_len, dtype=torch.float32, device=device)
     return [gen_lens[g] ** lp for g in range(max_len)]
 
@@ -80,7 +90,8 @@ def beam_search(
     example, best first, EOS-filled past each end.
 
     ``decoder`` is a prepared ``WhisperDecoder``
-    (``prepare_decode_params``). ``read_windows`` and ``cache_layout`` are
+    (``prepare_decode_params``). ``prefix_ids``: ints, or a long tensor on
+    the encoder output's device. ``read_windows`` and ``cache_layout`` are
     accepted for API compatibility and ignored: in the JAX package they
     choose how the TPU reads and lays out the self cache and leave the
     results unchanged, and this search always reads exactly the live prefix
@@ -101,7 +112,7 @@ def beam_search(
     dev = encoder_out.device
     b, k = encoder_out.shape[0], beam_size
     k2 = 2 * k
-    prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
+    prefix = prefix_tensor(prefix_ids, dev)
     n_prefix = int(prefix.shape[0])
     denoms = _length_denominators(max_len, length_penalty, dev)
 

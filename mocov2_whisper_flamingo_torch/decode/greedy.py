@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import torch
 
+from mocov2_whisper_flamingo_torch.decode.beam import prefix_tensor
+
 
 @torch.no_grad()
 def greedy_decode(
@@ -19,14 +21,15 @@ def greedy_decode(
     cache_quant: str | None = None,
 ) -> torch.Tensor:
     """Token ids ``[B, max_len]`` (prefix included, EOS-padded).
-    ``decoder`` is a prepared ``WhisperDecoder``. ``logit_rules``: an
+    ``decoder`` is a prepared ``WhisperDecoder``; ``prefix_ids``: ints, or a
+    long tensor on the encoder output's device. ``logit_rules``: an
     optional ``decode.logit_rules.LogitRules`` applied to the step's logits
     before the argmax (masking and forcing commute with it, so one rules
     object serves greedy and beam decoding). ``cache_quant``: ``"int8"`` or
     ``"int8-cross"`` (``init_cache``)."""
     dev = encoder_out.device
     b = encoder_out.shape[0]
-    prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
+    prefix = prefix_tensor(prefix_ids, dev)
     n_prefix = int(prefix.shape[0])
 
     cache = decoder.init_cache(encoder_out, max_len=max_len, quant=cache_quant)

@@ -108,7 +108,8 @@ def sample_decode(
     renormalises. Step ``i`` draws its noise from ``draws.fold(i)``
     (default ``GumbelDraws(seed)``). Returns every row; callers rank by
     ``avg_logprob``. ``cache_quant``: ``"int8"`` or ``"int8-cross"``
-    (``init_cache``)."""
+    (``init_cache``). An eager loop (no CUDA graph, ``decode/programs.py``):
+    a replay would draw one call's noise in every call."""
     dev = encoder_out.device
     rows = encoder_out.shape[0] * num_samples
     prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
@@ -268,7 +269,11 @@ def decode_with_fallback(
     token ids' bytes. ``no_speech_id`` also probes
     ``no_speech_probability`` at ``sot_index`` (default 0); with
     ``no_speech_threshold`` a probability above it accepts the current rung
-    whatever the gates say (openai's silence override)."""
+    whatever the gates say (openai's silence override).
+
+    The rungs run the eager loops, not ``decode/programs.py``'s graphs: the
+    beam rung's prefix length changes window by window, and a sampled
+    rung's noise comes from its own fold path."""
     temperatures = tuple(temperatures)
     if not temperatures:
         raise ValueError("temperatures must be non-empty")

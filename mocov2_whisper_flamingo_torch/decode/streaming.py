@@ -39,6 +39,8 @@ How the TPU design is rendered on the GPU:
   (``WhisperDecoder.decode_step(write=False)``), so they change nothing.
 - ``cache_layout`` ("rows" / "bhjtd") chooses a TPU layout in the JAX
   package and is accepted here as a no-op, as ``beam_search`` accepts it.
+- **The chunk loop stays eager** (no ``decode/programs.py`` graph): a chunk
+  reads keys ``0 .. index`` at a host index that changes chunk by chunk.
 
 ``transcribe_long_form`` has both of the JAX package's modes: this
 streaming decode, and the quality mode (openai's window loop with

@@ -18,9 +18,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from mocov2_whisper_flamingo_torch.decode.beam import beam_search
-from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
 from mocov2_whisper_flamingo_torch.decode.language import detect_language
+from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms
 from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.convert import (
@@ -45,6 +44,9 @@ class WhisperASR(nn.Module):
         self.precision = precision
         self.encoder = WhisperEncoder(self.config, precision, self.device)
         self.decoder = WhisperDecoder(self.config, precision, self.device)
+        # transcribe_tokens: the decoder prepared once and the loops compiled
+        # (CUDA graphs on the card, the eager loop on the CPU).
+        self.decode_programs = DecodePrograms(self.decoder)
 
     def load_whisper_torch(self, state_dict) -> "WhisperASR":
         """Install an HF ``WhisperModel`` / ``WhisperForConditionalGeneration``
@@ -79,16 +81,19 @@ class WhisperASR(nn.Module):
     ) -> torch.Tensor:
         """wav -> token ids ``[B, max_len]`` (the best beam when ``beam_size
         > 1``). ``logit_rules``: an optional ``decode.logit_rules.LogitRules``.
-        The decoder's weights are fused and cast to the compute dtype once
-        per call, not per token step; ``weight_quant="int8"`` quantizes the
-        decode step's weights instead (``prepare_decode_params``)."""
+        The encode is eager; the decode goes through ``decode_programs`` (one
+        CUDA graph per shape on the card), whose prepared decoder (fused and
+        cast to the compute dtype, or with ``weight_quant="int8"`` the decode
+        step's weights quantized, ``prepare_decode_params``) is made once and
+        refreshed from the weights inside the program."""
         enc = self.encode(self.features(audio, pad_to=pad_to))
-        decoder = self.decoder.prepare_decode_params(weight_quant)
         if beam_size <= 1:
-            return greedy_decode(decoder, enc, prefix_ids, max_len, eos_id,
-                                 logit_rules=logit_rules)
-        res = beam_search(decoder, enc, prefix_ids, beam_size=beam_size, max_len=max_len,
-                          eos_id=eos_id, logit_rules=logit_rules)
+            return self.decode_programs.greedy(enc, None, prefix_ids, max_len, eos_id,
+                                               logit_rules=logit_rules,
+                                               weight_quant=weight_quant)
+        res = self.decode_programs.beam(enc, None, prefix_ids, beam_size=beam_size,
+                                        max_len=max_len, eos_id=eos_id, logit_rules=logit_rules,
+                                        weight_quant=weight_quant)
         return res.sequences[:, 0]
 
     @torch.no_grad()

@@ -20,8 +20,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from mocov2_whisper_flamingo_torch.decode.beam import BeamResult, beam_search
-from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
+from mocov2_whisper_flamingo_torch.decode.beam import BeamResult
+from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms
 from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet
@@ -56,6 +56,9 @@ class AVWhisperNet(nn.Module):
                            precision=precision, device=device, whisper_config=cfg)
         self.bridge = L.Linear(modelargs[0], cfg.d_model, True, precision, device)
         self.decoder = WhisperDecoder(cfg, precision, device)
+        # greedy/beam: the decoder prepared once and the loops compiled
+        # (CUDA graphs on the card, the eager loop on the CPU).
+        self.decode_programs = DecodePrograms(self.decoder)
         self.d_model = modelargs[0]
         self.precision = precision
 
@@ -97,24 +100,26 @@ class AVWhisperNet(nn.Module):
                eos_id: int = 0, logit_rules=None,
                weight_quant: str | None = None,
                cache_quant: str | None = None) -> torch.Tensor:
-        """``weight_quant="int8"``: the decode step's weights in int8
+        """The eager encode, then ``greedy_decode`` through
+        ``decode_programs``: one CUDA graph per shape on the card, which
+        refreshes the prepared decoder from the weights as they stand.
+        ``weight_quant="int8"``: the decode step's weights in int8
         (``WhisperDecoder.prepare_decode_params``); ``cache_quant``:
         ``"int8"`` or ``"int8-cross"`` caches (``init_cache``)."""
         features, valid = self.encode(input_batch)
-        return greedy_decode(self.decoder.prepare_decode_params(weight_quant),
-                             features, prefix_ids, max_len, eos_id,
-                             encoder_valid=valid, logit_rules=logit_rules,
-                             cache_quant=cache_quant)
+        return self.decode_programs.greedy(features, valid, prefix_ids, max_len, eos_id,
+                                           logit_rules=logit_rules, cache_quant=cache_quant,
+                                           weight_quant=weight_quant)
 
     def beam(self, input_batch: tuple, prefix_ids, beam_size: int = 5,
              max_len: int = 224, eos_id: int = 0, length_penalty: float = 1.0,
              logit_rules=None, cache_quant: str | None = None,
              weight_quant: str | None = None, read_windows=None,
              cache_layout: str = "rows") -> BeamResult:
+        """The eager encode, then ``beam_search`` through
+        ``decode_programs`` (as ``greedy``)."""
         features, valid = self.encode(input_batch)
-        return beam_search(self.decoder.prepare_decode_params(weight_quant),
-                           features, prefix_ids, beam_size=beam_size,
-                           max_len=max_len, eos_id=eos_id,
-                           length_penalty=length_penalty, encoder_valid=valid,
-                           logit_rules=logit_rules, cache_quant=cache_quant,
-                           read_windows=read_windows, cache_layout=cache_layout)
+        return self.decode_programs.beam(
+            features, valid, prefix_ids, beam_size=beam_size, max_len=max_len, eos_id=eos_id,
+            length_penalty=length_penalty, logit_rules=logit_rules, cache_quant=cache_quant,
+            weight_quant=weight_quant, read_windows=read_windows, cache_layout=cache_layout)

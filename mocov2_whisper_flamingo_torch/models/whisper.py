@@ -124,6 +124,29 @@ def _quantize_linears(pairs) -> None:
             setattr(owner, name, L.QuantLinear.from_linear(lin))
 
 
+def _refresh_linear(dst, kernels, biases) -> None:
+    """Write the source ``kernels`` (``[d_in, d_out_i]`` each, side by side
+    along the output axis) into the prepared linear ``dst``, a float
+    ``Linear`` or a ``QuantLinear`` (quantized per output channel, so one
+    slice at a time). ``biases``: one per kernel (None: a zero block), or
+    None to leave ``dst.bias`` to the caller."""
+    start = 0
+    for i, kernel in enumerate(kernels):
+        cols = slice(start, start + kernel.shape[1])
+        start = cols.stop
+        if isinstance(dst, L.QuantLinear):
+            q, scale = L.quantize_int8(kernel, 0)
+            dst.kernel_q[:, cols].copy_(q)
+            dst.scale[cols].copy_(scale)
+        else:
+            dst.kernel[:, cols].copy_(kernel)
+        if biases is not None:
+            if biases[i] is None:
+                dst.bias[cols].zero_()
+            else:
+                dst.bias[cols].copy_(biases[i])
+
+
 CACHE_QUANTS = (None, "int8", "int8-cross")
 
 
@@ -223,10 +246,11 @@ class DecoderLayer(nn.Module):
 class WhisperDecoder(nn.Module):
     """Whisper decoder with an explicit KV cache for incremental decoding.
 
-    Call ``prepare_decode_params`` once per decode: it returns a copy with
-    fused self-attention QKV weights and every weight cast to the compute
-    dtype (or the decode-hot ones quantized to int8), which is the module
-    ``init_cache``/``decode_step`` run on.
+    ``prepare_decode_params`` returns a copy with fused self-attention QKV
+    weights and every weight cast to the compute dtype (or the decode-hot
+    ones quantized to int8), which is the module ``init_cache``/
+    ``decode_step`` run on; ``refresh_decode_params`` brings such a copy up
+    to date with the weights in place, so it is made once.
     """
 
     def __init__(self, config: WhisperConfig, precision: L.Precision = L.FP32,
@@ -361,6 +385,47 @@ class WhisperDecoder(nn.Module):
         if weight_quant is None:
             dec.vocab_table = dec.embed_tokens.embedding.float()
         return dec
+
+    @torch.no_grad()
+    def refresh_decode_params(self, prepared: "WhisperDecoder") -> "WhisperDecoder":
+        """Rewrite ``prepared`` (made by ``self.prepare_decode_params``, with
+        or without int8 weights) in place from this decoder's parameters, so
+        that it holds what a fresh ``prepare_decode_params`` would, bit for
+        bit: every tensor is written with ``copy_`` into its own dtype (which
+        casts as ``.to`` does), the fused QKV slice by slice, an int8 weight
+        quantized from its source per output channel and so per slice, and
+        the fp32 vocab table from the refreshed embedding. No deepcopy, no
+        host copy and no persistent allocation, so a CUDA graph can capture
+        it (``decode/programs.py``). Returns ``prepared``."""
+        src_params = dict(self.named_parameters())
+        src_modules = dict(self.named_modules())
+        written = set()
+        for name, p in prepared.named_parameters(remove_duplicate=False):
+            if name in src_params:
+                p.copy_(src_params[name])
+                written.add(name)
+        for name, mod in prepared.named_modules():
+            if name.endswith("self_attn.qkv"):
+                sa = src_modules[name.rsplit(".", 1)[0]]
+                _refresh_linear(mod, (sa.q.kernel, sa.k.kernel, sa.v.kernel),
+                                (sa.q.bias, None, sa.v.bias))
+            elif isinstance(mod, L.QuantLinear):
+                _refresh_linear(mod, (src_modules[name].kernel,), None)
+            elif isinstance(mod, L.QuantEmbedding):
+                q, scale = L.quantize_int8(src_modules[name].embedding, 1)
+                mod.embedding_q.copy_(q)
+                mod.scale.copy_(scale)
+            else:
+                continue
+            written.update(f"{name}.{n}" for n, _ in mod.named_parameters())
+        if prepared.vocab_table is not None:  # in fp32 the embedding itself
+            prepared.vocab_table.copy_(prepared.embed_tokens.embedding)
+            written.add("vocab_table")
+        missing = [n for n, _ in prepared.named_parameters(remove_duplicate=False)
+                   if n not in written]
+        if missing:
+            raise ValueError(f"refresh_decode_params has no source for {missing}")
+        return prepared
 
     # -- incremental decode ---------------------------------------------------
 

@@ -38,10 +38,20 @@ def resize_bilinear(frames: torch.Tensor, size: int) -> torch.Tensor:
     return y.reshape(*lead, c, size, size)
 
 
+def _per_channel(values, device) -> torch.Tensor:
+    """``values`` as fp32 ``[C, 1, 1]`` on ``device``. On the card the copy
+    comes from page-locked memory, so it does not wait for the work already
+    queued on the stream (from pageable memory it would: a serving engine's
+    dispatch thread would wait there for the previous batch's decode)."""
+    t = torch.tensor(values, dtype=torch.float32)[:, None, None]
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
 def normalize(frames: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:
     """``(x / 255 - mean) / std`` over the channel axis of ``[..., C, H, W]``."""
-    mean_t = torch.tensor(mean, dtype=torch.float32, device=frames.device)[:, None, None]
-    std_t = torch.tensor(std, dtype=torch.float32, device=frames.device)[:, None, None]
+    mean_t, std_t = _per_channel(mean, frames.device), _per_channel(std, frames.device)
     return (frames.float() / 255.0 - mean_t) / std_t
 
 
@@ -180,9 +190,7 @@ def train_video_pipeline(frames: torch.Tensor, generator: torch.Generator,
 
     x = adaptive_time_mask(x, generator, window=time_mask_window, stride=time_mask_stride,
                            lengths=lengths)
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)[:, None, None]
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)[:, None, None]
-    x = (x - mean) / std
+    x = (x - _per_channel(IMAGENET_MEAN, x.device)) / _per_channel(IMAGENET_STD, x.device)
     if lengths is not None:
         valid = (torch.arange(x.shape[1], device=x.device)[None, :]
                  < lengths.to(x.device).reshape(b)[:, None])

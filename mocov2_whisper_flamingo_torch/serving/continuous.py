@@ -42,6 +42,9 @@ How the TPU design is rendered on the GPU:
   stream under the same lock. A failed segment fails the futures in flight
   and the loop goes on. ``cache_layout`` is a TPU layout choice, accepted as
   a no-op.
+- **The segment loop stays eager** (no ``decode/programs.py`` graph): a
+  segment reads keys ``0 .. max position``, a host int that changes from
+  segment to segment.
 """
 
 from __future__ import annotations

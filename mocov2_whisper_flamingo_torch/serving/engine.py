@@ -7,22 +7,24 @@ of ``serving/engine.py``)::
 
 How the JAX engine's asynchronous dispatch is rendered in PyTorch:
 
-- **Two threads, one stream.** A PyTorch decode is a Python loop that
-  launches kernels, so the dispatch thread is busy for as long as it enqueues
-  them: it collates a batch into pinned host memory, copies it to the card,
-  runs the decode and starts the copy of the token rows into a pinned host
-  buffer, all on one CUDA stream that the engine owns, then records an event
-  and hands the batch on. The completion thread waits on that event (the GIL
-  is released while it waits), runs ``postprocess`` and resolves the
-  futures. What overlaps is the tail of batch N on the device and its
-  post-processing with the collate of batch N+1; ``batch_log`` keeps the
-  timestamps that show how much.
+- **Two threads, one stream.** The encode is a Python loop of launches and
+  the decode a replayed CUDA graph, so the dispatch thread is busy for as
+  long as it enqueues them: it collates a batch into pinned host memory,
+  copies it to the card, runs the decode and starts the copy of the token
+  rows into a pinned host buffer, all on one CUDA stream that the engine
+  owns, then records an event and hands the batch on. The completion thread
+  waits on that event (the GIL is released while it waits), runs
+  ``postprocess`` and resolves the futures. What overlaps is the tail of
+  batch N on the device and its post-processing with the collate of batch
+  N+1; ``batch_log`` keeps the timestamps that show how much.
 - **Warm-up on the same stream.** The caching allocator pools memory per
   stream, so ``warmup`` runs through the engine's stream too; warm-up and
   live batches take turns under one lock. A warmed bucket has had its
-  kernels built, cuDNN's algorithms chosen and its allocator pools filled;
+  kernels built, cuDNN's algorithms chosen, its decode captured as a CUDA
+  graph (``decode/programs.py``, through the model's ``greedy``/``beam``/
+  ``transcribe_tokens``) and its allocator pools filled;
   ``stats()["compiled_buckets"]`` lists the warmed buckets under the JAX
-  engine's name for them.
+  engine's name for them. The encode stays eager.
 - **Thread-local state.** Grad mode and the current stream are per thread;
   every decode sets both itself.
 - **Row independence.** Decoding is per row (beam search carries no state
@@ -200,9 +202,13 @@ class ServingEngine:
                buckets: Sequence[int] | None = None) -> None:
         """Decode one batch of every bucket from a replicated example row, on
         the engine's stream, so that live traffic never waits for a kernel
-        build, cuDNN's algorithm search or a first allocation. Raises what
-        the decode raises."""
-        for b in sorted(buckets or self._batcher.buckets):
+        build, cuDNN's algorithm search, a decode program's capture or a
+        first allocation. On the card every bucket is decoded twice: the
+        first batch captures the bucket's decode program
+        (``decode/programs.py``), and a capture empties the allocator's cache,
+        which the second fills again. Raises what the decode raises."""
+        passes = 2 if self._cuda else 1
+        for b in sorted(buckets or self._batcher.buckets) * passes:
             self._wait(self._run([tuple(example_payload)] * b, b, rows=[]))
             with self._stats_lock:
                 self._compiled.add(b)

@@ -112,7 +112,9 @@ def export_forward(net, example_batch, path: str, symbolic_batch: bool = True,
 class BeamProgram(nn.Module):
     """The serving program of an ``AVWhisperNet``: ``AVWhisperNet.beam``'s
     encode and beam search, on a decoder prepared once. Holds the trunk, the
-    bridge and the prepared decoder (not the unprepared one)."""
+    bridge and the prepared decoder (not the unprepared one). It runs the
+    eager ``beam_search``, not the net's CUDA graph (``decode/programs.py``):
+    ``torch.export`` traces the loop and cannot trace a replay."""
 
     def __init__(self, net, prefix_ids, beam_size: int, max_len: int, eos_id: int,
                  length_penalty: float):

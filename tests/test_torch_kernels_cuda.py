@@ -361,6 +361,140 @@ def test_audio_engine_round_trip_on_the_card(precision):
     assert all(entry["h2d_device_ms"] >= 0 for entry in log)
 
 
+def _card_features(asr, b, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t = asr.config.max_source_positions
+    feats = torch.randn((b, t, asr.config.d_model), generator=gen, device="cuda")
+    lens = torch.tensor([t, t - 7], device="cuda")[:b]
+    valid = torch.arange(t, device="cuda")[None, :] < lens[:, None]
+    return feats.to(asr.precision.compute_dtype), valid
+
+
+PROGRAM_CASES = {
+    "beam_rules": dict(loop="beam", rules=True),
+    "beam_c8": dict(loop="beam", cache_quant="int8"),
+    "beam_w8": dict(loop="beam", weight_quant="int8"),
+    "greedy": dict(loop="greedy", rules=True),
+}
+
+
+def _eager_and_program(asr, case, feats, valid, rules):
+    """(eager loop over a fresh prepared decoder, the program) on the
+    caller's stream, as lists of CPU tensors."""
+    from mocov2_whisper_flamingo_torch.decode.beam import beam_search
+    from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
+
+    wq, cq = case.get("weight_quant"), case.get("cache_quant")
+    prefix, kw = [1, 2], dict(max_len=12, eos_id=3, logit_rules=rules, cache_quant=cq)
+    dec = asr.decoder.prepare_decode_params(wq)
+    if case["loop"] == "beam":
+        want = beam_search(dec, feats, prefix, beam_size=3, encoder_valid=valid, **kw)
+        got = asr.decode_programs.beam(feats, valid, prefix, beam_size=3, weight_quant=wq, **kw)
+        pairs = [(got.sequences, want.sequences), (got.scores, want.scores)]
+    else:
+        want = greedy_decode(dec, feats, prefix, encoder_valid=valid, **kw)
+        pairs = [(asr.decode_programs.greedy(feats, valid, prefix, weight_quant=wq, **kw), want)]
+    return [(g.cpu(), w.cpu()) for g, w in pairs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(PROGRAM_CASES))
+def test_decode_program_replays_the_eager_loop_bit_for_bit(case, precision):
+    """A captured decode against the eager loop on the same stream: tokens
+    and scores bit-equal, at its capture and at a replay on other inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.BF16 if precision == "bf16" else L.FP32)
+    cfg = PROGRAM_CASES[case]
+    rules = LogitRules(vocab_size=96, suppress=(5, 7), begin_suppress=(3,),
+                       timestamp_begin=80, no_timestamps_id=79, eos_id=3) \
+        if cfg.get("rules") else None
+    for seed in (0, 1):
+        for got, want in _eager_and_program(asr, cfg, *_card_features(asr, 2, seed), rules):
+            assert torch.equal(got, want), (case, seed)
+    assert len(asr.decode_programs.captures) == 1  # the second input replayed
+    assert asr.decode_programs.captures[0]["instantiate_s"] > 0
+
+
+@pytest.mark.cuda
+def test_decode_program_reads_updates_and_recaptures_a_replaced_parameter():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.BF16)
+    feats, valid = _card_features(asr, 2, 0)
+    case = PROGRAM_CASES["beam_rules"]
+    before = _eager_and_program(asr, case, feats, valid, None)
+    with torch.no_grad():  # as an optimizer step writes
+        asr.decoder.pos_embed.mul_(-1.0)
+    after = _eager_and_program(asr, case, feats, valid, None)
+    assert len(asr.decode_programs.captures) == 1
+    assert all(torch.equal(g, w) for g, w in after)
+    assert not torch.equal(after[0][0], before[0][0])
+    asr.decoder.pos_embed.data = asr.decoder.pos_embed.data.clone()
+    assert all(torch.equal(g, w) for g, w in _eager_and_program(asr, case, feats, valid, None))
+    assert len(asr.decode_programs.captures) == 2 and len(asr.decode_programs.programs) == 1
+
+
+@pytest.mark.cuda
+def test_decode_program_capture_error_raises():
+    """A loop that reads back to the host cannot be captured: the call
+    raises, and the object decodes again afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.FP32)
+    feats, valid = _card_features(asr, 2, 0)
+
+    def reads_back(logp, tokens, pos, begin_index):
+        float(logp.max())
+        return logp
+
+    with pytest.raises(RuntimeError):
+        asr.decode_programs.greedy(feats, valid, [1, 2], max_len=8, eos_id=3,
+                                   logit_rules=reads_back)
+    assert asr.decode_programs.programs == {}
+    assert all(torch.equal(g, w) for g, w in
+               _eager_and_program(asr, PROGRAM_CASES["greedy"], feats, valid, None))
+
+
+@pytest.mark.cuda
+def test_engine_warmup_captures_each_bucket_and_rows_equal_the_eager_loop():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.decode.beam import beam_search
+    from mocov2_whisper_flamingo_torch.models import layers as L
+    from mocov2_whisper_flamingo_torch.serving import (
+        canonical_wav, make_audio_engine, pad_rows, trim_at_eos)
+
+    asr = _tiny_asr("cuda", L.BF16)
+    rng = np.random.default_rng(0)
+    wavs = [canonical_wav(0.1 * rng.standard_normal(12_000 + 1000 * i), seconds=1.0)
+            for i in range(3)]
+    prefix, kw = [1, 2], dict(beam_size=3, max_len=12, eos_id=3)
+    with make_audio_engine(asr, prefix, seconds=1.0, buckets=(1, 4), max_wait_s=0.3,
+                           **kw) as eng:
+        eng.warmup((wavs[0],))
+        assert [c["shape"][0] for c in asr.decode_programs.captures] == [1, 4]
+        results = [f.result(timeout=120) for f in [eng.submit(w) for w in wavs]]
+        assert eng.stats()["compiled_buckets"] == [1, 4]
+    assert len(asr.decode_programs.captures) == 2  # traffic replayed
+    (wav,) = pad_rows([(w,) for w in wavs], 4)
+    enc = asr.encode(asr.features(wav, pad_to=16_000))
+    eager = beam_search(asr.decoder.prepare_decode_params(), enc, prefix, **kw)
+    for i, got in enumerate(results):
+        want = trim_at_eos(eager.sequences[i, 0].cpu().numpy(), 3, len(prefix))
+        assert got.bucket == 4 and np.array_equal(got.tokens, want)
+
+
 @pytest.mark.cuda
 def test_serve_tool_on_the_card_answers_health_a_transcript_and_metrics():
     """``python -m mocov2_whisper_flamingo_torch.tools.serve --random-init
