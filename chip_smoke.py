@@ -31,13 +31,18 @@ teacher-forced ``AVWhisperNet.decoder_logits`` runs the kernel's causal and
 cross-attention instantiations and is held against the cached decode step.
 
 Then the streaming decode (``StreamingDecoder`` over the AV encode, beam 5,
-448-token windows, 40 tokens per 30 s chunk): 10 chunks (5 min) and 20
-chunks (a window rollover), with fp32 card-vs-CPU and deferred-vs-eager
-token checks at small depth; and the continuous engine
-(``make_continuous_av_engine``, 16 requests x 5 beams, 32-step segments,
-160 tokens): 64 closed-loop requests, then 8 in flight and one more 0.4 s
-later, with an fp32 scripted schedule through ``init_state`` / admit /
-segment held card against CPU and against solo beam searches.
+448-token windows, 40 tokens per 30 s chunk, each chunk a replayed CUDA
+graph of its key): 10 chunks (5 min) and 20 chunks (a window rollover), the
+graph and the eager chunk in turns bit for bit, with fp32 card-vs-CPU,
+deferred-vs-eager and graph-vs-eager token checks at small depth; and the
+continuous engine (``make_continuous_av_engine``, 16 requests x 5 beams,
+32-step segments, 160 tokens, each segment a replayed CUDA graph over state
+tensors that keep their addresses): 64 closed-loop requests, then 8 in
+flight and one more 0.4 s later, reserved memory after warm-up and traffic,
+the segment's graph and the eager segment in turns bit for bit at full
+width, with an fp32 scripted schedule through ``init_state`` / admit /
+segment held card against CPU, against solo beam searches and graph
+against eager.
 
 Then data-fed training: a dataset written to disk (16 train, 4 validation
 and 4 test clips of 12 s 48 kHz audio and 280-400 uint8 96x96 frames, and a
@@ -113,7 +118,7 @@ from mocov2_whisper_flamingo_torch import train as train_entry
 from mocov2_whisper_flamingo_torch.config import get_config
 from mocov2_whisper_flamingo_torch.datamodule import native
 from mocov2_whisper_flamingo_torch.datamodule.data_module import DataModule
-from mocov2_whisper_flamingo_torch.decode import sampling, timestamps
+from mocov2_whisper_flamingo_torch.decode import sampling, streaming, timestamps
 from mocov2_whisper_flamingo_torch.decode.beam import beam_search
 from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
 from mocov2_whisper_flamingo_torch.decode.sampling import GumbelDraws
@@ -1535,18 +1540,77 @@ def small_features(seed: int, cpu_batches) -> dict:
 # -- phase 11: the streaming decode ----------------------------------------------------------
 
 
+class EagerChunks(StreamingDecoder):
+    """The streaming decoder with its plain chunk on the card, for the
+    in-turns comparison with the replayed graph."""
+
+    def _run_chunk(self, encoder_out, encoder_valid, i0, n_prime, begin_index):
+        return self._chunk(encoder_out, encoder_valid, torch.tensor(i0, device=self.device),
+                           n_prime, begin_index)
+
+
+def same_stream_state(a: StreamingDecoder, b: StreamingDecoder) -> bool:
+    """Two streaming decoders' buffers, position and transcript bit for bit."""
+    return a.tokens == b.tokens and all(
+        (x == y) if isinstance(x, int) else torch.equal(x, y) for x, y in zip(a._state, b._state))
+
+
+def graph_summary(graphs, since: int = 0) -> dict:
+    """Capture records of a ``GraphPool`` after its first ``since``, its
+    replays and its pool's bytes."""
+    return {"captures": graphs.captures[since:], "replays": graphs.replays,
+            "pool_bytes": pool_bytes(graphs)}
+
+
+def chunk_turns(stream: StreamingDecoder, feats: list) -> dict:
+    """The replayed chunk (``stream``, captured) and the eager chunk on the
+    card in turns over the same chunks, from the same fresh window: decode
+    ms of each per chunk, and both decoders' state bit for bit after each;
+    then one more replayed chunk under the profiler."""
+    stream.reset()
+    plain = EagerChunks(stream.decoder, PREFIX, max_len=STREAM_MAX_LEN, eos_id=EOS,
+                        max_tokens_per_chunk=STREAM_TOKENS, beam_size=BEAM)
+    captures = len(stream.graphs.captures)
+    ms = {"graph": [], "eager": []}
+    equal = []
+    for i, (f, v) in enumerate(feats):
+        order = (("graph", stream), ("eager", plain))
+        for name, sd in (order if i % 2 == 0 else order[::-1]):
+            _, wall_s = timed_call(lambda: sd.process_chunk(f, encoder_valid=v, collect=False))
+            ms[name].append(wall_s * 1e3)
+        equal.append(same_stream_state(stream, plain))
+    if not all(equal) or len(stream.graphs.captures) != captures:
+        raise AssertionError(f"bf16 streaming chunk graph against the eager chunk, bit-equal: "
+                             f"{equal}; captures {stream.graphs.captures[captures:]}")
+    out = {"chunks": len(feats), "graph_ms_per_chunk": ms["graph"],
+           "eager_ms_per_chunk": ms["eager"],
+           "graph_ms_per_step": [x / STREAM_TOKENS for x in ms["graph"]],
+           "eager_ms_per_step": [x / STREAM_TOKENS for x in ms["eager"]],
+           "state_bit_equal": equal}
+    log("streaming chunk graph and eager chunk in turns, bf16 beam 5: " + json.dumps(out))
+    f, v = feats[-1]
+    out["profile_replay"] = profile(
+        lambda: stream.process_chunk(f, encoder_valid=v, collect=False), cpu=False)
+    return out
+
+
 def run_streaming(seed: int) -> dict:
     """``StreamingDecoder`` over the full-width AV encode at B=1, bf16, beam
     5, 448-token windows, 40 tokens per 30 s chunk, ``collect=False`` and
     one final ``collected_tokens``: 10 chunks (5 min), then after ``reset``
-    20 chunks (a window rollover). Then in fp32 at small depth, with windows
-    that roll over within 4 chunks: tokens on the card equal the CPU's, and
-    deferred collection equals eager collection on the card."""
+    20 chunks (a window rollover). Every chunk replays the graph of its key,
+    captured at the warm-up; then the graph and the eager chunk in turns on
+    the same chunks, bit for bit. Then in fp32 at small depth, with windows
+    that roll over within 4 chunks: tokens on the card equal the CPU's,
+    deferred collection equals eager collection, and the graph equals the
+    eager chunk on the card."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 7)
     net = build(seed, L.BF16, dev)
     decoder = net.decoder.prepare_decode_params()
     chunks = [make_batch(rng, 1, T_VIDEO, dev) for _ in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' pools, so that "reserved" is this phase's
     stream = StreamingDecoder(decoder, PREFIX, max_len=STREAM_MAX_LEN, eos_id=EOS,
                               max_tokens_per_chunk=STREAM_TOKENS, beam_size=BEAM)
 
@@ -1554,8 +1618,18 @@ def run_streaming(seed: int) -> dict:
         feats, valid = net.encode(preprocess(*chunks[i % len(chunks)]))
         return stream.process_chunk(feats, encoder_valid=valid, collect=collect)
 
-    one_chunk(0, collect=True)  # warm-up: the window's priming chunk, then a steady one
+    # Warm-up: the window's priming chunk, then a steady one; each captures
+    # its key's graph.
+    t0 = time.perf_counter()
+    one_chunk(0, collect=True)
     one_chunk(1, collect=True)
+    torch.cuda.synchronize()
+    warmup = {"warmup_s": time.perf_counter() - t0,
+              "reserved_gib_after_warmup": torch.cuda.memory_reserved() / 2**30,
+              **graph_summary(stream.graphs)}
+    if len(stream.graphs.captures) != 2 or stream.graphs.replays != 2:
+        raise AssertionError(f"the warm-up captured {stream.graphs.captures} and replayed "
+                             f"{stream.graphs.replays}; expected 2 keys and 2 replays")
     # Encode and decode of a chunk apart, and K1's launches in one chunk.
     encode_ms, decode_ms, launches = [], [], []
     for i in range(2, 5):
@@ -1577,6 +1651,7 @@ def run_streaming(seed: int) -> dict:
     legs = {}
     for name, n_chunks in (("5min", STREAM_CHUNKS), ("longform", LONGFORM_CHUNKS)):
         stream.reset()
+        replays = stream.graphs.replays
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(n_chunks):
@@ -1586,17 +1661,27 @@ def run_streaming(seed: int) -> dict:
         wall_s = time.perf_counter() - t0
         if tokens[:len(PREFIX)] != PREFIX or not all(0 <= t < VOCAB for t in tokens):
             raise AssertionError(f"streaming {name}: bad transcript {tokens[:16]}...")
+        if stream.graphs.replays - replays != n_chunks:
+            raise AssertionError(f"streaming {name}: {stream.graphs.replays - replays} replays "
+                                 f"for {n_chunks} chunks")
         legs[name] = {"chunks": n_chunks, "wall_s": wall_s, "tokens": len(tokens) - len(PREFIX),
                       "rollovers": rollovers,
                       "audio_s_per_s": n_chunks * SECONDS_PER_CLIP / wall_s}
     if legs["longform"]["rollovers"] < 1:
         raise AssertionError(f"the long-form leg rolled no window over: {legs['longform']}")
+    if len(stream.graphs.captures) != 2:
+        raise AssertionError(f"traffic captured again: {stream.graphs.captures}")
     out = {"beam": BEAM, "max_len": STREAM_MAX_LEN, "tokens_per_chunk": STREAM_TOKENS,
            "streaming_audio_s_per_s": legs["5min"]["audio_s_per_s"],
            "longform_audio_s_per_s": legs["longform"]["audio_s_per_s"], "legs": legs,
            "encode_ms_per_chunk": encode_ms, "decode_ms_per_chunk": decode_ms,
-           "k1_launches_per_chunk": launches[0][0]}
+           "decode_ms_per_step": [x / STREAM_TOKENS for x in decode_ms],
+           "k1_launches_per_chunk": launches[0][0], "graphs": warmup,
+           "reserved_gib_after_traffic": torch.cuda.memory_reserved() / 2**30,
+           "replays": stream.graphs.replays}
     log(f"streaming bf16 beam {BEAM}, {STREAM_TOKENS} tokens a chunk: " + json.dumps(out))
+    out["turns"] = chunk_turns(stream, [net.encode(preprocess(*chunks[i % len(chunks)]))
+                                        for i in range(5)])
     del net, decoder, stream, chunks
 
     # fp32, 2 + 2 Whisper layers, 32 frames, 8 tokens a chunk in 24-token
@@ -1604,24 +1689,31 @@ def run_streaming(seed: int) -> dict:
     cpu_batches = [make_batch(rng, 1, 32, "cpu") for _ in range(4)]
     kw = dict(max_len=24, eos_id=EOS, max_tokens_per_chunk=8, beam_size=BEAM, context_tokens=4,
               sot_prev_id=SOT_PREV)
+    runs = {"collect": (True, StreamingDecoder), "deferred": (False, StreamingDecoder),
+            "eager_chunk": (True, EagerChunks)}
     got = {}
     for device, (decoder, feats) in small_features(seed, cpu_batches).items():
-        for collect in ((True, False) if device == "cuda" else (True,)):
-            sd = StreamingDecoder(decoder, PREFIX, **kw)
+        for name, (collect, cls) in runs.items():
+            if device == "cpu" and name != "collect":
+                continue
+            sd = cls(decoder, PREFIX, **kw)
             for f, v in feats:
                 sd.process_chunk(f, encoder_valid=v, collect=collect)
-            got[(device, collect)] = (sd.collected_tokens(), list(sd._window_prefix))
-    (card, prefix), (cpu, _), (deferred, _) = (got[("cuda", True)], got[("cpu", True)],
-                                               got[("cuda", False)])
+            got[(device, name)] = (sd.collected_tokens(), list(sd._window_prefix))
+    (card, prefix), (cpu, _), (deferred, _), (eager, _) = (
+        got[("cuda", "collect")], got[("cpu", "collect")], got[("cuda", "deferred")],
+        got[("cuda", "eager_chunk")])
     log(f"streaming fp32 (2 + 2 Whisper layers, 4 chunks of 8 tokens in 24-token windows): "
         f"{len(card) - len(PREFIX)} tokens; card == CPU: {card == cpu}; deferred == eager on "
-        f"the card: {deferred == card}; last window prefix {prefix}")
+        f"the card: {deferred == card}; graph == eager chunk on the card: {eager == card}; "
+        f"last window prefix {prefix}")
     if prefix[0] != SOT_PREV:
         raise AssertionError(f"no window rolled over in the fp32 check: {prefix}")
-    if card != cpu or deferred != card:
+    if card != cpu or deferred != card or eager != card:
         raise AssertionError(f"fp32 streaming tokens differ:\ncard {card}\ncpu {cpu}\n"
-                             f"deferred {deferred}")
+                             f"deferred {deferred}\neager chunk {eager}")
     out["fp32_card_vs_cpu_tokens_identical"] = out["deferred_equals_eager"] = True
+    out["fp32_graph_equals_eager_chunk"] = True
     return out
 
 
@@ -1633,53 +1725,129 @@ def run_streaming(seed: int) -> dict:
 CONT_SCHEDULE = {0: [(0, 0), (1, 1)], 1: [(2, 2)], 3: [(0, 3)], 4: [(1, 4), (2, 5)]}
 
 
+def same_state(a: dict, b: dict) -> bool:
+    """Two continuous states bit for bit (the spare caches are scratch)."""
+    return a["tick"] == b["tick"] and all(
+        torch.equal(v, b[k]) for k, v in a.items()
+        if isinstance(v, torch.Tensor) and "spare" not in k)
+
+
 def check_continuous_fp32(seed: int) -> dict:
     """The state machine (``init_state`` / admit / segment) in fp32 at small
     depth through ``CONT_SCHEDULE`` (3 rows, beam 5, 8-step segments, 24
-    tokens) on the card and on the CPU: the same pool tokens, and each card
-    row equal to the card's solo ``beam_search`` of the same features."""
+    tokens) on the card and on the CPU: the same pool tokens, each card row
+    equal to the card's solo ``beam_search`` of the same features, and on
+    the card the segment's graph equal to the eager segment after every
+    segment."""
     rng = np.random.default_rng(seed + 9)
     cpu_batches = [make_batch(rng, 1, 32, "cpu") for _ in range(6)]
     seg, n_seg = 8, 3
-    pools = {}
+    kw = dict(beam_size=BEAM, seg_steps=seg, n_segments=n_seg, n_prefix=len(PREFIX), eos_id=EOS)
+    pools, graph_equal = {}, []
     for device, (decoder, feats) in small_features(seed, cpu_batches).items():
-        state = continuous.init_state(decoder, capacity=3, beam_size=BEAM, seg_steps=seg,
-                                      n_segments=n_seg, enc_len=32, eos_id=EOS)
+        # the program's state (a graph on the card), and on the card the
+        # eager segment's beside it
+        machines = [(continuous.SegmentProgram(decoder, **kw),
+                     continuous.init_state(decoder, capacity=3, beam_size=BEAM, seg_steps=seg,
+                                           n_segments=n_seg, enc_len=32, eos_id=EOS))]
+        if device == "cuda":
+            machines.append((continuous.make_segment_fn(decoder, **kw),
+                             continuous.init_state(decoder, capacity=3, beam_size=BEAM,
+                                                   seg_steps=seg, n_segments=n_seg, enc_len=32,
+                                                   eos_id=EOS)))
         admit = continuous.make_admit_fn(decoder, PREFIX, EOS, BEAM, seg * n_seg)
-        segment = continuous.make_segment_fn(decoder, beam_size=BEAM, seg_steps=seg,
-                                             n_segments=n_seg, n_prefix=len(PREFIX), eos_id=EOS)
         live, rows = {}, {}
         for tick in range(7):
             entries = CONT_SCHEDULE.get(tick, [])
-            if entries:
-                admit(state, torch.cat([feats[u][0] for _, u in entries]),
-                      torch.cat([feats[u][1] for _, u in entries]), [r for r, _ in entries])
-                live.update({r: (u, tick) for r, u in entries})
-            segment(state)
+            for segment, state in machines:
+                if entries:
+                    admit(state, torch.cat([feats[u][0] for _, u in entries]),
+                          torch.cat([feats[u][1] for _, u in entries]), [r for r, _ in entries])
+                segment(state)
+            state = machines[0][1]
+            if device == "cuda":
+                graph_equal.append(same_state(state, machines[1][1]))
+            live.update({r: (u, tick) for r, u in entries})
             for r, (u, t0) in list(live.items()):
                 if tick + 1 - t0 == n_seg:
                     rows[u] = state["pool_tokens"][r].to("cpu", copy=True)
                     del live[r]
         pools[device] = rows
         if device == "cuda":
+            if machines[0][0].replays != 7 or len(machines[0][0].captures) != 1:
+                raise AssertionError(f"fp32 segment program: {machines[0][0].replays} replays, "
+                                     f"captures {machines[0][0].captures}")
             solos = {u: beam_search(decoder, f, PREFIX, beam_size=BEAM, max_len=seg * n_seg,
                                     eos_id=EOS, encoder_valid=v).sequences[0].cpu()
                      for u, (f, v) in enumerate(feats)}
     same_cpu = all(torch.equal(pools["cuda"][u], pools["cpu"][u]) for u in range(6))
     same_solo = all(torch.equal(pools["cuda"][u], solos[u]) for u in range(6))
     log(f"continuous fp32 scripted schedule (2 + 2 Whisper layers, 3 rows, 6 requests, slots "
-        f"reused): pools card == CPU: {same_cpu}; card rows == solo beam_search: {same_solo}")
-    if not same_cpu or not same_solo:
+        f"reused): pools card == CPU: {same_cpu}; card rows == solo beam_search: {same_solo}; "
+        f"segment graph == eager segment on the card: {graph_equal}")
+    if not same_cpu or not same_solo or not all(graph_equal):
         raise AssertionError("fp32 continuous pools differ: card vs CPU "
-                             f"{same_cpu}, card vs solo {same_solo}")
-    return {"fp32_card_vs_cpu_tokens_identical": True, "fp32_rows_equal_solo_beam_search": True}
+                             f"{same_cpu}, card vs solo {same_solo}, graph vs eager "
+                             f"{graph_equal}")
+    return {"fp32_card_vs_cpu_tokens_identical": True, "fp32_rows_equal_solo_beam_search": True,
+            "fp32_graph_equals_eager_segment": True}
+
+
+def segment_turns(net, payloads, encode) -> dict:
+    """The segment's graph and the eager segment in turns at full width (16
+    requests x 5 beams, 32-step segments, 160 tokens, bf16) on two states
+    with the same 16 admissions: ms a step of each, the states bit for bit
+    and at their addresses after every segment, the capture's seconds and
+    the pool's bytes; then one more replayed segment under the profiler."""
+    decoder = net.decoder.prepare_decode_params()
+    n_seg = MAX_TOKENS // CONT_SEG_STEPS
+    kw = dict(beam_size=BEAM, seg_steps=CONT_SEG_STEPS, n_segments=n_seg,
+              n_prefix=len(PREFIX), eos_id=EOS)
+    feats, valid = encode([payloads[i % len(payloads)] for i in range(CONT_CAPACITY)])
+    admit = continuous.make_admit_fn(decoder, PREFIX, EOS, BEAM, MAX_TOKENS)
+    states = []
+    for _ in range(2):
+        state = continuous.init_state(decoder, capacity=CONT_CAPACITY, beam_size=BEAM,
+                                      seg_steps=CONT_SEG_STEPS, n_segments=n_seg,
+                                      enc_len=feats.shape[1], eos_id=EOS)
+        states.append(admit(state, feats, valid, list(range(CONT_CAPACITY))))
+    program = continuous.SegmentProgram(decoder, **kw)
+    eager = continuous.make_segment_fn(decoder, **kw)
+    _, capture_call_s = timed_call(lambda: program.capture(states[0]))
+    homes = {k: v.data_ptr() for k, v in states[0].items() if isinstance(v, torch.Tensor)}
+    ms = {"graph": [], "eager": []}
+    equal, in_place = [], []
+    for i in range(3):
+        order = (("graph", program, states[0]), ("eager", eager, states[1]))
+        for name, segment, state in (order if i % 2 == 0 else order[::-1]):
+            _, wall_s = timed_call(lambda: segment(state))
+            ms[name].append(wall_s * 1e3)
+        equal.append(same_state(*states))
+        in_place.append(all(states[0][k].data_ptr() == p for k, p in homes.items()))
+    if not all(equal) or not all(in_place) or program.replays != 3 \
+            or len(program.captures) != 1:
+        raise AssertionError(f"bf16 segment graph against the eager segment: bit-equal {equal}, "
+                             f"in place {in_place}, replays {program.replays}, captures "
+                             f"{program.captures}")
+    out = {"segments": 3, "graph_ms_per_segment": ms["graph"],
+           "eager_ms_per_segment": ms["eager"],
+           "graph_ms_per_step": [x / CONT_SEG_STEPS for x in ms["graph"]],
+           "eager_ms_per_step": [x / CONT_SEG_STEPS for x in ms["eager"]],
+           "state_bit_equal": equal, "state_in_place": in_place,
+           "capture_call_s": capture_call_s, **graph_summary(program)}
+    log("continuous segment graph and eager segment in turns, bf16 16 x beam 5: "
+        + json.dumps(out))
+    out["profile_replay"] = profile(lambda: program(states[0]), cpu=False)
+    return out
 
 
 def run_continuous(seed: int) -> dict:
     """``make_continuous_av_engine`` at full width on the card (16 requests x
-    5 beams, 32-step segments, 160 tokens, bf16): warm-up, 64 closed-loop
-    requests, then 8 in flight and one submitted 0.4 s later; every future
-    must resolve. Then the fp32 scripted check."""
+    5 beams, 32-step segments, 160 tokens, bf16): warm-up (the segment's
+    capture), 64 closed-loop requests, then 8 in flight and one submitted
+    0.4 s later; every future must resolve, every segment is a replay and
+    the state tensors keep their addresses. Then the graph and the eager
+    segment in turns at full width, and the fp32 scripted check."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 8)
     payloads = [av_payload(rng) for _ in range(4)]
@@ -1693,7 +1861,8 @@ def run_continuous(seed: int) -> dict:
     encodes, segment_ms = [], []
     with make_continuous_av_engine(net, PREFIX, beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS,
                                    capacity=CONT_CAPACITY, seg_steps=CONT_SEG_STEPS) as eng:
-        encode, segment = eng.encode, eng._segment
+        encode, program = eng.encode, eng.segment_program
+        homes = {k: v.data_ptr() for k, v in eng.state.items() if isinstance(v, torch.Tensor)}
 
         def counted_encode(batch):
             before = fa.launches
@@ -1703,24 +1872,29 @@ def run_continuous(seed: int) -> dict:
 
         def timed_segment(state):
             t0 = time.perf_counter()
-            res = segment(state)
+            res = program(state)
             torch.cuda.current_stream().synchronize()  # the engine's stream
             segment_ms.append((time.perf_counter() - t0) * 1e3)
             return res
 
-        eng.encode, eng._segment = counted_encode, timed_segment
+        eng.encode = counted_encode
         out["enc_len"] = eng.state["enc_valid"].shape[1]
         t0 = time.perf_counter()
         eng.warmup(payloads[0], encode_buckets=CONT_BUCKETS)
         out["warmup_s"] = time.perf_counter() - t0
         out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
+        out["segment_graph"] = graph_summary(program)
+        if len(program.captures) != 1 or program.replays != eng.stats()["segments_run"]:
+            raise AssertionError(f"warm-up captured {program.captures}, replayed "
+                                 f"{program.replays} of {eng.stats()['segments_run']} segments")
         by_bucket = {n: k for n, k in encodes[:len(CONT_BUCKETS)]}
         if sorted(by_bucket) != list(CONT_BUCKETS) or set(by_bucket.values()) != {15}:
             raise AssertionError(f"admission encodes launched K1 {encodes}, expected 15 at each "
                                  f"bucket {CONT_BUCKETS}")
+        eng.segment_program = timed_segment  # the loop's segment, timed
         encodes.clear()
-        segment_ms.clear()
         segments_before = eng.stats()["segments_run"]
+        replays_before = program.replays
         fa.reset_launches()
         t0 = time.perf_counter()
         futures = [eng.submit(*payloads[i % len(payloads)]) for i in range(CONT_REQUESTS)]
@@ -1728,6 +1902,7 @@ def run_continuous(seed: int) -> dict:
         wall_s = time.perf_counter() - t0
         traffic_launches, traffic_encodes = fa.launches, list(encodes)
         traffic_segments = eng.stats()["segments_run"] - segments_before
+        traffic_replays = program.replays - replays_before
         traffic_segment_ms = list(segment_ms)
         # Mid-decode admission: rows are mid-flight and rows are free; the
         # probe is admitted at the next segment boundary.
@@ -1736,8 +1911,14 @@ def run_continuous(seed: int) -> dict:
         probe = eng.submit(*payloads[0]).result(timeout=WAIT_S)
         results_in_flight = [f.result(timeout=WAIT_S) for f in in_flight]
         stats = eng.stats()
+        moved = [k for k, p in homes.items() if eng.state[k].data_ptr() != p]
+        out["segment_graph_after_traffic"] = graph_summary(program)
     out["reserved_gib_after_traffic"] = torch.cuda.memory_reserved() / 2**30
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    if moved or len(program.captures) != 1 or traffic_replays != traffic_segments:
+        raise AssertionError(f"continuous engine: state tensors moved {moved}, captures "
+                             f"{program.captures}, {traffic_replays} replays for "
+                             f"{traffic_segments} segments")
     bad = [r for r in results + results_in_flight + [probe]
            if r.bucket != CONT_CAPACITY or list(r.tokens[:len(PREFIX)]) != PREFIX]
     if bad or stats["live_rows"] or stats["pending"]:
@@ -1766,9 +1947,11 @@ def run_continuous(seed: int) -> dict:
         "k1_launches_in_traffic": traffic_launches,
         "k1_launches_per_admission_by_bucket": {str(b): by_bucket[b] for b in CONT_BUCKETS},
         "tokens_generated": [len(r.tokens) - len(PREFIX) for r in results[:4]],
-        "share_equal_to_b1_beam": equal / len(served)})
+        "share_equal_to_b1_beam": equal / len(served), "segment_replays": traffic_replays,
+        "state_in_place": True})
     log(f"continuous engine bf16 {CONT_CAPACITY} x beam {BEAM}, {CONT_SEG_STEPS}-step segments: "
         + json.dumps(out))
+    out["turns"] = segment_turns(net, payloads, encode)
     del net
     out.update(check_continuous_fp32(seed))
     return out
@@ -2179,6 +2362,24 @@ def check_segments(name: str, segments: list, words, duration: float) -> None:
             raise AssertionError(f"{name}: word {w} outside its window at {origin}")
 
 
+@contextlib.contextmanager
+def recorded_stream_decoders():
+    """The ``StreamingDecoder``s that ``transcribe_long_form`` makes while
+    the context is open, in the order made."""
+    made = []
+
+    class Recorded(StreamingDecoder):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    streaming.StreamingDecoder = Recorded
+    try:
+        yield made
+    finally:
+        streaming.StreamingDecoder = StreamingDecoder
+
+
 def run_longform(seed: int) -> dict:
     """Phase 14: ``WhisperASR.transcribe`` at whisper-small width, bf16,
     random weights from ``seed``, the byte tokenizer.
@@ -2213,14 +2414,19 @@ def run_longform(seed: int) -> dict:
                      max_tokens_per_chunk=LONG_MAX_LEN - len(PREFIX), temperatures=None,
                      sot_prev_id=SOT_PREV)
     streams = []
-    first, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
-    streams.append(wall_s)
-    with RungTimer() as rungs:
-        fa.reset_launches()
-        result, quality_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **quality_kw))
-        launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
-    again, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
-    streams.append(wall_s)
+    with recorded_stream_decoders() as made:
+        first, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
+        streams.append(wall_s)
+        with RungTimer() as rungs:
+            fa.reset_launches()
+            result, quality_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **quality_kw))
+            launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
+        again, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
+        streams.append(wall_s)
+    # each streaming call captures its chunk graphs anew (one decoder a call)
+    stream_graphs = [graph_summary(sd.graphs) for sd in made]
+    if len(made) != 2 or any(g["replays"] != n_windows for g in stream_graphs):
+        raise AssertionError(f"streaming mode: {len(made)} decoders, graphs {stream_graphs}")
     if again["tokens"] != first["tokens"] or not first["tokens"]:
         raise AssertionError("streaming mode gave other tokens on the same audio, or none")
     segments = result["segments"]
@@ -2249,6 +2455,9 @@ def run_longform(seed: int) -> dict:
         "quality_wall_s": quality_s, "quality_audio_s_per_s": LONG_SECONDS / quality_s,
         "streaming_wall_s": streams,
         "streaming_audio_s_per_s": [LONG_SECONDS / s for s in streams],
+        "streaming_capture_s": [sum(c["capture_s"] + c["instantiate_s"] for c in g["captures"])
+                                for g in stream_graphs],
+        "streaming_graphs": stream_graphs,
         "k1_launches": launches, "k1_launches_by_kernel": by_kernel,
         "k1_launches_per_quality_window": 12})
 

@@ -48,6 +48,17 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x.gather(1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
 
+def reorder_into(bufs: tuple, spares: tuple, rows: torch.Tensor,
+                 dim: int = 1) -> tuple[tuple, tuple]:
+    """Each buffer's entries along ``dim`` picked by ``rows``, written into
+    its spare (``index_select(out=)``): returns ``(the reordered buffers,
+    the old ones as the next spares)``. Two fixed buffers that alternate,
+    where a fresh ``index_select`` would allocate each time."""
+    for src, dst in zip(bufs, spares):
+        torch.index_select(src, dim, rows, out=dst)
+    return spares, bufs
+
+
 def prefix_tensor(prefix_ids, device) -> torch.Tensor:
     """The forced prefix as a long tensor on ``device``: a long tensor
     already there is taken as it is (no host copy, so a CUDA graph can

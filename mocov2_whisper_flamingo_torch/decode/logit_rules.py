@@ -12,13 +12,18 @@ semantics of ``transformers.generation.logits_process``:
   suppressed, and when the total timestamp probability beats every single
   text token the text tokens are suppressed.
 
-``pos`` and ``begin_index`` are Python ints here (the decode loops run in
-Python), so the position rules are plain ``if``s. Everything that depends on
-the tokens is tensor arithmetic on the ``[..., V]`` score rows with no
-read-back to the host. The static bias rows are built once per rules object,
-device and dtype. Scores arrive already log-softmaxed in beam search (HF
-normalises before its processors and never after) and as raw logits in
-greedy decoding, where masking commutes with the argmax.
+``begin_index`` is a Python int. ``pos`` takes two forms. A Python int (the
+loops that unroll in Python: beam, greedy, sampling) makes the position rules
+plain ``if``s. A 0-d long tensor on the scores' device (the streaming chunk,
+whose steps stand at a position held on the card) makes them
+``torch.where``s, the reads at ``pos - 1`` and ``pos - 2`` gathers and the
+generated span a mask over positions, as in the JAX rules; both forms give
+the same rows. Everything that depends on the tokens is tensor arithmetic on
+the ``[..., V]`` score rows with no read-back to the host. The static bias
+rows are built once per rules object, device and dtype. Scores arrive already
+log-softmaxed in beam search (HF normalises before its processors and never
+after) and as raw logits in greedy decoding, where masking commutes with the
+argmax.
 """
 
 from __future__ import annotations
@@ -126,25 +131,35 @@ class LogitRules:
             out["arange_v"] = torch.arange(v, device=device)
         return out
 
-    def __call__(self, logp: torch.Tensor, tokens: torch.Tensor, pos: int,
+    def __call__(self, logp: torch.Tensor, tokens: torch.Tensor, pos: int | torch.Tensor,
                  begin_index: int) -> torch.Tensor:
         """Apply all rules to one step's scores.
 
         ``logp [..., V]`` scores; ``tokens [..., L]`` token buffer
         (positions below ``pos`` are committed); ``pos``: absolute position
-        of the token being chosen; ``begin_index``: length of the forced
-        prefix. Returns the scores with the rule masks applied."""
-        pos, begin_index = int(pos), int(begin_index)
+        of the token being chosen, a Python int or a 0-d long tensor on the
+        device; ``begin_index``: length of the forced prefix. Returns the
+        scores with the rule masks applied."""
+        begin_index = int(begin_index)
+        on_device = isinstance(pos, torch.Tensor)
+        if not on_device:
+            pos = int(pos)
         t = self.tables(logp.device, logp.dtype)
         if self.suppress:
             logp = logp + t["suppress"]
-        if self.begin_suppress and pos == begin_index:
-            logp = logp + t["begin_suppress"]
+        if self.begin_suppress:
+            if on_device:
+                logp = torch.where(pos == begin_index, logp + t["begin_suppress"], logp)
+            elif pos == begin_index:
+                logp = logp + t["begin_suppress"]
         for fpos, _ in self.forced:
-            if pos == fpos:
+            if on_device:
+                logp = torch.where(pos == fpos, t[("forced", fpos)], logp)
+            elif pos == fpos:
                 logp = t[("forced", fpos)].expand_as(logp)
         if self.timestamp_begin is not None:
-            logp = self._timestamp_rules(logp, tokens, pos, begin_index, t)
+            rules = self._timestamp_rules_at_device_pos if on_device else self._timestamp_rules
+            logp = rules(logp, tokens, pos, begin_index, t)
         return logp
 
     # -- timestamp grammar -----------------------------------------------------------
@@ -160,13 +175,7 @@ class LogitRules:
         never = torch.zeros(tokens.shape[:-1], dtype=torch.bool, device=tokens.device)
         last_was_ts = tokens[..., pos - 1] >= ts0 if n_gen >= 1 else never
         penult_was_ts = tokens[..., pos - 2] >= ts0 if n_gen >= 2 else ~never
-
-        # After a completed pair the next token must be text; after a lone
-        # timestamp it may not be normal text.
-        zero = torch.zeros((), dtype=logp.dtype, device=logp.device)
-        pair_mask = torch.where((last_was_ts & penult_was_ts)[..., None], t["after_pair"], zero)
-        lone_mask = torch.where((last_was_ts & ~penult_was_ts)[..., None], t["after_lone"], zero)
-        logp = logp + pair_mask + lone_mask
+        logp = self._pair_rules(logp, last_was_ts, penult_was_ts, t)
 
         # Timestamps never decrease: forbid those below the most recent one
         # (+1 once its pair is complete, so it is not emitted again).
@@ -183,8 +192,51 @@ class LogitRules:
 
         if pos == begin_index:  # the first generated token is a timestamp
             logp = logp + t["at_begin"]
+        return self._detect_timestamps(logp, t)
 
+    def _timestamp_rules_at_device_pos(self, logp, tokens, pos: torch.Tensor,
+                                       begin_index: int, t: dict):
+        """``_timestamp_rules`` at a position held on the device (the JAX
+        rules' form): the same rows, with no read-back."""
+        ts0 = self.timestamp_begin
+        is_ts, arange_v = t["is_ts"], t["arange_v"]
+        if self.no_timestamps_id is not None:
+            logp = logp + t["no_timestamps"]
+
+        def tok_at(i):  # tokens[..., i] for a 0-d device index
+            return tokens.gather(-1, i.clamp(min=0).expand(*tokens.shape[:-1], 1))[..., 0]
+
+        n_gen = pos - begin_index
+        last_was_ts = (n_gen >= 1) & (tok_at(pos - 1) >= ts0)
+        penult_was_ts = (n_gen < 2) | (tok_at(pos - 2) >= ts0)
+        logp = self._pair_rules(logp, last_was_ts, penult_was_ts, t)
+
+        positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        tok_is_ts = (tokens >= ts0) & (positions >= begin_index) & (positions < pos)
+        any_ts = tok_is_ts.any(dim=-1)
+        last_ts_pos = torch.where(tok_is_ts, positions, -1).amax(dim=-1)
+        ts_last = tokens.gather(-1, last_ts_pos.clamp(min=0)[..., None])[..., 0]
+        ts_floor = torch.where(last_was_ts & ~penult_was_ts, ts_last, ts_last + 1)
+        dec_mask = is_ts & (arange_v < ts_floor[..., None])
+        logp = logp + torch.where(any_ts[..., None] & dec_mask, NEG_INF, 0.0).to(logp.dtype)
+
+        logp = torch.where(pos == begin_index, logp + t["at_begin"], logp)
+        return self._detect_timestamps(logp, t)
+
+    @staticmethod
+    def _pair_rules(logp, last_was_ts, penult_was_ts, t: dict):
+        """After a completed pair the next token must be text; after a lone
+        timestamp it may not be normal text."""
+        zero = torch.zeros((), dtype=logp.dtype, device=logp.device)
+        pair_mask = torch.where((last_was_ts & penult_was_ts)[..., None], t["after_pair"], zero)
+        lone_mask = torch.where((last_was_ts & ~penult_was_ts)[..., None], t["after_lone"], zero)
+        return logp + pair_mask + lone_mask
+
+    def _detect_timestamps(self, logp, t: dict):
+        """Text suppressed where the total timestamp probability beats
+        every single text token."""
         if self.detect_timestamp_from_logprob:
+            is_ts = t["is_ts"]
             norm = torch.log_softmax(logp, dim=-1)
             ts_lp = torch.logsumexp(norm.masked_fill(~is_ts, -torch.inf), dim=-1)
             text_lp = norm.masked_fill(is_ts, -torch.inf).amax(dim=-1)

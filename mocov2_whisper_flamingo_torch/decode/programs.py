@@ -24,25 +24,26 @@ caller holds.
   new key, and the graphs that read the old addresses are dropped; an
   in-place update (an optimizer step, ``load_state_dict``) is read by the
   refresh at the next replay.
-- **Capture** follows PyTorch's recipe: one eager run on the capture stream
-  first, which builds what a capture refuses to build (the logit rules'
-  tables, copied from the host; cuBLAS handles and workspaces; sort
-  workspaces), then ``torch.cuda.graph`` on the caller's stream (on a side
-  stream of this object's when the caller is on the default stream) in
-  ``thread_local`` error mode, since a serving engine's completion thread
-  waits on events while its dispatch thread captures. A capture or replay
-  error raises: on the card nothing decodes eagerly behind a program.
+- **Capture** (``GraphPool.capture_graph``, shared with the continuous
+  engine's segment and the streaming decoder's chunk) follows PyTorch's
+  recipe: one eager run on the capture stream first, which builds what a
+  capture refuses to build (the logit rules' tables, copied from the host;
+  cuBLAS handles and workspaces; sort workspaces), then ``torch.cuda.graph``
+  on the caller's stream (on a side stream of the pool's when the caller is
+  on the default stream) in ``thread_local`` error mode, since a serving
+  engine's completion thread waits on events while its dispatch thread
+  captures. A capture or replay error raises: on the card nothing decodes
+  eagerly behind a program.
 - **Order.** The graphs of one object share its prepared decoders and its
   pool, so its calls are serialised across threads (a lock) and streams
   (each call's stream waits for the event after the last replay).
 - **On the CPU** there is no graph: the same object refreshes its prepared
   decoder and runs the eager loop, the plain version of the program.
 
-These callers stay on the eager loop: ``decode_with_fallback``'s beam rung
-(its prefix length changes window by window), ``sample_decode`` (a fresh
-noise per fold path), the streaming decode and the continuous engine (their
-read length changes per chunk or segment), and ``tools/export_model.py``'s
-``BeamProgram`` (``torch.export`` traces the loop, not a replay).
+These callers stay eager: ``sample_decode`` (a fresh noise per fold path),
+``decode_with_fallback``'s beam rung (its prefix length changes window by
+window), the encode, and ``tools/export_model.py``'s ``BeamProgram``
+(``torch.export`` traces the loop, not a replay).
 """
 
 from __future__ import annotations
@@ -77,6 +78,67 @@ def _pinned_prefix(prefix_ids) -> torch.Tensor:
     return torch.tensor([int(t) for t in prefix_ids], dtype=torch.long).pin_memory()
 
 
+class GraphPool:
+    """What the CUDA graphs of one owner share: a memory pool (``pool``, None
+    until the first capture), a side stream for callers on the default
+    stream, the graphs whose capture raised, one record per capture
+    (``captures``: the caller's fields, and the seconds of the capture and
+    of the graph's instantiation) and the count of replays (``replays``)."""
+
+    def __init__(self):
+        self.pool = None
+        self.captures: list[dict] = []
+        self.replays = 0
+        self._side = None  # capture stream for callers on the default stream
+        self._failed: list = []  # graphs whose capture raised
+
+    def capture_graph(self, fn, stream, restore=(), **record) -> tuple:
+        """Capture ``fn()`` into a new graph in this pool and return
+        ``(graph, fn's outputs in the pool)``. ``fn`` runs once eagerly on
+        the capture stream first; ``restore``: tensors that ``fn`` writes in
+        place, copied aside before that run and back after it, so that the
+        eager run leaves them as they were and the first replay does the
+        call's work."""
+        dev = stream.device
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        capture_stream = stream
+        if stream == torch.cuda.default_stream(dev):
+            if self._side is None:
+                self._side = torch.cuda.Stream(dev)
+            capture_stream = self._side
+        capture_stream.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(capture_stream):
+            saved = [t.clone() for t in restore]
+            fn()  # eager: the rules' tables, library handles, workspaces
+            for t, s in zip(restore, saved):
+                t.copy_(s)
+            del saved
+            t0 = time.perf_counter()
+            try:
+                with torch.cuda.graph(graph, pool=self.pool, stream=capture_stream,
+                                      capture_error_mode="thread_local"):
+                    outputs = fn()
+                    t1 = time.perf_counter()
+            except BaseException:
+                # PyTorch stops a pool's recording only when a capture ends
+                # well, so the next capture takes a new pool; the failed
+                # graph stays alive, as the allocator's recording filter
+                # refers to it.
+                self.pool = None
+                self._failed.append(graph)
+                raise
+            t2 = time.perf_counter()
+        stream.wait_stream(capture_stream)
+        self.captures.append({**record, "capture_s": t1 - t0, "instantiate_s": t2 - t1})
+        return graph, outputs
+
+    def replay(self, graph: torch.cuda.CUDAGraph) -> None:
+        graph.replay()
+        self.replays += 1
+
+
 @dataclasses.dataclass
 class _Program:
     graph: torch.cuda.CUDAGraph
@@ -85,7 +147,7 @@ class _Program:
     logit_rules: object  # kept alive: the graph reads its tables
 
 
-class DecodePrograms:
+class DecodePrograms(GraphPool):
     """The compiled beam and greedy decodes of one source ``WhisperDecoder``
     (see the module doc). ``captures`` holds one record per capture: the
     loop, the features' shape, and the seconds of the capture and of the
@@ -93,15 +155,12 @@ class DecodePrograms:
     until the first capture)."""
 
     def __init__(self, decoder):
+        super().__init__()
         self.decoder = decoder
         self.prepared: dict = {}  # weight_quant -> prepared decoder
         self.programs: dict = {}  # program_key -> _Program
-        self.pool = None
-        self.captures: list[dict] = []
         self._lock = threading.Lock()
         self._last = None  # CUDA event after the last replay
-        self._side = None  # capture stream for callers on the default stream
-        self._failed: list = []  # graphs whose capture raised
 
     def prepared_decoder(self, weight_quant: str | None = None):
         """The prepared decoder for ``weight_quant``, made on first use (as
@@ -173,7 +232,7 @@ class DecodePrograms:
                 for dst, src in zip(prog.inputs, (features, valid, prefix)):
                     if dst is not None:
                         dst.copy_(src, non_blocking=True)
-            prog.graph.replay()
+            self.replay(prog.graph)
             out = tuple(o.clone() for o in prog.outputs)
             self._last = torch.cuda.Event()
             self._last.record(stream)
@@ -182,40 +241,12 @@ class DecodePrograms:
     def _capture(self, key: tuple, program, features, valid, prefix, logit_rules,
                  stream) -> _Program:
         """Capture ``program`` on static copies of this call's inputs."""
-        dev = features.device
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
         # Graphs that read parameters at addresses the source no longer has.
         self.programs = {k: p for k, p in self.programs.items() if k[-1] == key[-1]}
         inputs = (features.clone(), None if valid is None else valid.clone(),
-                  torch.empty(prefix.shape, dtype=torch.long, device=dev).copy_(
+                  torch.empty(prefix.shape, dtype=torch.long, device=features.device).copy_(
                       prefix, non_blocking=True))
-        capture_stream = stream
-        if stream == torch.cuda.default_stream(dev):
-            if self._side is None:
-                self._side = torch.cuda.Stream(dev)
-            capture_stream = self._side
-        capture_stream.wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(capture_stream):
-            program(*inputs)  # eager: the rules' tables, library handles, workspaces
-            t0 = time.perf_counter()
-            try:
-                with torch.cuda.graph(graph, pool=self.pool, stream=capture_stream,
-                                      capture_error_mode="thread_local"):
-                    outputs = program(*inputs)
-                    t1 = time.perf_counter()
-            except BaseException:
-                # PyTorch stops a pool's recording only when a capture ends
-                # well, so the next capture takes a new pool; the failed
-                # graph stays alive, as the allocator's recording filter
-                # refers to it.
-                self.pool = None
-                self._failed.append(graph)
-                raise
-            t2 = time.perf_counter()
-        stream.wait_stream(capture_stream)
+        graph, outputs = self.capture_graph(lambda: program(*inputs), stream, loop=key[0],
+                                            shape=list(features.shape))
         prog = self.programs[key] = _Program(graph, inputs, outputs, logit_rules)
-        self.captures.append({"loop": key[0], "shape": list(features.shape),
-                              "capture_s": t1 - t0, "instantiate_s": t2 - t1})
         return prog

@@ -21,26 +21,46 @@ How the TPU design is rendered on the GPU:
   commits the best beam with one einsum. Here, as in ``decode/beam.py``, the
   self cache is reordered physically after each step (one ``index_select``
   over the stacked caches), and the commit is one more ``index_select`` that
-  copies the best row over all K rows.
-- **The step's position stays on the host.** The decode step and the logit
-  rules take Python-int positions, so the committed position ``i_new`` (the
-  last non-EOS position of the best row, at least the chunk's start) is read
-  back once per chunk: one int per ``max_tokens_per_chunk`` steps.
-  ``collect=False`` still skips the token transfer. The host-side
-  ``_i_bound`` that decides rollovers follows the JAX bookkeeping to the
-  letter: a conservative bound in deferred mode, exact only when collecting,
-  so rollovers fire at the same chunks as in the JAX package.
+  copies the best row over all K rows. The decoder owns its self caches and
+  its ``[K, L]`` token buffer, each with a spare: a reorder writes into the
+  spare and the two alternate, and the chunk ends in the buffers it began
+  with (one copy back when needed), so every chunk reads and writes the
+  same addresses.
+- **The step's position lives on the card.** The chunk starts at a 0-d
+  device position ``i0``; step ``s`` stands at ``i0 + s`` and
+  ``idx = min(i, L - 2)`` is computed there. Every step reads the whole
+  window under the ``<= position`` mask (``decode_step(positions=...)``,
+  all K rows at ``idx``), the logit rules take the position as a tensor,
+  and the token buffer is read and written at ``idx`` by a gather and a
+  scatter. The priming steps keep Python-int positions: their count is
+  static. The committed position ``i_new`` (the last non-EOS position of
+  the best row, at least the chunk's start) is read back once per chunk:
+  one int per ``max_tokens_per_chunk`` steps. ``collect=False`` still skips
+  the token transfer. The host-side ``_i_bound`` that decides rollovers
+  follows the JAX bookkeeping to the letter: a conservative bound in
+  deferred mode, exact only when collecting, so rollovers fire at the same
+  chunks as in the JAX package.
+- **One CUDA graph per chunk key** (the counterpart of the JAX chunk's
+  ``jax.jit``, a few per stream: each window's first chunk and its steady
+  chunks): ``(n_prime, has_valid, begin_index)``, the encoder output's shape, dtype and device, and
+  ``id(logit_rules)``. The encoder output and its validity are copied into
+  static inputs and the cross K/V are made inside the graph. On the card
+  every chunk replays its key's graph (captured at the key's first chunk,
+  the capture's eager run undone); a capture or replay error raises. On the
+  CPU the same chunk runs eagerly, the plain version. The graph reads the
+  prepared decoder it is given: ``transcribe_long_form``'s streaming mode
+  captures once per call.
 - **Resume.** The next chunk's first step re-feeds the token at ``i_new`` at
   position ``i_new``, which overwrites that position's K/V against the new
   chunk's cross K/V; keys past ``i_new`` (EOS steps of finished beams) are
-  never read, because a step at position ``i`` reads keys ``0 .. i`` only.
+  never read, because a step at position ``i`` attends to keys ``0 .. i``
+  only.
 - **Write gate.** Steps past the end of the token buffer (reachable only when
   the window cannot roll over) keep the cache as it was
-  (``WhisperDecoder.decode_step(write=False)``), so they change nothing.
+  (``WhisperDecoder.decode_step(write=...)`` with a device-side gate, traced
+  only when ``rollover=False`` as in the JAX chunk), so they change nothing.
 - ``cache_layout`` ("rows" / "bhjtd") chooses a TPU layout in the JAX
   package and is accepted here as a no-op, as ``beam_search`` accepts it.
-- **The chunk loop stays eager** (no ``decode/programs.py`` graph): a chunk
-  reads keys ``0 .. index`` at a host index that changes chunk by chunk.
 
 ``transcribe_long_form`` has both of the JAX package's modes: this
 streaming decode, and the quality mode (openai's window loop with
@@ -54,7 +74,8 @@ import logging
 
 import torch
 
-from mocov2_whisper_flamingo_torch.decode.beam import NEG_INF, _top_k
+from mocov2_whisper_flamingo_torch.decode.beam import NEG_INF, _top_k, reorder_into
+from mocov2_whisper_flamingo_torch.decode.programs import GraphPool
 from mocov2_whisper_flamingo_torch.decode.sampling import GumbelDraws, decode_with_fallback
 from mocov2_whisper_flamingo_torch.decode.segments import (
     TIME_PRECISION, segments_from_window, strip_timestamps)
@@ -81,6 +102,8 @@ class StreamingDecoder:
     each step; begin-index rules fire at each window's first generated
     position. ``initial_context``: conditioning tokens decoded against but
     never committed (openai's ``initial_prompt``).
+
+    ``graphs``: the chunk graphs' ``GraphPool`` (captures, replays, pool).
     """
 
     def __init__(self, decoder, prefix_ids, max_len: int = 448, eos_id: int = 0,
@@ -110,6 +133,19 @@ class StreamingDecoder:
                               device=self.device)
         eos_only[eos_id] = 0.0
         self._eos_only = eos_only
+        cfg = decoder.config
+        shape = (cfg.decoder_layers, beam_size, max_len, cfg.n_heads, cfg.head_dim)
+        dtype = decoder.precision.compute_dtype
+
+        def buffers():  # (self_k, self_v, tokens [K, L])
+            return (torch.zeros(shape, dtype=dtype, device=self.device),
+                    torch.zeros(shape, dtype=dtype, device=self.device),
+                    torch.full((beam_size, max_len), eos_id, dtype=torch.long,
+                               device=self.device))
+
+        self._buffers, self._spares = buffers(), buffers()
+        self.graphs = GraphPool()
+        self._programs: dict = {}  # chunk key -> (graph, static inputs, i_new)
         self.reset()
 
     def reset(self) -> None:
@@ -141,41 +177,50 @@ class StreamingDecoder:
     # -- one chunk -------------------------------------------------------------
 
     def _init_state(self, window_prefix: list[int]) -> tuple:
-        cfg = self.decoder.config
-        k, l_ = self.beam_size, self.max_len
-        dtype = self.decoder.precision.compute_dtype
-        tokens = torch.full((k, l_), self.eos_id, dtype=torch.long, device=self.device)
-        tokens[:, : len(window_prefix)] = torch.tensor(window_prefix, dtype=torch.long,
-                                                        device=self.device)
-        shape = (cfg.decoder_layers, k, l_, cfg.n_heads, cfg.head_dim)
-        return (torch.zeros(shape, dtype=dtype, device=self.device),
-                torch.zeros(shape, dtype=dtype, device=self.device), tokens,
-                len(window_prefix) - 1)
+        self_k, self_v, tokens = self._buffers
+        self_k.zero_()
+        self_v.zero_()
+        tokens.fill_(self.eos_id)
+        prefix = torch.tensor(window_prefix, dtype=torch.long)
+        if self.device.type == "cuda":  # a copy that does not wait for the queued work
+            prefix = prefix.pin_memory()
+        tokens[:, : len(window_prefix)] = prefix.to(self.device, non_blocking=True)
+        return self_k, self_v, tokens, len(window_prefix) - 1
 
     def _chunk(self, encoder_out: torch.Tensor, encoder_valid: torch.Tensor | None,
-               n_prime: int, begin_index: int) -> tuple:
-        """Decode one chunk from ``self._state``; returns the committed
-        ``(self_k, self_v, tokens, i_new)`` with ``i_new`` a 0-d device
-        tensor."""
+               i0: torch.Tensor, n_prime: int, begin_index: int) -> torch.Tensor:
+        """Decode one chunk in place on the decoder's buffers from the 0-d
+        device position ``i0``, commit the best beam and return the
+        committed position ``i_new`` (0-d, on the device). No host value
+        enters it, so a CUDA graph can capture it."""
         dec, eos, rules = self.decoder, self.eos_id, self.logit_rules
         k, l_ = self.beam_size, self.max_len
-        self_k, self_v, tokens, i0 = self._state
+        caches, cache_spares = self._buffers[:2], self._spares[:2]
+        (tokens,), (token_spare,) = self._buffers[2:], self._spares[2:]
         cross_k, cross_v = dec.cross_caches(encoder_out)  # the JAX _cross_caches
-        cache = {"self_k": self_k, "self_v": self_v, "cross_k": cross_k, "cross_v": cross_v}
+        cache = {"self_k": caches[0], "self_v": caches[1], "cross_k": cross_k,
+                 "cross_v": cross_v}
         for i in range(n_prime):  # the window's forced tokens, the same in every row
             dec.decode_step(tokens[:1, i:i + 1].expand(k, 1), cache, i, encoder_valid)
 
+        def reorder(rows):  # beams into the spare buffers, which take over
+            nonlocal caches, cache_spares, tokens, token_spare
+            (tokens,), (token_spare,) = reorder_into((tokens,), (token_spare,), rows, dim=0)
+            if k > 1:
+                caches, cache_spares = reorder_into(caches, cache_spares, rows)
+
         scores = torch.full((k,), NEG_INF, dtype=torch.float32, device=self.device)
-        scores[0] = 0.0
+        scores[:1].fill_(0.0)  # a fill, not a copy from the host: a graph can capture it
         done = torch.zeros((k,), dtype=torch.bool, device=self.device)
         for s in range(self.max_tokens_per_chunk):
             i = i0 + s
             past_end = i > l_ - 2  # no room to write at i + 1
-            idx = min(i, l_ - 2)
-            if past_end:
-                done = torch.ones_like(done)
-            logits, cache = dec.decode_step(tokens[:, idx:idx + 1], cache, idx, encoder_valid,
-                                            write=not past_end)
+            idx = i.clamp(max=l_ - 2)
+            done = done | past_end
+            cache["self_k"], cache["self_v"] = caches
+            logits, _ = dec.decode_step(tokens.gather(1, idx.expand(k, 1)), cache, l_ - 1,
+                                        encoder_valid, positions=idx.expand(k),
+                                        write=True if self.rollover else ~past_end)
             logp = torch.log_softmax(logits.float(), dim=-1)
             if rules is not None:
                 logp = rules(logp, tokens, idx + 1, begin_index)
@@ -186,14 +231,12 @@ class StreamingDecoder:
             top_scores, flat = _top_k((scores[:, None] + s1).reshape(1, k * k), k)
             beam_idx = flat[0] // k
             token_idx = t1.reshape(-1).gather(0, flat[0])
-            tokens = tokens.index_select(0, beam_idx)
+            reorder(beam_idx)
             done = done.index_select(0, beam_idx)
-            if k > 1:
-                cache["self_k"] = cache["self_k"].index_select(1, beam_idx)
-                cache["self_v"] = cache["self_v"].index_select(1, beam_idx)
             token_idx = torch.where(done, eos, token_idx)
-            if not past_end:
-                tokens[:, idx + 1] = token_idx
+            at = (idx + 1).expand(k, 1)  # kept as it was past the end
+            tokens.scatter_(1, at, torch.where(past_end, tokens.gather(1, at)[:, 0],
+                                               token_idx)[:, None])
             done = done | (token_idx == eos)
             scores = top_scores[0]
 
@@ -201,13 +244,39 @@ class StreamingDecoder:
         # tokens and self cache go to every row.
         gen = (tokens != eos).sum(dim=-1) - (i0 + 1)
         norm = scores / torch.pow(gen.clamp(min=1).float(), self.length_penalty)
-        best = torch.argmax(norm).expand(k)
-        tokens = tokens.index_select(0, best)
-        self_k = cache["self_k"].index_select(1, best)
-        self_v = cache["self_v"].index_select(1, best)
+        reorder(torch.argmax(norm).expand(k))
+        for dst, src in zip(self._buffers, (*caches, tokens)):
+            if src is not dst:  # back into the decoder's own buffers
+                dst.copy_(src)
         pos = torch.arange(l_, device=self.device)
-        i_new = torch.where(tokens[0] != eos, pos, 0).max().clamp(min=i0)
-        return self_k, self_v, tokens, i_new
+        return torch.maximum(torch.where(self._buffers[2][0] != eos, pos, 0).max(), i0)
+
+    def _run_chunk(self, encoder_out: torch.Tensor, encoder_valid: torch.Tensor | None,
+                   i0: int, n_prime: int, begin_index: int) -> torch.Tensor:
+        """The chunk from position ``i0``: on the card a replay of its key's
+        graph (captured at the key's first chunk), on the CPU the eager
+        chunk. Returns ``i_new`` (0-d, on the device)."""
+        if self.device.type != "cuda":
+            return self._chunk(encoder_out, encoder_valid,
+                               torch.tensor(i0, device=self.device), n_prime, begin_index)
+        i0_host = torch.tensor(i0).pin_memory()
+        key = (n_prime, encoder_valid is not None, begin_index, tuple(encoder_out.shape),
+               encoder_out.dtype, encoder_out.device, id(self.logit_rules))
+        prog = self._programs.get(key)
+        if prog is None:
+            inputs = (encoder_out.clone(), None if encoder_valid is None else encoder_valid.clone(),
+                      i0_host.to(self.device, non_blocking=True))
+            graph, i_new = self.graphs.capture_graph(
+                lambda: self._chunk(*inputs, n_prime, begin_index),
+                torch.cuda.current_stream(self.device), restore=self._buffers, loop="chunk",
+                n_prime=n_prime, begin_index=begin_index, shape=list(encoder_out.shape))
+            prog = self._programs[key] = (graph, inputs, i_new)
+        else:
+            for dst, src in zip(prog[1], (encoder_out, encoder_valid, i0_host)):
+                if dst is not None:
+                    dst.copy_(src, non_blocking=True)
+        self.graphs.replay(prog[0])
+        return prog[2]
 
     # -- window rollover -------------------------------------------------------
 
@@ -251,8 +320,8 @@ class StreamingDecoder:
                 -max(self.context_tokens, len(self.initial_context)):]
             self._window_prefix = self._context_prefix(ctx)
             self.tokens = list(self._committed)
-        else:
-            self._stash.append((tokens[0], i_new, len(self._window_prefix)))
+        else:  # a copy: the next window reuses the buffer
+            self._stash.append((tokens[0].clone(), i_new, len(self._window_prefix)))
             self._window_prefix = self._context_prefix(self.initial_context)
         self._state = None
         self._i_bound = len(self._window_prefix) - 1
@@ -276,9 +345,9 @@ class StreamingDecoder:
             self._state = self._init_state(self._window_prefix)
         i0 = self._state[3]
         n_prime = max(len(self._window_prefix) - 1, 0) if first else 0
-        self_k, self_v, tokens, i_new = self._chunk(encoder_out, encoder_valid, n_prime,
-                                                     len(self._window_prefix))
-        i_new = int(i_new)
+        i_new = int(self._run_chunk(encoder_out, encoder_valid, i0, n_prime,
+                                    len(self._window_prefix)))
+        self_k, self_v, tokens = self._buffers
         self._state = (self_k, self_v, tokens, i_new)
         self._i_bound = min(self._i_bound + self.max_tokens_per_chunk, self.max_len - 1)
         if not collect:

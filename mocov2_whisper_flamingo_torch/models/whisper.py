@@ -475,7 +475,7 @@ class WhisperDecoder(nn.Module):
         return cache
 
     def _self_step(self, li: int, layer: DecoderLayer, x: torch.Tensor, cache: dict,
-                   index: int, where: tuple, write: bool = True,
+                   index: int, where: tuple, write: bool | torch.Tensor = True,
                    fold_scales: bool = False) -> torch.Tensor:
         """``where``: the cache entries the step's K/V go to, and the key mask
         over ``0 .. index`` (None: every row stands at ``index``)."""
@@ -489,14 +489,22 @@ class WhisperDecoder(nn.Module):
         ck, cv = cache["self_k"][li], cache["self_v"][li]
         quant = "self_k_scale" in cache
         write_at, valid = where
-        if write:
+        gate = write if isinstance(write, torch.Tensor) else None
+
+        def put(dst, val):  # dst[write_at] = val, kept as it was where the gate is False
+            dst[write_at] = val if gate is None else torch.where(gate, val, dst[write_at])
+
+        if gate is not None or write:
             k, v = _split_heads(k, cfg.n_heads)[:, 0], _split_heads(v, cfg.n_heads)[:, 0]
             if quant:
-                ck[write_at], cache["self_k_scale"][li][write_at] = quantize_kv(k)
-                cv[write_at], cache["self_v_scale"][li][write_at] = quantize_kv(v)
+                for dst, scales, val in ((ck, cache["self_k_scale"][li], k),
+                                         (cv, cache["self_v_scale"][li], v)):
+                    val_q, val_scale = quantize_kv(val)
+                    put(dst, val_q)
+                    put(scales, val_scale)
             else:
-                ck[write_at] = k.to(ck.dtype)
-                cv[write_at] = v.to(cv.dtype)
+                put(ck, k.to(ck.dtype))
+                put(cv, v.to(cv.dtype))
         # Positions past ``index`` are masked to exact zeros in the JAX
         # package; here they are simply not read.
         ck, cv = ck[:, : index + 1], cv[:, : index + 1]
@@ -554,7 +562,8 @@ class WhisperDecoder(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache: dict, index: int,
                     encoder_valid: torch.Tensor | None = None,
-                    positions: torch.Tensor | None = None, write: bool = True,
+                    positions: torch.Tensor | None = None,
+                    write: bool | torch.Tensor = True,
                     fold_scales: bool = False) -> tuple[torch.Tensor, dict]:
         """One step. ``tokens [rows, 1]``; ``index`` is the (Python int)
         position. Writes the step's K/V into ``cache`` in place and returns
@@ -567,7 +576,8 @@ class WhisperDecoder(nn.Module):
         caller knows on the host, and every row reads the keys ``0 ..
         index`` through one mask. ``write=False`` leaves the cache as it was
         (the JAX package's ``write_gate``: the streaming decode's steps past
-        the end of its token buffer).
+        the end of its token buffer); a 0-d bool tensor on the cache's device
+        gates the write on the card, with no read-back (a CUDA graph's step).
 
         ``fold_scales`` (int8 self cache only): False dequantizes the cached
         K/V in the compute dtype before the attention, True folds their fp32

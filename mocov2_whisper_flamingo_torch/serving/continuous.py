@@ -17,19 +17,31 @@ How the TPU design is rendered on the GPU:
   written-since-admission mask. Here each row writes its K/V at its own
   logical position (``WhisperDecoder.decode_step(positions=...)``: one
   indexed write per layer per step over the ``[R*K]`` rows) and attends to
-  the keys at or before it through one mask over a read length the host
-  knows. A reused row's stale slots lie past its position, so the mask hides
-  them and nothing is cleared.
+  the keys at or before it through one mask over the whole window, as the
+  JAX segment reads its whole window. A reused row's stale slots lie past
+  its position, so the mask hides them and nothing is cleared; a free row's
+  position clamps to 0, so it reads slot 0 only.
 - **Bookkeeping on the host.** ``admit_tick`` and ``tick`` are host integers
-  in the state; each segment sends the rows' positions to the device once,
-  with the masks derived from them for all of its steps. No host float or
-  int becomes a device tensor per step. The ``[R]`` ``heur_ok`` read-back is
-  the one synchronisation per segment, and the retired rows' best
-  hypotheses come back in one transfer per boundary.
-- **Beams are reordered physically** (one ``index_select`` over the stacked
-  self caches per step, as in ``decode/beam.py``), within each request's K
-  rows only (``row_base + sel_beam``); rows whose state is frozen (forced
-  prefix steps, spent budget, free rows) take the identity.
+  in the state; each segment sends the rows' first positions to the device
+  once, from page-locked memory, with every step's positions and masks
+  derived from them on the card. No host float or int becomes a device
+  tensor per step. The ``[R]`` ``heur_ok`` read-back is the one
+  synchronisation per segment, and the retired rows' best hypotheses come
+  back in one transfer per boundary.
+- **Beams are reordered physically**, within each request's K rows only
+  (``row_base + sel_beam``; rows whose state is frozen, in their forced
+  prefix, past their budget or free, take the identity): one
+  ``index_select`` per step over the stacked self caches, written into the
+  state's spare pair of caches, and the two pairs alternate. An odd
+  segment ends with one copy back, so every state tensor keeps its address
+  (the JAX segment donates its state; a graph replays fixed addresses).
+- **One CUDA graph per engine** (``SegmentProgram``, the counterpart of the
+  JAX segment's ``jax.jit`` over its ``lax.scan``): on the card the engine
+  replays the segment over its state, with the rows' first positions as the
+  one static input; ``warmup`` captures it. A capture or replay error fails
+  the segment's requests; nothing runs the segment eagerly behind it. On
+  the CPU the same object runs the segment eagerly, as ``make_segment_fn``
+  does (the plain version).
 - **Exactness.** A row's beam semantics are ``decode/beam.py``'s: the same
   two-stage 2K expansion, EOS banking, force-bank at the budget and
   early-stop heuristic, the stable ``_top_k`` and per-row length-penalty
@@ -42,9 +54,6 @@ How the TPU design is rendered on the GPU:
   stream under the same lock. A failed segment fails the futures in flight
   and the loop goes on. ``cache_layout`` is a TPU layout choice, accepted as
   a no-op.
-- **The segment loop stays eager** (no ``decode/programs.py`` graph): a
-  segment reads keys ``0 .. max position``, a host int that changes from
-  segment to segment.
 """
 
 from __future__ import annotations
@@ -61,7 +70,9 @@ import numpy as np
 import torch
 
 from mocov2_whisper_flamingo_torch.decode.beam import (
-    NEG_INF, _length_denominators, _take_rows, _top_k)
+    NEG_INF, _length_denominators, _take_rows, _top_k, reorder_into)
+from mocov2_whisper_flamingo_torch.decode.programs import GraphPool
+from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.serving.engine import (
     ServeResult, _postprocess, pad_rows)
 
@@ -76,8 +87,9 @@ def init_state(decoder, *, capacity: int, beam_size: int, seg_steps: int,
                n_segments: int, enc_len: int, eos_id: int,
                cache_layout: str = "bhjtd") -> dict:
     """State of the continuous engine on the decoder's device: stacked self
-    caches ``[layers, R*K, L, H, Dh]`` (never cleared between occupants),
-    per-row cross caches ``[layers, R, enc_len, H, Dh]`` and key validity,
+    caches ``[layers, R*K, L, H, Dh]`` (never cleared between occupants)
+    and their spare pair (``self_k_spare``, ``self_v_spare``: the beams'
+    reorder target), per-row cross caches ``[layers, R, enc_len, H, Dh]`` and key validity,
     per-row beam state, and the admission bookkeeping on the host
     (``admit_tick`` ``[R]`` int64, ``tick``). ``decoder`` is a prepared
     ``WhisperDecoder``."""
@@ -93,6 +105,8 @@ def init_state(decoder, *, capacity: int, beam_size: int, seg_steps: int,
     return {
         "self_k": torch.zeros(self_shape, dtype=dtype, device=dev),
         "self_v": torch.zeros(self_shape, dtype=dtype, device=dev),
+        "self_k_spare": torch.zeros(self_shape, dtype=dtype, device=dev),
+        "self_v_spare": torch.zeros(self_shape, dtype=dtype, device=dev),
         "cross_k": torch.zeros(cross_shape, dtype=dtype, device=dev),
         "cross_v": torch.zeros(cross_shape, dtype=dtype, device=dev),
         "enc_valid": torch.zeros((r, enc_len), dtype=torch.bool, device=dev),
@@ -146,12 +160,24 @@ def make_admit_fn(decoder, prefix_ids: Sequence[int], eos_id: int,
     return admit
 
 
-def make_segment_fn(decoder, *, beam_size: int, seg_steps: int, n_segments: int,
-                    n_prefix: int, eos_id: int, length_penalty: float = 1.0) -> Callable:
-    """``segment(state) -> state``: advance every row by ``seg_steps`` steps
-    of its own timeline (``decode/beam.py``'s step per row; rows in their
-    forced prefix, past their budget or free keep their beam state), then
-    advance the tick. In place."""
+# The state tensors a segment writes.
+SEGMENT_WRITES = ("self_k", "self_v", "run_tokens", "run_scores", "pool_tokens", "pool_scores",
+                  "heur_ok")
+
+
+def first_positions(state: dict, seg_steps: int) -> np.ndarray:
+    """``[R]`` int64: each row's position at the segment's first step
+    (negative for a row admitted at this boundary's tick + 1 or later: a
+    free row)."""
+    phase = state["tick"] - state["admit_tick"]
+    return np.maximum(phase, -1) * seg_steps
+
+
+def _segment_body(decoder, *, beam_size: int, seg_steps: int, n_segments: int,
+                  n_prefix: int, eos_id: int, length_penalty: float) -> Callable:
+    """``body(state, pos0)``: one segment's device work, in place on the
+    state's tensors, from the rows' first positions ``pos0 [R]`` on the
+    device. No host value enters it, so a CUDA graph can capture it."""
     dev = decoder.pos_embed.device
     k, k2, s_len = beam_size, 2 * beam_size, seg_steps
     max_len = s_len * n_segments
@@ -163,16 +189,9 @@ def make_segment_fn(decoder, *, beam_size: int, seg_steps: int, n_segments: int,
     steps = torch.arange(s_len, device=dev)[:, None]
     slots = torch.arange(max_len, device=dev)
 
-    @torch.no_grad()
-    def segment(state: dict) -> dict:
+    def body(state: dict, pos0: torch.Tensor) -> None:
         r = state["run_tokens"].shape[0]
         row_base = torch.arange(r, device=dev)[:, None] * k
-        # Positions of every row at every step of the segment, on the host
-        # (the read length of each step) and once on the device.
-        phase = state["tick"] - state["admit_tick"]
-        pos_host = np.maximum(phase, -1)[None, :] * s_len + np.arange(s_len)[:, None]
-        read_index = np.clip(pos_host, 0, max_len - 1).max(axis=1)
-        pos0 = torch.from_numpy(pos_host[0]).to(dev, non_blocking=True)
         pos_all = pos0[None, :] + steps                        # [S, R]
         posc_all = pos_all.clamp(0, max_len - 1)
         live_all = (pos_all >= 0) & (pos_all + 1 <= max_len - 1)
@@ -186,13 +205,15 @@ def make_segment_fn(decoder, *, beam_size: int, seg_steps: int, n_segments: int,
         run_tokens, run_scores = state["run_tokens"], state["run_scores"]
         pool_tokens, pool_scores = state["pool_tokens"], state["pool_scores"]
         heur_ok = state["heur_ok"]
-        cache = {name: state[name] for name in ("self_k", "self_v", "cross_k", "cross_v")}
+        selfs = (state["self_k"], state["self_v"])
+        spares = (state["self_k_spare"], state["self_v_spare"])
         for s in range(s_len):
             posc, keep, denom = posc_all[s], keep_all[s], denom_all[s]
             cur = run_tokens.gather(2, posc[:, None, None].expand(r, k, 1))
-            logits, cache = decoder.decode_step(cur.reshape(r * k, 1), cache,
-                                                int(read_index[s]), state["enc_valid"],
-                                                positions=positions_all[s])
+            cache = {"self_k": selfs[0], "self_v": selfs[1], "cross_k": state["cross_k"],
+                     "cross_v": state["cross_v"]}
+            logits, _ = decoder.decode_step(cur.reshape(r * k, 1), cache, max_len - 1,
+                                            state["enc_valid"], positions=positions_all[s])
             logp = torch.log_softmax(logits.float(), dim=-1)
 
             # decode/beam.py's step, batched over the R requests.
@@ -217,21 +238,102 @@ def make_segment_fn(decoder, *, beam_size: int, seg_steps: int, n_segments: int,
             run_scores = torch.where(keep[:, None], run_scores, run_scores_new)
             pool_tokens = torch.where(keep[:, None, None], pool_tokens, pool_tokens_new)
             pool_scores = torch.where(keep[:, None], pool_scores, pool_scores_new)
-            rows = (row_base + sel_beam).reshape(-1)
-            cache["self_k"] = cache["self_k"].index_select(1, rows)
-            cache["self_v"] = cache["self_v"].index_select(1, rows)
+            selfs, spares = reorder_into(selfs, spares, (row_base + sel_beam).reshape(-1))
 
             best_possible = run_scores[:, 0] / denom
             pool_done = (pool_scores > NEG_INF / 2).all(dim=-1)
             worst = pool_scores.min(dim=-1).values
             heur_ok = torch.where(keep, heur_ok,
                                   heur_ok & (~pool_done | (best_possible > worst)))
-        state.update(self_k=cache["self_k"], self_v=cache["self_v"], run_tokens=run_tokens,
-                     run_scores=run_scores, pool_tokens=pool_tokens, pool_scores=pool_scores,
-                     heur_ok=heur_ok, tick=state["tick"] + 1)
+        if selfs[0] is not state["self_k"]:  # an odd segment: back into the state's pair
+            state["self_k"].copy_(selfs[0])
+            state["self_v"].copy_(selfs[1])
+        for name, value in (("run_tokens", run_tokens), ("run_scores", run_scores),
+                            ("pool_tokens", pool_tokens), ("pool_scores", pool_scores),
+                            ("heur_ok", heur_ok)):
+            state[name].copy_(value)
+
+    return body
+
+
+def make_segment_fn(decoder, *, beam_size: int, seg_steps: int, n_segments: int,
+                    n_prefix: int, eos_id: int, length_penalty: float = 1.0) -> Callable:
+    """``segment(state) -> state``: advance every row by ``seg_steps`` steps
+    of its own timeline (``decode/beam.py``'s step per row; rows in their
+    forced prefix, past their budget or free keep their beam state), then
+    advance the tick. In place: every state tensor keeps its address. The
+    eager segment, the plain version of ``SegmentProgram``'s graph."""
+    dev = decoder.pos_embed.device
+    body = _segment_body(decoder, beam_size=beam_size, seg_steps=seg_steps,
+                         n_segments=n_segments, n_prefix=n_prefix, eos_id=eos_id,
+                         length_penalty=length_penalty)
+
+    @torch.no_grad()
+    def segment(state: dict) -> dict:
+        body(state, torch.from_numpy(first_positions(state, seg_steps)).to(dev))
+        state["tick"] += 1
         return state
 
     return segment
+
+
+class SegmentProgram(GraphPool):
+    """The continuous segment as one CUDA graph over one engine's state:
+    ``program(state) -> state`` as ``make_segment_fn``'s segment. On the
+    card the rows' first positions go into a static ``[R]`` buffer from
+    page-locked memory and the graph replays; it is captured at the first
+    call (or by ``capture``) and again when the state's key changes: the
+    capacity, the encoder length, the segment's static arguments, the
+    compute dtype, the device, the prepared decoder's ``weight_quant`` and
+    the addresses of the state tensors. A capture or replay error raises.
+    On the CPU it runs the same segment eagerly. ``captures`` / ``replays``
+    / ``pool``: see ``GraphPool``."""
+
+    def __init__(self, decoder, *, beam_size: int, seg_steps: int, n_segments: int,
+                 n_prefix: int, eos_id: int, length_penalty: float = 1.0):
+        super().__init__()
+        self.device = decoder.pos_embed.device
+        self.seg_steps = seg_steps
+        weight_quant = "int8" if isinstance(decoder.embed_tokens, L.QuantEmbedding) else None
+        self._static = (beam_size, seg_steps, n_segments, n_prefix, eos_id,
+                        float(length_penalty), decoder.precision.compute_dtype, self.device,
+                        weight_quant)
+        self._body = _segment_body(decoder, beam_size=beam_size, seg_steps=seg_steps,
+                                   n_segments=n_segments, n_prefix=n_prefix, eos_id=eos_id,
+                                   length_penalty=length_penalty)
+        self.key = None
+        self.graph = None
+        self._pos0 = None  # the graph's static input
+
+    def state_key(self, state: dict) -> tuple:
+        return (state["run_tokens"].shape[0], state["enc_valid"].shape[1], *self._static,
+                tuple(v.data_ptr() for v in state.values() if isinstance(v, torch.Tensor)))
+
+    @torch.no_grad()
+    def capture(self, state: dict) -> None:
+        """Capture the segment over ``state`` on the current stream. The
+        capture's eager run is undone: the state is left as it was."""
+        key = self.state_key(state)
+        self.graph = self.key = None
+        pos0 = torch.from_numpy(first_positions(state, self.seg_steps)).to(self.device)
+        self.graph, _ = self.capture_graph(
+            lambda: self._body(state, pos0), torch.cuda.current_stream(self.device),
+            restore=[state[name] for name in SEGMENT_WRITES], loop="segment",
+            rows=int(state["self_k"].shape[1]))
+        self.key, self._pos0 = key, pos0
+
+    @torch.no_grad()
+    def __call__(self, state: dict) -> dict:
+        pos0 = torch.from_numpy(first_positions(state, self.seg_steps))
+        if self.device.type != "cuda":
+            self._body(state, pos0.to(self.device))
+        else:
+            if self.key != self.state_key(state):
+                self.capture(state)
+            self._pos0.copy_(pos0.pin_memory(), non_blocking=True)
+            self.replay(self.graph)
+        state["tick"] += 1
+        return state
 
 
 @dataclass
@@ -255,7 +357,8 @@ class ContinuousEngine:
     retire rows that spent their ``n_segments`` budget or whose hypothesis
     pool can no longer change. Results resolve as ``ServeResult``
     (``queue_ms`` = enqueue -> admission, ``decode_ms`` = admission ->
-    retirement, ``bucket`` = row capacity).
+    retirement, ``bucket`` = row capacity). ``segment_program``: the
+    ``SegmentProgram`` the loop runs (one CUDA graph on the card).
     """
 
     def __init__(self, decoder, encode: Callable, *, prefix_ids: Sequence[int], eos_id: int,
@@ -283,7 +386,7 @@ class ContinuousEngine:
                 cache_layout=cache_layout)
             self._admit = make_admit_fn(decoder, self.prefix, eos_id, beam_size,
                                         self.max_len)
-            self._segment = make_segment_fn(
+            self.segment_program = SegmentProgram(
                 decoder, beam_size=beam_size, seg_steps=seg_steps, n_segments=n_segments,
                 n_prefix=len(self.prefix), eos_id=eos_id, length_penalty=length_penalty)
         self._device_lock = threading.Lock()  # warm-up and the loop take turns
@@ -321,13 +424,18 @@ class ContinuousEngine:
     def warmup(self, example_payload: tuple,
                encode_buckets: Sequence[int] = (1, 2, 4, 8, 16)) -> None:
         """Run the encode at every admission bucket (boundary admissions are
-        padded to powers of two) on the engine's stream, then one full decode
-        of the example through the loop, so that live traffic meets built
-        kernels, chosen cuDNN algorithms and filled allocator pools."""
+        padded to powers of two) on the engine's stream, capture the segment
+        there on the card (``segment_program.captures`` records its seconds),
+        then one full decode of the example through the loop, so that live
+        traffic meets built kernels, chosen cuDNN algorithms, filled
+        allocator pools and the segment's graph."""
         for b in encode_buckets:
             if b <= self.capacity:
                 with self._device_lock, self._on_device():
                     self.encode([tuple(example_payload)] * b)
+        if self.device.type == "cuda":
+            with self._device_lock, self._on_device():
+                self.segment_program.capture(self.state)
         self.transcribe(*example_payload, timeout=1800)
 
     def stats(self) -> dict:
@@ -380,7 +488,7 @@ class ContinuousEngine:
                         with self._lock:
                             for row, _, fut, t_enq in to_admit:
                                 self._slots[row] = _Slot(fut, t_enq, now, tick)
-                    self.state = self._segment(self.state)
+                    self.state = self.segment_program(self.state)
                     # the segment's sync; a copy, not a view of the state on the CPU
                     heur = self.state["heur_ok"].to("cpu", copy=True).numpy()
                 self._segments_run += 1

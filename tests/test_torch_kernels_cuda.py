@@ -495,6 +495,151 @@ def test_engine_warmup_captures_each_bucket_and_rows_equal_the_eager_loop():
         assert got.bucket == 4 and np.array_equal(got.tokens, want)
 
 
+# -- the continuous segment and the streaming chunk as graphs ---------------------------
+
+
+def _segment_pair(asr, capacity=3, beam=3, seg_steps=3, n_segments=4):
+    """A ``SegmentProgram`` and the eager segment over two states with the
+    same admissions (rows 0 and 2 now, row 1 at the next tick)."""
+    from mocov2_whisper_flamingo_torch.serving import continuous
+
+    dec = asr.decoder.prepare_decode_params()
+    kw = dict(beam_size=beam, seg_steps=seg_steps, n_segments=n_segments, n_prefix=2, eos_id=3)
+    feats, valid = _card_features(asr, 2, 0)
+    states = []
+    for _ in range(2):
+        state = continuous.init_state(dec, capacity=capacity, beam_size=beam,
+                                      seg_steps=seg_steps, n_segments=n_segments,
+                                      enc_len=feats.shape[1], eos_id=3)
+        continuous.make_admit_fn(dec, [1, 2], 3, beam, seg_steps * n_segments)(
+            state, feats, valid, [0, 2])
+        states.append(state)
+    admit = continuous.make_admit_fn(dec, [1, 2], 3, beam, seg_steps * n_segments)
+    return (continuous.SegmentProgram(dec, **kw), continuous.make_segment_fn(dec, **kw),
+            states, admit, feats, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_segment_graph_replays_the_eager_segment_bit_for_bit(precision):
+    """Odd 3-step segments with a mid-flight admission: after every segment
+    each state tensor of the replayed graph equals the eager segment's, and
+    keeps its address; one capture, one replay a segment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.BF16 if precision == "bf16" else L.FP32)
+    program, eager, (graphed, plain), admit, feats, valid = _segment_pair(asr)
+    homes = {n: v.data_ptr() for n, v in graphed.items() if isinstance(v, torch.Tensor)}
+    for tick in range(5):
+        if tick == 1:
+            for state in (graphed, plain):
+                admit(state, feats[:1], valid[:1], 1)
+        program(graphed)
+        eager(plain)
+        for name, v in graphed.items():
+            if isinstance(v, torch.Tensor) and "spare" not in name:
+                assert torch.equal(v, plain[name]), (tick, name)
+                assert v.data_ptr() == homes[name], (tick, name)
+    assert len(program.captures) == 1 and program.replays == 5
+    assert graphed["tick"] == plain["tick"] == 5
+    assert not torch.equal(graphed["pool_scores"][0], graphed["pool_scores"][2])
+
+
+def _eager_streaming_decoder():
+    from mocov2_whisper_flamingo_torch.decode.streaming import StreamingDecoder
+
+    class EagerChunks(StreamingDecoder):
+        """The streaming decoder with its plain chunk on the card."""
+
+        def _run_chunk(self, encoder_out, encoder_valid, i0, n_prime, begin_index):
+            return self._chunk(encoder_out, encoder_valid,
+                               torch.tensor(i0, device=self.device), n_prime, begin_index)
+
+    return StreamingDecoder, EagerChunks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_chunk_graph_replays_the_eager_chunk_bit_for_bit(precision):
+    """Beam 3 under timestamp rules, windows that roll over with 4 tokens of
+    context: after each chunk the replayed decoder's buffers and position
+    equal the eager chunk's, and every chunk was a replay (one capture per
+    key: each window's first chunk and its steady chunks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.BF16 if precision == "bf16" else L.FP32)
+    dec = asr.decoder.prepare_decode_params()
+    rules = LogitRules(vocab_size=96, suppress=(3, 5), timestamp_begin=80, no_timestamps_id=79,
+                       eos_id=3)
+    graphed_cls, eager_cls = _eager_streaming_decoder()
+    kw = dict(max_len=24, eos_id=3, max_tokens_per_chunk=6, beam_size=3, context_tokens=4,
+              sot_prev_id=4, logit_rules=rules)
+    graphed, plain = graphed_cls(dec, [1, 2], **kw), eager_cls(dec, [1, 2], **kw)
+    for i in range(7):
+        feats, valid = _card_features(asr, 1, i % 3)
+        assert graphed.process_chunk(feats, valid) == plain.process_chunk(feats, valid), i
+        for a, b in zip(graphed._state, plain._state):
+            assert (a == b) if isinstance(a, int) else torch.equal(a, b), i
+    assert graphed._window_prefix[0] == 4  # a window rolled over
+    assert graphed.graphs.replays == 7
+    assert len(graphed.graphs.captures) == len(graphed._programs) >= 3
+    assert plain.graphs.replays == 0
+
+
+@pytest.mark.cuda
+def test_loop_graph_capture_error_raises_and_nothing_runs_eagerly():
+    """A segment or a chunk that reads back to the host cannot be captured:
+    the call raises, the state is as it was, and no eager result stands in
+    for the graph; in the engine the error fails the request."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+    from mocov2_whisper_flamingo_torch.serving import ContinuousEngine
+
+    def reading_back(body):
+        def segment_body(st, pos0):
+            float(st["run_scores"].max())
+            body(st, pos0)
+        return segment_body
+
+    asr = _tiny_asr("cuda", L.FP32)
+    program, _, (state, _), _, feats, valid = _segment_pair(asr)
+    program._body = reading_back(program._body)
+    before = {n: v.clone() for n, v in state.items()
+              if isinstance(v, torch.Tensor) and "spare" not in n}  # the spares are scratch
+    with pytest.raises(RuntimeError):
+        program(state)
+    assert program.graph is None and program.replays == 0 and state["tick"] == 0
+    assert all(torch.equal(state[n], v) for n, v in before.items())
+
+    graphed_cls, _ = _eager_streaming_decoder()
+
+    def rules(logp, tokens, pos, begin_index):
+        float(logp.max())
+        return logp
+
+    stream = graphed_cls(asr.decoder.prepare_decode_params(), [1, 2], max_len=24, eos_id=3,
+                         max_tokens_per_chunk=4, beam_size=3, logit_rules=rules)
+    with pytest.raises(RuntimeError):
+        stream.process_chunk(feats[:1], valid[:1])
+    assert stream._programs == {} and stream.graphs.replays == 0
+    assert stream.graphs.captures == [] and stream._state[3] == 1
+
+    eng = ContinuousEngine(asr.decoder.prepare_decode_params(), lambda p: (feats[:1], valid[:1]),
+                           prefix_ids=[1, 2], eos_id=3, enc_len=feats.shape[1], capacity=2,
+                           beam_size=3, seg_steps=3, n_segments=4)
+    with eng:
+        eng.segment_program._body = reading_back(eng.segment_program._body)
+        with pytest.raises(RuntimeError):
+            eng.transcribe(None, timeout=120)
+        assert eng.segment_program.replays == 0
+
+
 @pytest.mark.cuda
 def test_serve_tool_on_the_card_answers_health_a_transcript_and_metrics():
     """``python -m mocov2_whisper_flamingo_torch.tools.serve --random-init
