@@ -9,10 +9,11 @@ serving shapes (device time per call from ``torch.profiler``, beside the wall
 time per call), checks the port end to end against its own CPU run, then
 times the serving path: full audio-visual beam-5 decoding (whisper-small +
 MoCo ResNet-50 + gated fusion, BF16, B=4, 30 s mel, 400 uint8 88x88 lip
-frames, 160 tokens) with random weights made from ``--seed``, whose decode
-is a replayed CUDA graph (``decode/programs.py``), held bit for bit against
-the eager loop in turns with it (bf16 here, fp32 beside the card-vs-CPU
-check), with the capture's seconds and its memory pool.
+frames, 160 tokens) with random weights made from ``--seed``, whose encode
+(K1 inside) and decode are replayed CUDA graphs (``decode/programs.py``),
+each held bit for bit against its eager function in turns with it (bf16
+here, fp32 beside the card-vs-CPU check), with the captures' seconds and
+their memory pools.
 
 Then the training path: the kernel's gradients through its autograd wrapper
 against autograd through the plain version; three fp32 optimizer steps on
@@ -55,7 +56,9 @@ then ``train.main`` itself for 2 steps.
 Then long-form quality transcription (phase 14): ``WhisperASR.transcribe``
 over 90 s of audio in three 30 s windows with the temperature ladder, the
 no-speech probe and DTW word times, timed rung by rung and in turns with the
-streaming mode; the timestamp-conditioned seek loop over a 30 s clip; one
+streaming mode, each mode twice (the second call replays only: no capture,
+no preparation); the replayed rungs and probe against their eager functions
+bit for bit; the timestamp-conditioned seek loop over a 30 s clip; one
 window in fp32 on the card against the CPU with one noise for both; and the
 ``transcribe`` command line writing all five formats.
 
@@ -118,9 +121,10 @@ from mocov2_whisper_flamingo_torch import train as train_entry
 from mocov2_whisper_flamingo_torch.config import get_config
 from mocov2_whisper_flamingo_torch.datamodule import native
 from mocov2_whisper_flamingo_torch.datamodule.data_module import DataModule
-from mocov2_whisper_flamingo_torch.decode import sampling, streaming, timestamps
+from mocov2_whisper_flamingo_torch.decode import sampling, timestamps
 from mocov2_whisper_flamingo_torch.decode.beam import beam_search
 from mocov2_whisper_flamingo_torch.decode.logit_rules import LogitRules
+from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms
 from mocov2_whisper_flamingo_torch.decode.sampling import GumbelDraws
 from mocov2_whisper_flamingo_torch.decode.streaming import StreamingDecoder
 from mocov2_whisper_flamingo_torch.models import layers as L
@@ -130,7 +134,7 @@ from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
 from mocov2_whisper_flamingo_torch.models.convert import (
     load_jax_params, random_asr_params, random_avnet_params, random_jax_params,
     resnet50_from_moco)
-from mocov2_whisper_flamingo_torch.models.whisper import config_for
+from mocov2_whisper_flamingo_torch.models.whisper import WhisperDecoder, config_for
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import kernels
 from mocov2_whisper_flamingo_torch.ops import losses
@@ -556,6 +560,10 @@ def check_end_to_end(seed: int) -> dict:
                                 beam_size=BEAM, max_len=48, eos_id=EOS, encoder_valid=valid)
             graph_equal = bool(torch.equal(res.sequences, eager.sequences)
                                and torch.equal(res.scores, eager.scores))
+            # The encode graph against the eager encode at the main path's B=4.
+            mel4, raw4 = make_batch(rng, B, T_VIDEO, dev)
+            encode_equal = encode_graph_equal(net, preprocess(mel4, raw4))
+            del mel4, raw4
         results[dev] = (feats.cpu(), res.sequences.cpu(), res.scores.cpu())
         del net
     f_gpu, s_gpu, sc_gpu = results["cuda"]
@@ -567,7 +575,8 @@ def check_end_to_end(seed: int) -> dict:
     log(f"e2e fp32 whisper-small B=1 32 frames: feature max_abs_err {err:.3e} "
         f"(atol {FEATURE_ATOL:g}); beam tokens identical: {same}; score diff "
         f"{(sc_gpu - sc_cpu).abs().max().item():.3e}; card graph vs card eager loop, tokens "
-        f"and scores bit-equal: {graph_equal}")
+        f"and scores bit-equal: {graph_equal}; B=4 encode graph vs eager encode bit-equal: "
+        f"{encode_equal}")
     if not err <= FEATURE_ATOL:
         raise AssertionError(f"fp32 encoder features card vs CPU differ by {err}")
     if not same:
@@ -575,7 +584,32 @@ def check_end_to_end(seed: int) -> dict:
     if not graph_equal:
         raise AssertionError("fp32 beam on the card: the decode program differs from the "
                              "eager loop")
-    return {"fp32_graph_vs_eager_bit_equal": graph_equal, "fp32_card_vs_cpu_tokens_equal": same}
+    if not encode_equal:
+        raise AssertionError("fp32 B=4 encode on the card: the graph differs from the eager "
+                             "encode")
+    return {"fp32_graph_vs_eager_bit_equal": graph_equal, "fp32_card_vs_cpu_tokens_equal": same,
+            "fp32_encode_graph_vs_eager_bit_equal_b4": encode_equal}
+
+
+def eager_encode(net, batch):
+    """``AVWhisperNet.encode``'s eager function (the encode program's plain
+    version) on the card."""
+    with torch.no_grad():
+        return net.encode_program.fn(*batch)
+
+
+def encode_graph_equal(net, batch) -> bool:
+    """The replayed encode (captured here if its key is new) against the
+    eager encode, features and validity bit for bit, with K1 credited 15
+    launches by the replay."""
+    want = eager_encode(net, batch)
+    net.encode(batch)  # the capture, if the key is new
+    fa.reset_launches()
+    got = net.encode(batch)
+    torch.cuda.synchronize()
+    if fa.launches != 15:
+        raise AssertionError(f"an encode replay counted {fa.launches} K1 launches, expected 15")
+    return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def run_main_path(seed: int) -> dict:
@@ -634,15 +668,45 @@ def run_main_path(seed: int) -> dict:
         "k1_launches_per_batch": launches,
     }
     log("main path bf16 B=4 beam 5 160 tokens: " + json.dumps(out))
+    out["encode_program"] = encode_leg(net, batches)
     out["program"] = program_leg(net, batches, first_call_s)
     out["profile"] = {"encode": profile(lambda: encode(batches[0])),
+                      "eager_encode": profile(lambda: eager_encode(net, preprocess(*batches[0]))),
                       **out["program"].pop("profile")}
+    return out
+
+
+def encode_leg(net, batches) -> dict:
+    """Phase 4's AV encode as the eager function and as the replayed graph
+    (``AVWhisperNet.encode_program``, captured by the main path's warm-up)
+    in turns on the same batches: wall ms of each, features and validity bit
+    for bit, K1's launches credited per replay, the capture's seconds and
+    the pool's bytes."""
+    program = net.encode_program
+    ms = {"eager": [], "replay": []}
+    equal = []
+    for i, mb in enumerate(batches):
+        batch = preprocess(*mb)
+        legs = (("eager", lambda: eager_encode(net, batch)), ("replay", lambda: net.encode(batch)))
+        got = {}
+        for name, fn in (legs if i % 2 == 0 else legs[::-1]):
+            got[name], wall_s = timed_call(fn)
+            ms[name].append(wall_s * 1e3)
+        equal.append(all(torch.equal(a, b) for a, b in zip(got["eager"], got["replay"])))
+    if not all(equal) or not encode_graph_equal(net, batch):
+        raise AssertionError(f"bf16 B=4 encode graph against the eager encode, bit-equal: {equal}")
+    (capture,) = program.captures
+    out = {"eager_ms": ms["eager"], "replay_ms": ms["replay"], "bit_equal": equal,
+           "k1_launches_per_replay": 15, "capture_s": capture["capture_s"],
+           "instantiate_s": capture["instantiate_s"], "pool_bytes": pool_bytes(program),
+           "replays": program.replays}
+    log("encode program bf16 B=4, eager encode and replay in turns: " + json.dumps(out))
     return out
 
 
 def pool_bytes(programs) -> int:
     """Bytes the caching allocator holds in the CUDA graph memory pool of a
-    ``DecodePrograms``."""
+    ``GraphPool`` (decode or encode programs, a segment or chunk graph)."""
     if programs.pool is None:
         return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -652,8 +716,9 @@ def pool_bytes(programs) -> int:
 def program_leg(net, batches, first_call_s: float) -> dict:
     """Phase 4's decode through the eager loop and through the decode
     program (``AVWhisperNet.decode_programs``, captured by the main path's
-    warm-up) in turns on the same features, one batch each: wall ms per
-    decode and per step, tokens and scores bit for bit. Then the capture's
+    warm-up) in turns on the same features of the first batch (one eager
+    decode: the script's time budget): wall ms per decode and per step,
+    tokens and scores bit for bit. Then the capture's
     seconds, the pool's bytes, one replay profiled (device busy share; a
     replayed kernel carries no PyTorch op name, so the op table comes from a
     16-step eager profile), and the prepared decoder's refresh (timed) against
@@ -663,7 +728,7 @@ def program_leg(net, batches, first_call_s: float) -> dict:
     kw = dict(beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS)
     n_steps = MAX_TOKENS - len(PREFIX)
     eager_s, program_s, equal = [], [], []
-    for mb in batches:
+    for mb in batches[:1]:
         feats, valid = net.encode(preprocess(*mb))
         want, wall_s = timed_call(lambda: beam_search(prepared, feats, PREFIX,
                                                       encoder_valid=valid, **kw))
@@ -1168,14 +1233,13 @@ def av_payload(rng) -> tuple:
 def direct_av_rows(net, payloads, bucket: int, max_len: int,
                    decoder=None) -> list[np.ndarray]:
     """The engine's decode of one padded bucket, made by hand: the same
-    collate, preprocessing and encode on the caller's stream, then the
-    eager ``beam_search`` over ``decoder`` (prepared from ``net``'s), or
-    without one ``net``'s decode program, as the engine decodes."""
+    collate and encode (the video pipeline inside, the engine's encode
+    graph) on the caller's stream, then the eager ``beam_search`` over
+    ``decoder`` (prepared from ``net``'s), or without one ``net``'s decode
+    program, as the engine decodes."""
     dev = next(net.parameters()).device
-    audio, audio_mask, video_u8, video_mask, video_len = (
-        torch.as_tensor(x).to(dev) for x in pad_rows(payloads, bucket))
-    video = eval_video_pipeline(video_u8, resize=64)
-    feats, valid = net.encode((audio, audio_mask, video, video_mask, video_len))
+    batch = tuple(torch.as_tensor(x).to(dev) for x in pad_rows(payloads, bucket))
+    feats, valid = net.encode(batch, video_resize=64)
     kw = dict(beam_size=BEAM, max_len=max_len, eos_id=EOS)
     if decoder is None:
         res = net.decode_programs.beam(feats, valid, PREFIX, **kw)
@@ -1243,6 +1307,8 @@ def run_av_engine(seed: int) -> dict:
         out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
         out["capture_by_bucket"] = captures_by_rows(net.decode_programs)
         out["graph_pool_bytes"] = pool_bytes(net.decode_programs)
+        out["encode_capture_by_bucket"] = captures_by_rows(net.encode_program)
+        out["encode_pool_bytes"] = pool_bytes(net.encode_program)
         eng.batch_log.clear()
         fa.reset_launches()
         t0 = time.perf_counter()
@@ -1260,11 +1326,15 @@ def run_av_engine(seed: int) -> dict:
                              f"{expected_batches}; stats {stats}")
     if stats["requests"] != AV_REQUESTS or sum(stats["bucket_counts"].values()) != 3:
         raise AssertionError(f"AV engine stats do not add up: {stats}")
+    buckets = [str(b) for b in sorted(AV_BUCKETS)]
     if stats["compiled_buckets"] != sorted(AV_BUCKETS) \
-            or sorted(out["capture_by_bucket"], key=int) != [str(b) for b in sorted(AV_BUCKETS)] \
-            or len(net.decode_programs.captures) != len(AV_BUCKETS):
+            or sorted(out["capture_by_bucket"], key=int) != buckets \
+            or sorted(out["encode_capture_by_bucket"], key=int) != buckets \
+            or len(net.decode_programs.captures) != len(AV_BUCKETS) \
+            or len(net.encode_program.captures) != len(AV_BUCKETS):
         raise AssertionError(f"warm-up marked {stats['compiled_buckets']} and captured "
-                             f"{net.decode_programs.captures}; traffic must only replay")
+                             f"{net.decode_programs.captures} and {net.encode_program.captures};"
+                             " traffic must only replay")
     by_mask = launches_by_mask(by_kernel)
     if launches != 45 or by_mask != {"unmasked": 36, "masked": 9}:
         raise AssertionError(f"AV engine launched K1 {launches} times over 3 batches "
@@ -1376,8 +1446,13 @@ def run_audio_server(seed: int) -> dict:
         out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
         out["capture_by_bucket"] = captures_by_rows(asr.decode_programs)
         out["graph_pool_bytes"] = pool_bytes(asr.decode_programs)
-        if sorted(out["capture_by_bucket"], key=int) != [str(b) for b in sorted(ASR_BUCKETS)]:
-            raise AssertionError(f"audio warm-up captured {asr.decode_programs.captures}")
+        out["encode_capture_by_bucket"] = captures_by_rows(asr.encode_program)
+        out["encode_pool_bytes"] = pool_bytes(asr.encode_program)
+        buckets = [str(b) for b in sorted(ASR_BUCKETS)]
+        if sorted(out["capture_by_bucket"], key=int) != buckets \
+                or sorted(out["encode_capture_by_bucket"], key=int) != buckets:
+            raise AssertionError(f"audio warm-up captured {asr.decode_programs.captures} and "
+                                 f"the encode {asr.encode_program.captures}")
         with TranscriptionServer(eng, host="127.0.0.1", port=0) as srv:
             address = srv.address
             status, body = http_json(address, "GET", "/healthz")
@@ -1669,14 +1744,16 @@ def run_streaming(seed: int) -> dict:
                       "audio_s_per_s": n_chunks * SECONDS_PER_CLIP / wall_s}
     if legs["longform"]["rollovers"] < 1:
         raise AssertionError(f"the long-form leg rolled no window over: {legs['longform']}")
-    if len(stream.graphs.captures) != 2:
-        raise AssertionError(f"traffic captured again: {stream.graphs.captures}")
+    if len(stream.graphs.captures) != 2 or len(net.encode_program.captures) != 1:
+        raise AssertionError(f"traffic captured again: {stream.graphs.captures}, encode "
+                             f"{net.encode_program.captures}")
     out = {"beam": BEAM, "max_len": STREAM_MAX_LEN, "tokens_per_chunk": STREAM_TOKENS,
            "streaming_audio_s_per_s": legs["5min"]["audio_s_per_s"],
            "longform_audio_s_per_s": legs["longform"]["audio_s_per_s"], "legs": legs,
            "encode_ms_per_chunk": encode_ms, "decode_ms_per_chunk": decode_ms,
            "decode_ms_per_step": [x / STREAM_TOKENS for x in decode_ms],
            "k1_launches_per_chunk": launches[0][0], "graphs": warmup,
+           "encode_graphs": graph_summary(net.encode_program),
            "reserved_gib_after_traffic": torch.cuda.memory_reserved() / 2**30,
            "replays": stream.graphs.replays}
     log(f"streaming bf16 beam {BEAM}, {STREAM_TOKENS} tokens a chunk: " + json.dumps(out))
@@ -1884,9 +1961,15 @@ def run_continuous(seed: int) -> dict:
         out["warmup_s"] = time.perf_counter() - t0
         out["reserved_gib_after_warmup"] = torch.cuda.memory_reserved() / 2**30
         out["segment_graph"] = graph_summary(program)
+        out["encode_capture_by_bucket"] = captures_by_rows(net.encode_program)
+        out["encode_pool_bytes"] = pool_bytes(net.encode_program)
         if len(program.captures) != 1 or program.replays != eng.stats()["segments_run"]:
             raise AssertionError(f"warm-up captured {program.captures}, replayed "
                                  f"{program.replays} of {eng.stats()['segments_run']} segments")
+        if sorted(out["encode_capture_by_bucket"], key=int) != [str(b) for b in CONT_BUCKETS] \
+                or len(net.encode_program.captures) != len(CONT_BUCKETS):
+            raise AssertionError(f"warm-up captured the encode {net.encode_program.captures}, "
+                                 f"expected one graph a bucket {CONT_BUCKETS}")
         by_bucket = {n: k for n, k in encodes[:len(CONT_BUCKETS)]}
         if sorted(by_bucket) != list(CONT_BUCKETS) or set(by_bucket.values()) != {15}:
             raise AssertionError(f"admission encodes launched K1 {encodes}, expected 15 at each "
@@ -1930,6 +2013,9 @@ def run_continuous(seed: int) -> dict:
     # reported, not held (bf16 rows are reproducible per batch shape, not
     # across shapes).
     direct = [direct_av_rows(net, [p], 1, MAX_TOKENS)[0] for p in payloads]
+    if len(net.encode_program.captures) != len(CONT_BUCKETS):
+        raise AssertionError(f"traffic captured the encode again: {net.encode_program.captures}")
+    out["encode_graphs_after_traffic"] = graph_summary(net.encode_program)
     served = results + results_in_flight + [probe]
     which = list(range(CONT_REQUESTS)) + list(range(CONT_INFLIGHT)) + [0]
     equal = sum(np.array_equal(r.tokens, direct[i % len(payloads)]) for r, i in zip(served, which))
@@ -2275,14 +2361,17 @@ def run_data_path(seed: int, expected_launches: int) -> dict:
 
 
 class RungTimer:
-    """Wall ms of each rung of ``decode_with_fallback`` (the beam search at
-    t = 0, the sampler above it), of each no-speech probe and of each
-    word-time alignment (forward, statistics and DTW), each between two
-    synchronisations. Installed over the names that ``decode/sampling.py``
-    and ``decode/timestamps.py`` call; removed on exit."""
+    """Wall ms of each rung of ``decode_with_fallback`` (the beam program at
+    t = 0, the sampler program above it), of each no-speech probe program
+    and of each word-time alignment (forward, statistics and DTW), each
+    between two synchronisations, and whether a program call captured its
+    graph. Installed over the ``DecodePrograms`` methods that
+    ``decode_with_fallback`` calls (outside any capture: a program call
+    captures inside itself) and the name that ``decode/timestamps.py``
+    calls; removed on exit."""
 
-    PATCHES = {"beam": (sampling, "beam_search"), "sample": (sampling, "sample_decode"),
-               "no_speech": (sampling, "no_speech_probability"),
+    PATCHES = {"beam": (DecodePrograms, "beam"), "sample": (DecodePrograms, "sample"),
+               "no_speech": (DecodePrograms, "no_speech"),
                "alignment": (timestamps, "token_timestamps")}
 
     def __enter__(self):
@@ -2298,11 +2387,15 @@ class RungTimer:
 
     def _timed(self, kind, fn):
         def timed(*args, **kw):
+            programs = args[0] if kind != "alignment" else None
+            captures = len(programs.captures) if programs is not None else 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kw)
             torch.cuda.synchronize()
             rec = {"ms": (time.perf_counter() - t0) * 1e3}
+            if programs is not None:
+                rec["captured"] = len(programs.captures) > captures
             if kind in ("beam", "sample"):
                 rec["steps"] = kw["max_len"] - 1  # decode steps, the prefix's included
             elif kind == "no_speech":
@@ -2315,15 +2408,91 @@ class RungTimer:
         return timed
 
     def summary(self) -> dict:
+        """Per kind: calls, captures, ms mean and max, and ms a step over
+        every call and over the calls that only replayed."""
         out = {}
         for kind, recs in self.records.items():
             if recs:
                 ms = [r["ms"] for r in recs]
                 out[kind] = {"calls": len(recs), "ms_mean": float(np.mean(ms)),
                              "ms_max": float(np.max(ms))}
+                if "captured" in recs[0]:
+                    out[kind]["captured"] = sum(r["captured"] for r in recs)
                 if "steps" in recs[0]:
                     out[kind]["ms_per_step"] = sum(ms) / sum(r["steps"] for r in recs)
+                    replayed = [r for r in recs if not r.get("captured")]
+                    if replayed and "captured" in recs[0]:
+                        out[kind]["replay_ms_per_step"] = (sum(r["ms"] for r in replayed)
+                                                           / sum(r["steps"] for r in replayed))
         return out
+
+
+@contextlib.contextmanager
+def counted_prepares():
+    """Count ``WhisperDecoder.prepare_decode_params`` calls inside the block
+    (yields the counter)."""
+    counts = collections.Counter()
+    prepare = WhisperDecoder.prepare_decode_params
+
+    def counting(self, *args, **kwargs):
+        counts["prepare"] += 1
+        return prepare(self, *args, **kwargs)
+
+    WhisperDecoder.prepare_decode_params = counting
+    try:
+        yield counts
+    finally:
+        WhisperDecoder.prepare_decode_params = prepare
+
+
+def asr_captures(asr) -> int:
+    """CUDA graphs captured so far by a ``WhisperASR``: its encode, its
+    decode programs and its kept streaming decoders."""
+    return (len(asr.encode_program.captures) + len(asr.decode_programs.captures)
+            + sum(len(sd.graphs.captures) for sd in asr.stream_decoders.values()))
+
+
+def rung_programs_equal(asr, feats, max_len: int, temperature: float, seed: int) -> dict:
+    """The beam rung, a sampled rung (``temperature``, one noise for both)
+    and the no-speech probe of ``asr.decode_programs`` against the eager
+    functions over its prepared decoder, in turns, on one window's
+    features: bit for bit, and wall ms of each side."""
+    programs = asr.decode_programs
+    decoder = programs.refreshed_decoder()
+    draws = GumbelDraws(seed).fold(0).fold(int(temperature * 1000))
+    beam_kw = dict(beam_size=BEAM, max_len=max_len, eos_id=EOS, renorm_after_rules=True)
+    sample_kw = dict(temperature=temperature, num_samples=BEAM, max_len=max_len, eos_id=EOS)
+    legs = {
+        "beam": (lambda: programs.beam(feats, None, PREFIX, **beam_kw),
+                 lambda: beam_search(decoder, feats, PREFIX, **beam_kw),
+                 ("sequences", "scores")),
+        "sample": (lambda: programs.sample(feats, None, PREFIX, draws=draws, **sample_kw),
+                   lambda: sampling.sample_decode(decoder, feats, PREFIX, draws=draws,
+                                                  **sample_kw),
+                   ("sequences", "sum_logprob", "avg_logprob")),
+        "no_speech": (lambda: programs.no_speech(feats, None, PREFIX, NO_SPEECH_ID),
+                      lambda: sampling.no_speech_probability(decoder, feats, PREFIX,
+                                                             NO_SPEECH_ID), None)}
+    out = {}
+    for i, (kind, (program, eager, fields)) in enumerate(legs.items()):
+        program()  # the capture, where this key is new
+        got = {}
+        ms = {}
+        for name, fn in ((("program", program), ("eager", eager)) if i % 2 == 0
+                         else (("eager", eager), ("program", program))):
+            got[name], wall_s = timed_call(fn)
+            ms[f"{name}_ms"] = wall_s * 1e3
+        if fields is None:
+            equal = bool(torch.equal(got["program"], got["eager"]))
+        else:
+            equal = all(torch.equal(getattr(got["program"], f), getattr(got["eager"], f))
+                        for f in fields)
+        steps = 1 if kind == "no_speech" else max_len - 1
+        out[kind] = {"bit_equal": equal, "steps": steps, **ms,
+                     **{f"{k[:-3]}_ms_per_step": v / steps for k, v in ms.items()}}
+    if not all(leg["bit_equal"] for leg in out.values()):
+        raise AssertionError(f"rung programs against the eager functions: {out}")
+    return out
 
 
 def longform_audio(rng, seconds: float, rate: int = 16_000) -> np.ndarray:
@@ -2362,33 +2531,18 @@ def check_segments(name: str, segments: list, words, duration: float) -> None:
             raise AssertionError(f"{name}: word {w} outside its window at {origin}")
 
 
-@contextlib.contextmanager
-def recorded_stream_decoders():
-    """The ``StreamingDecoder``s that ``transcribe_long_form`` makes while
-    the context is open, in the order made."""
-    made = []
-
-    class Recorded(StreamingDecoder):
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            made.append(self)
-
-    streaming.StreamingDecoder = Recorded
-    try:
-        yield made
-    finally:
-        streaming.StreamingDecoder = StreamingDecoder
-
-
 def run_longform(seed: int) -> dict:
     """Phase 14: ``WhisperASR.transcribe`` at whisper-small width, bf16,
     random weights from ``seed``, the byte tokenizer.
 
     1. Fixed stride: 90 s (three windows), the temperature ladder (beam 5
        at t = 0, best-of-5 samples above), the no-speech probe, word times;
-       streaming mode on the same audio before and after it.
+       streaming mode on the same audio; each mode called twice, the second
+       call capturing no graph and preparing no decoder. Then the replayed
+       rungs and probe against their eager functions, bit for bit.
     2. Timestamp seek: a 30 s clip under the timestamp grammar, gates off.
-    3. fp32, one window, card against CPU with one noise made on the CPU.
+    3. fp32, one window, card against CPU with one noise made on the CPU;
+       the rungs and the probe on the card against their eager functions.
     4. The ``transcribe`` command line, all five formats."""
     root = os.path.dirname(os.path.abspath(__file__))
     rng = np.random.default_rng(seed + 14)
@@ -2413,22 +2567,44 @@ def run_longform(seed: int) -> dict:
     stream_kw = dict(beam_size=BEAM, max_len=STREAM_MAX_LEN, eos_id=EOS,
                      max_tokens_per_chunk=LONG_MAX_LEN - len(PREFIX), temperatures=None,
                      sot_prev_id=SOT_PREV)
-    streams = []
-    with recorded_stream_decoders() as made:
-        first, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
-        streams.append(wall_s)
-        with RungTimer() as rungs:
-            fa.reset_launches()
-            result, quality_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **quality_kw))
-            launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
-        again, wall_s = timed_call(lambda: asr.transcribe(audio, PREFIX, **stream_kw))
-        streams.append(wall_s)
-    # each streaming call captures its chunk graphs anew (one decoder a call)
-    stream_graphs = [graph_summary(sd.graphs) for sd in made]
-    if len(made) != 2 or any(g["replays"] != n_windows for g in stream_graphs):
-        raise AssertionError(f"streaming mode: {len(made)} decoders, graphs {stream_graphs}")
-    if again["tokens"] != first["tokens"] or not first["tokens"]:
-        raise AssertionError("streaming mode gave other tokens on the same audio, or none")
+    quality = lambda: asr.transcribe(audio, PREFIX, **quality_kw)  # noqa: E731
+    stream = lambda: asr.transcribe(audio, PREFIX, **stream_kw)  # noqa: E731
+    calls = {}  # (mode, call) -> wall s, graphs captured, decoders prepared
+    with counted_prepares() as prepares:
+        results = {}
+        for name, fn in (("streaming_1", stream), ("quality_1", quality),
+                         ("streaming_2", stream), ("quality_2", quality)):
+            captures, prepared = asr_captures(asr), prepares["prepare"]
+            with RungTimer() as timer:
+                fa.reset_launches()
+                results[name], wall_s = timed_call(fn)
+            calls[name] = {"wall_s": wall_s, "captures": asr_captures(asr) - captures,
+                           "prepares": prepares["prepare"] - prepared,
+                           "k1_launches": fa.launches,
+                           "k1_launches_by_kernel": dict(fa.launches_by_kernel),
+                           "rungs": timer.summary()}
+            if name == "quality_1":
+                rungs = timer
+    log("long-form calls, captures and preparations: " + json.dumps(
+        {k: {f: v[f] for f in ("wall_s", "captures", "prepares", "k1_launches")}
+         for k, v in calls.items()}))
+    for mode in ("streaming", "quality"):
+        first, second = calls[f"{mode}_1"], calls[f"{mode}_2"]
+        if second["captures"] or second["prepares"] or not first["captures"] \
+                or results[f"{mode}_2"]["tokens"] != results[f"{mode}_1"]["tokens"] \
+                or second["k1_launches_by_kernel"] != first["k1_launches_by_kernel"]:
+            raise AssertionError(f"a second {mode}-mode call captured {second['captures']} "
+                                 f"graphs and prepared {second['prepares']} decoders, or gave "
+                                 f"other tokens or K1 launches than the first: {first} {second}")
+    # one streaming decoder kept across both calls, its chunk graphs captured once
+    (sd,) = asr.stream_decoders.values()
+    stream_graphs = graph_summary(sd.graphs)
+    if len(sd.graphs.captures) != 2 or sd.graphs.replays != 2 * n_windows \
+            or not results["streaming_1"]["tokens"]:
+        raise AssertionError(f"streaming mode: graphs {stream_graphs}, tokens "
+                             f"{results['streaming_1']['tokens'][:8]}")
+    result, launches = results["quality_1"], calls["quality_1"]["k1_launches"]
+    by_kernel = calls["quality_1"]["k1_launches_by_kernel"]
     segments = result["segments"]
     check_segments("quality mode", segments, result["words"], LONG_SECONDS)
     windows = len(rungs.records["no_speech"])  # one probe per decoded window
@@ -2445,21 +2621,35 @@ def run_longform(seed: int) -> dict:
         raise AssertionError(f"quality mode launched K1 {by_mask} ({by_kernel}) for {windows} "
                              f"windows and {aligned} alignments, expected 12 per window "
                              "encode and 12 encoder + 12 causal per alignment")
+    quality_s = [calls[f"quality_{i}"]["wall_s"] for i in (1, 2)]
+    streams = [calls[f"streaming_{i}"]["wall_s"] for i in (1, 2)]
+    feats = asr.encode(asr.features(audio[: 16_000 * 30], pad_to=16_000 * 30))
     out.update({
         "windows": windows, "segments": len(segments), "words": len(result["words"]),
         "rungs_per_window": [LONG_TEMPERATURES.index(s["temperature"]) + 1 for s in segments],
         "gates_passed": [s["gates_passed"] for s in segments],
         "avg_logprob": [s["avg_logprob"] for s in segments],
         "no_speech_prob": [s["no_speech_prob"] for s in segments],
-        "rungs": rungs.summary(), "alignments": rungs.records["alignment"],
-        "quality_wall_s": quality_s, "quality_audio_s_per_s": LONG_SECONDS / quality_s,
+        "rungs": rungs.summary(), "rungs_second_call": calls["quality_2"]["rungs"],
+        "alignments": rungs.records["alignment"],
+        "quality_wall_s": quality_s,
+        "quality_audio_s_per_s": [LONG_SECONDS / x for x in quality_s],
         "streaming_wall_s": streams,
-        "streaming_audio_s_per_s": [LONG_SECONDS / s for s in streams],
-        "streaming_capture_s": [sum(c["capture_s"] + c["instantiate_s"] for c in g["captures"])
-                                for g in stream_graphs],
+        "streaming_audio_s_per_s": [LONG_SECONDS / x for x in streams],
+        "captures_by_call": {k: v["captures"] for k, v in calls.items()},
+        "prepares_by_call": {k: v["prepares"] for k, v in calls.items()},
+        "decode_captures": [{f: c[f] for f in ("loop", "capture_s", "instantiate_s")}
+                            for c in asr.decode_programs.captures],
+        "encode_graphs": graph_summary(asr.encode_program),
+        "decode_pool_bytes": pool_bytes(asr.decode_programs),
+        "streaming_capture_s": sum(c["capture_s"] + c["instantiate_s"]
+                                   for c in sd.graphs.captures),
         "streaming_graphs": stream_graphs,
+        "rung_programs_vs_eager_bf16": rung_programs_equal(asr, feats, LONG_MAX_LEN,
+                                                           LONG_TEMPERATURES[1], seed),
         "k1_launches": launches, "k1_launches_by_kernel": by_kernel,
         "k1_launches_per_quality_window": 12})
+    del feats
 
     # The alignment forward alone, at the largest bucket the run used.
     bucket = max(r["bucket"] for r in rungs.records["alignment"])
@@ -2543,13 +2733,18 @@ def run_longform(seed: int) -> dict:
             logprob_threshold=10.0,  # never met: the sampled rung is the one compared
             draws=GumbelDraws(seed, generate_on="cpu")))
         got[device] = (r, wall)
+        if device == "cuda":
+            fp32_rungs = rung_programs_equal(
+                model, model.encode(model.features(clip, pad_to=16_000 * 30)), FP32_MAX_LEN,
+                FP32_TEMPERATURES[-1], seed)
         del model
     (card, card_s), (cpu, cpu_s) = got["cuda"], got["cpu"]
     (cs,), (hs,) = card["segments"], cpu["segments"]
     err = abs(cs["avg_logprob"] - hs["avg_logprob"])
     fp32 = {"tokens": len(card["tokens"]), "temperature": cs["temperature"],
             "gates_passed": cs["gates_passed"], "avg_logprob_abs_err": err,
-            "atol": FP32_LOGPROB_ATOL, "card_s": card_s, "cpu_s": cpu_s}
+            "atol": FP32_LOGPROB_ATOL, "card_s": card_s, "cpu_s": cpu_s,
+            "rung_programs_vs_eager": fp32_rungs}
     log("long-form fp32 one window, card vs CPU: " + json.dumps(fp32))
     if card["tokens"] != cpu["tokens"] or cs["temperature"] != hs["temperature"] \
             or cs["temperature"] != FP32_TEMPERATURES[-1] \
@@ -3559,6 +3754,8 @@ def main() -> int:
           "source": "mocov2_whisper_flamingo_torch/csrc/flash_attention.cu",
           "replaces": "mocov2_whisper_flamingo_tpu/ops/flash_attention.py:57",
           "launches": main_path["k1_launches_per_batch"], "launched": True,
+          "launched_in_encode_graph": {k: main_path["encode_program"][k] for k in (
+              "k1_launches_per_replay", "replay_ms", "eager_ms", "pool_bytes")},
           **{key: enc[key] for key in ("max_abs_err", "ms", "device_ms", "tflops",
                                        "bound_share", "plain_ms", "bound_ms", "bound_by",
                                        "library_ms", "library_device_ms")},

@@ -1,54 +1,69 @@
-"""Compiled decode programs: beam and greedy decoding as one CUDA graph per
-shape (port-only, like ``device.py``). This is the counterpart of the JAX
-package's ``jax.jit`` over the ``lax.scan`` of ``decode/beam.py`` and
-``decode/greedy.py``, with the decoder's fusion and cast inside the program
-as in its ``models/av_whisper.py``.
+"""Compiled programs: the decode loops (beam, greedy and sampled decoding,
+and the no-speech probe) and the encode as one CUDA graph per shape
+(port-only, like ``device.py``). This is the counterpart of the JAX
+package's ``jax.jit`` over the ``lax.scan`` of ``decode/beam.py``,
+``decode/greedy.py`` and ``decode/sampling.py``, with the decoder's fusion
+and cast inside the program as in its ``models/av_whisper.py``, and of the
+jitted encode of its engines and ``models/asr.py``.
 
 A ``DecodePrograms`` serves one source ``WhisperDecoder``. It holds one
 prepared decoder per ``weight_quant`` (``prepare_decode_params``, made once),
 one CUDA graph memory pool and the captured graphs. A graph records, on the
 card, the refresh of the prepared decoder from the source weights
 (``WhisperDecoder.refresh_decode_params``) and then the unchanged
-``beam_search`` or ``greedy_decode`` over it, on static inputs
-(``features [B, T_enc, D]``, ``valid [B, T_enc]``, ``prefix [n_prefix]``).
-A call copies its inputs into them, replays the graph and returns clones of
-the static outputs, so that the next replay never overwrites a result that a
-caller holds.
+``beam_search``, ``greedy_decode``, ``sample_decode`` or
+``no_speech_probability`` over it, on static inputs (``features [B, T_enc,
+D]``, ``valid [B, T_enc]``, ``prefix [n_prefix]``). A call copies its inputs
+into them, replays the graph and returns clones of the static outputs, so
+that the next replay never overwrites a result that a caller holds.
 
 - **The key** of a graph (``program_key``) is what fixes its kernels and
   addresses: the loop, the features' shape, dtype and device, whether a
-  validity mask is given, the prefix length, the loop's static arguments,
-  ``id(logit_rules)`` (the graph keeps the rules object alive: it reads the
-  rules' tables), the quant modes and the ``data_ptr()`` of every source
-  parameter. A parameter replaced by assignment (``p.data = ...``) makes a
-  new key, and the graphs that read the old addresses are dropped; an
-  in-place update (an optimizer step, ``load_state_dict``) is read by the
-  refresh at the next replay.
-- **Capture** (``GraphPool.capture_graph``, shared with the continuous
-  engine's segment and the streaming decoder's chunk) follows PyTorch's
-  recipe: one eager run on the capture stream first, which builds what a
-  capture refuses to build (the logit rules' tables, copied from the host;
-  cuBLAS handles and workspaces; sort workspaces), then ``torch.cuda.graph``
-  on the caller's stream (on a side stream of the pool's when the caller is
-  on the default stream) in ``thread_local`` error mode, since a serving
-  engine's completion thread waits on events while its dispatch thread
-  captures. A capture or replay error raises: on the card nothing decodes
-  eagerly behind a program.
+  validity mask is given, the prefix length, the loop's static arguments
+  (the sampler's temperature among them), ``id(logit_rules)`` (the graph
+  keeps the rules object alive: it reads the rules' tables), the quant modes
+  and the ``data_ptr()`` of every source parameter. A parameter replaced by
+  assignment (``p.data = ...``) makes a new key, and the graphs that read
+  the old addresses are dropped; an in-place update (an optimizer step,
+  ``load_state_dict``) is read by the refresh at the next replay.
+- **The sampler's noise** is a static input too: a call fills one
+  ``[max_len - 1, rows, V]`` fp32 buffer per shape from its draw source,
+  outside the graph, and the graph reads step ``i``'s row at step ``i``.
+- **Capture** (``GraphPool.capture_graph``, shared with the encode, the
+  continuous engine's segment and the streaming decoder's chunk) follows
+  PyTorch's recipe: one eager run on the capture stream first, which builds
+  what a capture refuses to build (the logit rules' tables, copied from the
+  host; cuBLAS handles and workspaces; sort workspaces; K1's tensor-map
+  entry point and shared-memory limit), then ``torch.cuda.graph`` on the
+  caller's stream (on a side stream of the pool's when the caller is on the
+  default stream) in ``thread_local`` error mode, since a serving engine's
+  completion thread waits on events while its dispatch thread captures. A
+  capture or replay error raises: on the card nothing runs eagerly behind a
+  program.
+- **K1's launch counts** (``ops/flash_attention.py``) leave out the eager
+  run's and the capture's launches; the capture's are added at each replay,
+  so a count stays the K1 kernels sent to the card.
 - **Order.** The graphs of one object share its prepared decoders and its
   pool, so its calls are serialised across threads (a lock) and streams
   (each call's stream waits for the event after the last replay).
 - **On the CPU** there is no graph: the same object refreshes its prepared
   decoder and runs the eager loop, the plain version of the program.
 
-These callers stay eager: ``sample_decode`` (a fresh noise per fold path),
-``decode_with_fallback``'s beam rung (its prefix length changes window by
-window), the encode, and ``tools/export_model.py``'s ``BeamProgram``
-(``torch.export`` traces the loop, not a replay).
+An ``EncodeProgram`` is a net's encode (``AVWhisperNet.encode``,
+``WhisperASR.encode``) the same way: one graph per key (the inputs' shapes
+and dtypes, the device, the static arguments, the attention backends and the
+``data_ptr()`` of every parameter and buffer the encode reads), one pool for
+all of them, inputs copied into static buffers, clones returned. K1 runs
+inside it: its TMA tensor maps are kernel parameters, so a graph holds the
+static buffers' addresses, which every replay fills.
+
+Only ``tools/export_model.py``'s ``BeamProgram`` and training stay eager:
+``torch.export`` traces the loop, not a replay, and a training step
+differentiates the encode.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import threading
 import time
 
@@ -56,13 +71,17 @@ import torch
 
 from mocov2_whisper_flamingo_torch.decode.beam import BeamResult, beam_search
 from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
+from mocov2_whisper_flamingo_torch.decode.sampling import (
+    GumbelDraws, SampleResult, no_speech_probability, sample_decode, sample_noise)
+from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 
 
 def program_key(loop: str, decoder, features: torch.Tensor, valid: torch.Tensor | None,
                 n_prefix: int, logit_rules, weight_quant: str | None, **static) -> tuple:
     """The key of the graph that decodes ``features`` with ``loop``
-    ("beam" or "greedy") over ``decoder`` (the source decoder); ``static``:
-    the loop's other arguments (beam size, ``max_len``, ``eos_id``, ...)."""
+    ("beam", "greedy", "sample" or "no_speech") over ``decoder`` (the source
+    decoder); ``static``: the loop's other arguments (beam size,
+    ``max_len``, ``eos_id``, the temperature, ...)."""
     return (loop, tuple(features.shape), features.dtype, features.device, valid is not None,
             n_prefix, id(logit_rules), weight_quant, tuple(sorted(static.items())),
             tuple(p.data_ptr() for p in decoder.parameters()))
@@ -82,8 +101,9 @@ class GraphPool:
     """What the CUDA graphs of one owner share: a memory pool (``pool``, None
     until the first capture), a side stream for callers on the default
     stream, the graphs whose capture raised, one record per capture
-    (``captures``: the caller's fields, and the seconds of the capture and
-    of the graph's instantiation) and the count of replays (``replays``)."""
+    (``captures``: the caller's fields, the seconds of the capture and of
+    the graph's instantiation, and the K1 launches the graph holds) and the
+    count of replays (``replays``)."""
 
     def __init__(self):
         self.pool = None
@@ -98,7 +118,8 @@ class GraphPool:
         the capture stream first; ``restore``: tensors that ``fn`` writes in
         place, copied aside before that run and back after it, so that the
         eager run leaves them as they were and the first replay does the
-        call's work."""
+        call's work. Neither run counts K1's launches: the capture's are
+        kept with the graph and counted at each replay."""
         dev = stream.device
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -111,7 +132,7 @@ class GraphPool:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(capture_stream):
             saved = [t.clone() for t in restore]
-            fn()  # eager: the rules' tables, library handles, workspaces
+            fa.uncounted(fn)  # eager: the rules' tables, library handles, workspaces
             for t, s in zip(restore, saved):
                 t.copy_(s)
             del saved
@@ -119,7 +140,7 @@ class GraphPool:
             try:
                 with torch.cuda.graph(graph, pool=self.pool, stream=capture_stream,
                                       capture_error_mode="thread_local"):
-                    outputs = fn()
+                    outputs, k1, k1_by_kernel = fa.uncounted(fn)
                     t1 = time.perf_counter()
             except BaseException:
                 # PyTorch stops a pool's recording only when a capture ends
@@ -131,34 +152,58 @@ class GraphPool:
                 raise
             t2 = time.perf_counter()
         stream.wait_stream(capture_stream)
-        self.captures.append({**record, "capture_s": t1 - t0, "instantiate_s": t2 - t1})
+        graph.k1_launches = (k1, k1_by_kernel)
+        self.captures.append({**record, "capture_s": t1 - t0, "instantiate_s": t2 - t1,
+                              "k1_launches": k1})
         return graph, outputs
 
     def replay(self, graph: torch.cuda.CUDAGraph) -> None:
+        """Replay a graph of this pool and count the K1 launches it holds."""
         graph.replay()
         self.replays += 1
+        fa.credit(*graph.k1_launches)
 
-
-@dataclasses.dataclass
-class _Program:
-    graph: torch.cuda.CUDAGraph
-    inputs: tuple        # static (features, valid or None, prefix)
-    outputs: tuple       # static outputs, in the graph's pool
-    logit_rules: object  # kept alive: the graph reads its tables
+    def run_keyed(self, graphs: dict, key: tuple, fn, inputs: tuple, stream, keep=None,
+                  **record) -> tuple:
+        """Replay the graph of ``key`` in ``graphs`` (key -> (graph, static
+        inputs, static outputs, ``keep``)) with ``inputs`` copied into its
+        static inputs, and return clones of its outputs. A new key first
+        captures ``fn(*static inputs)`` on copies of ``inputs`` on the
+        stream's device, and drops the graphs whose key ends otherwise (the
+        weights' addresses). ``None`` inputs stay None; ``keep``: an object
+        the graph reads, kept alive with it."""
+        prog = graphs.get(key)
+        if prog is None:
+            for stale in [k for k in graphs if k[-1] != key[-1]]:
+                del graphs[stale]
+            held = tuple(None if x is None else
+                         torch.empty_like(x, device=stream.device).copy_(x, non_blocking=True)
+                         for x in inputs)
+            graph, outputs = self.capture_graph(lambda: fn(*held), stream, **record)
+            prog = graphs[key] = (graph, held, outputs, keep)
+        else:
+            for dst, src in zip(prog[1], inputs):
+                if dst is not None:
+                    dst.copy_(src, non_blocking=True)
+        self.replay(prog[0])
+        return tuple(o.clone() for o in prog[2])
 
 
 class DecodePrograms(GraphPool):
-    """The compiled beam and greedy decodes of one source ``WhisperDecoder``
-    (see the module doc). ``captures`` holds one record per capture: the
-    loop, the features' shape, and the seconds of the capture and of the
-    graph's instantiation. ``pool`` is the graphs' memory pool handle (None
-    until the first capture)."""
+    """The compiled beam, greedy and sampled decodes and no-speech probe of
+    one source ``WhisperDecoder`` (see the module doc). ``captures`` holds
+    one record per capture: the loop, the features' shape, the seconds of
+    the capture and of the graph's instantiation and its K1 launches.
+    ``pool`` is the graphs' memory pool handle (None until the first
+    capture)."""
 
     def __init__(self, decoder):
         super().__init__()
         self.decoder = decoder
         self.prepared: dict = {}  # weight_quant -> prepared decoder
-        self.programs: dict = {}  # program_key -> _Program
+        # program_key -> (graph, static (features, valid, prefix), outputs, logit rules)
+        self.programs: dict = {}
+        self._noise: dict = {}  # (shape, device) -> the sampler's static noise
         self._lock = threading.Lock()
         self._last = None  # CUDA event after the last replay
 
@@ -168,6 +213,24 @@ class DecodePrograms(GraphPool):
         if weight_quant not in self.prepared:
             self.prepared[weight_quant] = self.decoder.prepare_decode_params(weight_quant)
         return self.prepared[weight_quant]
+
+    def refreshed_decoder(self, weight_quant: str | None = None):
+        """The prepared decoder for ``weight_quant``, brought up to date with
+        the source weights now, after the last replay: for the callers that
+        read it outside a program (language detection, the word-time
+        alignment, the streaming decoder's chunk graphs)."""
+        with self._lock, torch.no_grad():
+            decoder = self.prepared_decoder(weight_quant)
+            if self._last is not None:
+                torch.cuda.current_stream(decoder.pos_embed.device).wait_event(self._last)
+            return self.decoder.refresh_decode_params(decoder)
+
+    def weight_quant_of(self, decoder) -> str | None:
+        """The ``weight_quant`` whose prepared decoder is ``decoder``."""
+        for weight_quant, prepared in self.prepared.items():
+            if prepared is decoder:
+                return weight_quant
+        raise ValueError("the decoder is none of the prepared decoders of these programs")
 
     def beam(self, features: torch.Tensor, valid: torch.Tensor | None, prefix_ids,
              beam_size: int = 5, max_len: int = 224, eos_id: int = 0,
@@ -206,47 +269,128 @@ class DecodePrograms(GraphPool):
                               weight_quant, static)
         return tokens
 
+    def sample(self, features: torch.Tensor, valid: torch.Tensor | None, prefix_ids,
+               temperature: float = 1.0, num_samples: int = 1, max_len: int = 224,
+               eos_id: int = 0, logit_rules=None, cache_quant: str | None = None,
+               weight_quant: str | None = None, seed: int = 0, draws=None) -> SampleResult:
+        """``sample_decode`` over the prepared decoder. Its noise, from
+        ``draws`` (default ``GumbelDraws(seed)``) along ``sample_decode``'s
+        fold path, fills a static buffer outside the graph (``sample_noise``).
+        The temperature is in the key, as the JAX package compiles one
+        program per temperature: the graph divides by it as a host scalar,
+        which ATen's CUDA division takes as a multiplication by its
+        reciprocal, where a device tensor would be divided by."""
+        t = float(temperature)
+        static = dict(temperature=t, num_samples=num_samples, max_len=max_len, eos_id=eos_id,
+                      cache_quant=cache_quant)
+        shared = None
+        if t > 0.0:
+            draws = draws if draws is not None else GumbelDraws(seed)
+            n_prefix = len(prefix_ids)
+            shape = (max_len - 1, features.shape[0] * num_samples,
+                     self.decoder.config.vocab_size)
+
+            def shared():
+                key = (shape, features.device)
+                if features.device.type == "cuda" and key not in self._noise:
+                    self._noise[key] = torch.empty(shape, dtype=torch.float32,
+                                                   device=features.device)
+                return (sample_noise(draws, n_prefix, shape, features.device,
+                                     out=self._noise.get(key)),)
+
+        def loop(decoder, f, v, p, noise=None):
+            r = sample_decode(decoder, f, p, encoder_valid=v, logit_rules=logit_rules,
+                              noise=noise, **static)
+            return r.sequences, r.sum_logprob, r.avg_logprob
+
+        sequences, sum_lp, avg_lp = self._run("sample", loop, features, valid, prefix_ids,
+                                              logit_rules, weight_quant, static, shared)
+        return SampleResult(sequences=sequences, sum_logprob=sum_lp, avg_logprob=avg_lp)
+
+    def no_speech(self, features: torch.Tensor, valid: torch.Tensor | None, prefix_ids,
+                  no_speech_id: int, sot_index: int = 0,
+                  weight_quant: str | None = None) -> torch.Tensor:
+        """``no_speech_probability`` over the prepared decoder: the prefix up
+        to ``sot_index`` is the graph's static input, so the key holds
+        ``sot_index``."""
+        n = int(sot_index) + 1
+        prefix = prefix_ids[:n] if isinstance(prefix_ids, torch.Tensor) else list(prefix_ids)[:n]
+
+        def loop(decoder, f, v, p):
+            return (no_speech_probability(decoder, f, p, no_speech_id, sot_index=n - 1,
+                                          encoder_valid=v),)
+
+        (prob,) = self._run("no_speech", loop, features, valid, prefix, None, weight_quant,
+                            dict(no_speech_id=int(no_speech_id)))
+        return prob
+
     # -- one call -----------------------------------------------------------------
 
     def _run(self, name: str, loop, features, valid, prefix_ids, logit_rules, weight_quant,
-             static: dict) -> tuple:
-        def program(f, v, p):
+             static: dict, shared=None) -> tuple:
+        """One call of ``loop``; ``shared()`` fills and returns the static
+        inputs that every graph of their shape reads in place (called on the
+        call's stream after the last replay)."""
+        def program(f, v, p, *extra):
             decoder = self.prepared_decoder(weight_quant)
             self.decoder.refresh_decode_params(decoder)
-            return loop(decoder, f, v, p)
+            return loop(decoder, f, v, p, *extra)
 
         with self._lock, torch.no_grad():
             self.prepared_decoder(weight_quant)  # made outside any capture
             if features.device.type != "cuda":
-                return program(features, valid, prefix_ids)
+                return program(features, valid, prefix_ids, *(shared() if shared else ()))
             prefix = _pinned_prefix(prefix_ids)
             key = program_key(name, self.decoder, features, valid, int(prefix.shape[0]),
                               logit_rules, weight_quant, **static)
             stream = torch.cuda.current_stream(features.device)
             if self._last is not None:
                 stream.wait_event(self._last)
-            prog = self.programs.get(key)
-            if prog is None:
-                prog = self._capture(key, program, features, valid, prefix, logit_rules, stream)
-            else:
-                for dst, src in zip(prog.inputs, (features, valid, prefix)):
-                    if dst is not None:
-                        dst.copy_(src, non_blocking=True)
-            self.replay(prog.graph)
-            out = tuple(o.clone() for o in prog.outputs)
+            extra = shared() if shared else ()
+            out = self.run_keyed(self.programs, key, lambda f, v, p: program(f, v, p, *extra),
+                                 (features, valid, prefix), stream, keep=logit_rules,
+                                 loop=name, shape=list(features.shape))
             self._last = torch.cuda.Event()
             self._last.record(stream)
         return out
 
-    def _capture(self, key: tuple, program, features, valid, prefix, logit_rules,
-                 stream) -> _Program:
-        """Capture ``program`` on static copies of this call's inputs."""
-        # Graphs that read parameters at addresses the source no longer has.
-        self.programs = {k: p for k, p in self.programs.items() if k[-1] == key[-1]}
-        inputs = (features.clone(), None if valid is None else valid.clone(),
-                  torch.empty(prefix.shape, dtype=torch.long, device=features.device).copy_(
-                      prefix, non_blocking=True))
-        graph, outputs = self.capture_graph(lambda: program(*inputs), stream, loop=key[0],
-                                            shape=list(features.shape))
-        prog = self.programs[key] = _Program(graph, inputs, outputs, logit_rules)
-        return prog
+
+def encode_key(modules, inputs: tuple, static: dict) -> tuple:
+    """The key of the encode graph of ``inputs`` over ``modules``: the
+    inputs' shapes and dtypes, the device, the static arguments, the
+    attention backend of every layer that has one and the ``data_ptr()`` of
+    every parameter and buffer (last, as in ``program_key``)."""
+    return (tuple((tuple(x.shape), x.dtype) for x in inputs), inputs[0].device,
+            tuple(sorted(static.items())),
+            tuple(m.backend for mod in modules for m in mod.modules() if hasattr(m, "backend")),
+            tuple(t.data_ptr() for mod in modules for t in (*mod.parameters(), *mod.buffers())))
+
+
+class EncodeProgram(GraphPool):
+    """A net's encode, ``fn(*inputs, **static) -> tuple of tensors`` over the
+    weights of ``modules``, as one CUDA graph per ``encode_key`` in one pool
+    (see the module doc). ``graphs``: key -> (graph, static inputs, static
+    outputs, None). On the CPU a call runs ``fn``."""
+
+    def __init__(self, fn, *modules):
+        super().__init__()
+        self.fn = fn
+        self.modules = modules
+        self.graphs: dict = {}
+        self._lock = threading.Lock()
+        self._last = None  # CUDA event after the last replay
+
+    def __call__(self, *inputs: torch.Tensor, **static) -> tuple:
+        with self._lock, torch.no_grad():
+            dev = inputs[0].device
+            if dev.type != "cuda":
+                return self.fn(*inputs, **static)
+            key = encode_key(self.modules, inputs, static)
+            stream = torch.cuda.current_stream(dev)
+            if self._last is not None:
+                stream.wait_event(self._last)
+            out = self.run_keyed(self.graphs, key, lambda *held: self.fn(*held, **static),
+                                 inputs, stream, loop="encode", shape=list(inputs[0].shape))
+            self._last = torch.cuda.Event()
+            self._last.record(stream)
+        return out

@@ -24,26 +24,33 @@ default source, ``GumbelDraws``, draws on the tensors' device from an
 explicit ``torch.Generator`` seeded from ``seed`` and the fold path; a test
 can hand in JAX's own draws and get the JAX package's tokens.
 
-The sampling loop is one Python loop over ``decode_step`` with no read-back
-inside it: ``done``, the summed logprob and the scored-step count stay
-tensors. The ``best_of`` rows ride ``init_cache(beam_groups=best_of)`` in
-the JAX row order (example-major) and never reorder. Scoring follows openai:
+The noise of every step is drawn before the loop into one ``[max_len - 1,
+rows, V]`` buffer (``sample_noise``), which the loop reads row by row: a
+CUDA graph of the loop (``decode/programs.py``) takes the buffer as a static
+input that each call fills anew. The sampling loop is one Python loop over
+``decode_step`` with no read-back inside it: ``done``, the summed logprob
+and the scored-step count stay tensors. The ``best_of`` rows ride
+``init_cache(beam_groups=best_of)`` in the JAX row order (example-major)
+and never reorder. Scoring follows openai:
 the summed logprob takes the un-tempered, rule-masked, renormalised logprob
 of each chosen token up to and including the EOS emission, and
 ``avg_logprob`` divides by that count. The temperature ladder is host
 control flow and reads each rung's result back: the gates inspect the text.
+With a ``DecodePrograms`` (``decode_with_fallback(programs=...)``) every
+rung and the no-speech probe replay that object's graphs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import zlib
 
 import numpy as np
 import torch
 
-from mocov2_whisper_flamingo_torch.decode.beam import beam_search
+from mocov2_whisper_flamingo_torch.decode.beam import beam_search, prefix_tensor
 
 
 class GumbelDraws:
@@ -78,6 +85,18 @@ class GumbelDraws:
         return g.to(device)
 
 
+def sample_noise(draws, n_prefix: int, shape: tuple, device, out=None) -> torch.Tensor:
+    """The sampler's noise ``[max_len - 1, rows, V]`` fp32 (``shape``): row
+    ``i`` is ``draws.fold(i).gumbel((rows, V), device)``, the noise of step
+    ``i``, for the sampled steps ``n_prefix - 1 .. max_len - 2``; the rows
+    of the forced prefix are never read. Written into ``out`` when given."""
+    if out is None:
+        out = torch.empty(shape, dtype=torch.float32, device=device)
+    for i in range(n_prefix - 1, shape[0]):
+        out[i].copy_(draws.fold(i).gumbel(shape[1:], device))
+    return out
+
+
 @dataclasses.dataclass
 class SampleResult:
     sequences: torch.Tensor    # [B, N, L] token ids (EOS-filled past the end)
@@ -99,6 +118,7 @@ def sample_decode(
     cache_quant: str | None = None,
     seed: int = 0,
     draws=None,
+    noise: torch.Tensor | None = None,
 ) -> SampleResult:
     """Draw ``num_samples`` independent sampled continuations per example.
 
@@ -106,16 +126,19 @@ def sample_decode(
     greedy (all rows equal). ``logit_rules`` are applied to the
     log-softmaxed scores before both the draw and the scoring, which then
     renormalises. Step ``i`` draws its noise from ``draws.fold(i)``
-    (default ``GumbelDraws(seed)``). Returns every row; callers rank by
-    ``avg_logprob``. ``cache_quant``: ``"int8"`` or ``"int8-cross"``
-    (``init_cache``). An eager loop (no CUDA graph, ``decode/programs.py``):
-    a replay would draw one call's noise in every call."""
+    (default ``GumbelDraws(seed)``), or reads row ``i`` of ``noise``
+    (``sample_noise``) when it is given. Returns every row; callers rank by
+    ``avg_logprob``. ``prefix_ids``: ints, or a long tensor on the encoder
+    output's device. ``cache_quant``: ``"int8"`` or ``"int8-cross"``
+    (``init_cache``)."""
     dev = encoder_out.device
     rows = encoder_out.shape[0] * num_samples
-    prefix = torch.as_tensor(list(prefix_ids), dtype=torch.long, device=dev)
+    prefix = prefix_tensor(prefix_ids, dev)
     n_prefix = int(prefix.shape[0])
     t = float(temperature)
-    draws = draws if draws is not None else GumbelDraws(seed)
+    if t > 0.0 and noise is None:
+        noise = sample_noise(draws if draws is not None else GumbelDraws(seed), n_prefix,
+                             (max_len - 1, rows, decoder.config.vocab_size), dev)
 
     cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=num_samples,
                                quant=cache_quant)
@@ -135,7 +158,7 @@ def sample_decode(
             # over the allowed set (openai log-softmaxes after its filters).
             logp = torch.log_softmax(logit_rules(logp, tokens, i + 1, n_prefix), dim=-1)
         if t > 0.0:
-            nxt = torch.argmax(logp / t + draws.fold(i).gumbel(logp.shape, dev), dim=-1)
+            nxt = torch.argmax(logp / t + noise[i], dim=-1)
         else:
             nxt = torch.argmax(logp, dim=-1)
         nxt = torch.where(done, eos_id, nxt)
@@ -165,14 +188,14 @@ def no_speech_probability(
     """Probability of ``<|nospeech|>`` at the SOT position (openai
     ``probs_at_sot[:, no_speech_token]``): teacher-force ``prefix_ids[:
     sot_index + 1]`` and softmax the logits that the SOT token produces.
+    ``prefix_ids``: ints, or a long tensor on the encoder output's device.
     Returns ``[B]`` fp32 on the decoder's device."""
     b = encoder_out.shape[0]
-    prefix = [int(t) for t in prefix_ids]
+    prefix = prefix_tensor(prefix_ids, encoder_out.device)
     n = int(sot_index) + 1
     cache = decoder.init_cache(encoder_out, max_len=n + 1)
     for i in range(n):
-        cur = torch.full((b, 1), prefix[i], dtype=torch.long, device=encoder_out.device)
-        logits, cache = decoder.decode_step(cur, cache, i, encoder_valid)
+        logits, cache = decoder.decode_step(prefix[i].expand(b, 1), cache, i, encoder_valid)
     return torch.softmax(logits.float(), dim=-1)[:, no_speech_id]
 
 
@@ -256,6 +279,7 @@ def decode_with_fallback(
     no_speech_threshold: float | None = None,
     seed: int = 0,
     draws=None,
+    programs=None,
 ) -> FallbackResult:
     """openai ``decode_with_fallback``: beam search at t = 0
     (``renorm_after_rules=True``, so its average logprob sits on the sampled
@@ -271,13 +295,29 @@ def decode_with_fallback(
     ``no_speech_threshold`` a probability above it accepts the current rung
     whatever the gates say (openai's silence override).
 
-    The rungs run the eager loops, not ``decode/programs.py``'s graphs: the
-    beam rung's prefix length changes window by window, and a sampled
-    rung's noise comes from its own fold path."""
+    ``programs``: a ``DecodePrograms`` (``decode/programs.py``) of which
+    ``decoder`` is a prepared decoder. The beam rung, the sampled rungs and
+    the probe then replay its graphs (one per prefix length, temperature
+    and ``sot_index``, on the card), each over a refresh of ``decoder``;
+    without it they run the eager loops over ``decoder`` as it is."""
     temperatures = tuple(temperatures)
     if not temperatures:
         raise ValueError("temperatures must be non-empty")
     draws = draws if draws is not None else GumbelDraws(seed)
+    if programs is not None:
+        weight_quant = programs.weight_quant_of(decoder)
+        probe, beam, sample = (functools.partial(fn, weight_quant=weight_quant) for fn in
+                               (programs.no_speech, programs.beam, programs.sample))
+    else:  # (features, valid, prefix, ...) as the programs take them
+        def probe(f, v, p, no_speech_id, **kw):
+            return no_speech_probability(decoder, f, p, no_speech_id, encoder_valid=v, **kw)
+
+        def beam(f, v, p, **kw):
+            return beam_search(decoder, f, p, encoder_valid=v, **kw)
+
+        def sample(f, v, p, **kw):
+            return sample_decode(decoder, f, p, encoder_valid=v, **kw)
+
     n_prefix = len(list(prefix_ids))
     b = encoder_out.shape[0]
     best_seq = np.full((b, max_len), eos_id, np.int32)
@@ -288,10 +328,8 @@ def decode_with_fallback(
 
     ns_prob = None
     if no_speech_id is not None:
-        ns_prob = no_speech_probability(
-            decoder, encoder_out, prefix_ids, no_speech_id,
-            sot_index=0 if sot_index is None else sot_index,
-            encoder_valid=encoder_valid).cpu().numpy()
+        ns_prob = probe(encoder_out, encoder_valid, prefix_ids, no_speech_id,
+                        sot_index=0 if sot_index is None else sot_index).cpu().numpy()
 
     def to_text(row: np.ndarray) -> str | bytes:
         ids = [int(x) for x in row[n_prefix:]]
@@ -303,18 +341,16 @@ def decode_with_fallback(
 
     for t in temperatures:
         if t == 0.0:
-            r = beam_search(decoder, encoder_out, prefix_ids, beam_size=beam_size,
-                            max_len=max_len, eos_id=eos_id, length_penalty=length_penalty,
-                            encoder_valid=encoder_valid, logit_rules=logit_rules,
-                            renorm_after_rules=True)
+            r = beam(encoder_out, encoder_valid, prefix_ids, beam_size=beam_size,
+                     max_len=max_len, eos_id=eos_id, length_penalty=length_penalty,
+                     logit_rules=logit_rules, renorm_after_rules=True)
             seq = r.sequences[:, 0].cpu().numpy()
             avg = _beam_avg_logprob(seq, r.scores[:, 0].cpu().numpy(), n_prefix, eos_id,
                                     length_penalty)
         else:
-            r = sample_decode(decoder, encoder_out, prefix_ids, temperature=t,
-                              num_samples=best_of, max_len=max_len, eos_id=eos_id,
-                              encoder_valid=encoder_valid, logit_rules=logit_rules,
-                              draws=draws.fold(int(t * 1000)))
+            r = sample(encoder_out, encoder_valid, prefix_ids, temperature=t,
+                       num_samples=best_of, max_len=max_len, eos_id=eos_id,
+                       logit_rules=logit_rules, draws=draws.fold(int(t * 1000)))
             pick = torch.argmax(r.avg_logprob, dim=-1)
             rows = torch.arange(b, device=pick.device)
             seq = r.sequences[rows, pick].cpu().numpy()

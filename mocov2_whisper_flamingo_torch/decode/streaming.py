@@ -48,8 +48,9 @@ How the TPU design is rendered on the GPU:
   every chunk replays its key's graph (captured at the key's first chunk,
   the capture's eager run undone); a capture or replay error raises. On the
   CPU the same chunk runs eagerly, the plain version. The graph reads the
-  prepared decoder it is given: ``transcribe_long_form``'s streaming mode
-  captures once per call.
+  prepared decoder it is given, so a decoder kept across calls
+  (``transcribe_long_form(stream_decoders=...)``, as ``WhisperASR`` keeps
+  one per configuration) captures its keys once.
 - **Resume.** The next chunk's first step re-feeds the token at ``i_new`` at
   position ``i_new``, which overwrites that position's K/V against the new
   chunk's cross K/V; keys past ``i_new`` (EOS steps of finished beams) are
@@ -399,21 +400,27 @@ def transcribe_long_form(
     draws=None,
     return_segments: bool = False,
     cache_layout: str = "rows",
+    programs=None,
+    stream_decoders: dict | None = None,
 ) -> list[int] | tuple[list[int], list[dict]]:
     """Long-form ASR: waveform of any length -> 30 s windows -> log-mel ->
     encoder -> decode. Returns every generated token id (prefix excluded);
     ``return_segments`` also returns segment dicts ``{"id", "start", "end",
     "seek", "tokens", ...}``.
 
-    ``encoder`` is a ``WhisperEncoder``, ``decoder`` a prepared
-    ``WhisperDecoder`` on the same device (they hold the weights the JAX
-    function takes as ``encoder_params`` / ``decoder_params``); ``audio`` a
-    ``[T]`` waveform. Each window is encoded once, on that device.
+    ``encoder`` is a ``WhisperEncoder`` or another callable ``mel [1,
+    n_mels, T] -> [1, T', D]`` (``WhisperASR.encode``, whose CUDA graph
+    replays), ``decoder`` a prepared ``WhisperDecoder`` on the same device
+    (they hold the weights the JAX function takes as ``encoder_params`` /
+    ``decoder_params``); ``audio`` a ``[T]`` waveform. Each window is
+    encoded once, on that device.
 
     **Streaming mode** (``temperatures=None``): one persistent-cache
     ``StreamingDecoder``; with ``rollover`` the transcript is not bounded by
     ``max_len``. One segment per chunk that produced tokens (window bounds
-    clipped to the audio).
+    clipped to the audio). ``stream_decoders``: a dict that keeps one
+    ``StreamingDecoder`` per configuration across calls (made on first use,
+    ``reset`` at each call), so that its chunk graphs are captured once.
 
     **Quality mode** (``temperatures`` given): openai ``transcribe``'s window
     loop. Each window is decoded on its own through
@@ -435,12 +442,14 @@ def transcribe_long_form(
     ``gates_passed`` and, when probed, ``no_speech_prob``. Window ``w``
     samples from ``draws.fold(w)`` (default ``GumbelDraws(seed)``), the JAX
     key chain ``fold_in(key, w)``. This mode reads each rung's tokens back:
-    the gates inspect them."""
+    the gates inspect them. ``programs``: the ``DecodePrograms`` whose
+    prepared decoder ``decoder`` is; the rungs and the probe then replay its
+    graphs (``decode_with_fallback``)."""
     from mocov2_whisper_flamingo_torch.ops.mel import whisper_log_mel
 
     chunk_samples = int(chunk_seconds * sample_rate)
     mel_fn = mel_fn or (lambda wav: whisper_log_mel(wav, pad_to=chunk_samples))
-    device = next(encoder.parameters()).device
+    device = decoder.pos_embed.device
     audio = torch.as_tensor(audio, dtype=torch.float32).to(device)
     n_chunks = max(-(-audio.shape[-1] // chunk_samples), 1)
     duration = audio.shape[-1] / sample_rate
@@ -505,7 +514,7 @@ def transcribe_long_form(
                 compression_ratio_threshold=compression_ratio_threshold, text_fn=text_fn,
                 no_speech_id=no_speech_id if probe_ns else None, sot_index=sot_index,
                 no_speech_threshold=no_speech_threshold if probe_ns else None,
-                draws=draws.fold(window_index))
+                draws=draws.fold(window_index), programs=programs)
             window_index += 1
             skipped = False
             if probe_ns:
@@ -552,14 +561,21 @@ def transcribe_long_form(
                 reset_since = len(committed)
         return (committed, segments) if return_segments else committed
 
-    stream = StreamingDecoder(
-        decoder, prefix_ids, max_len=max_len, eos_id=eos_id,
-        max_tokens_per_chunk=max_tokens_per_chunk, beam_size=beam_size,
-        length_penalty=length_penalty, rollover=rollover,
-        context_tokens=context_tokens, sot_prev_id=sot_prev_id,
-        logit_rules=logit_rules,
-        initial_context=[int(t) for t in (initial_prompt_ids or [])] or None,
-        cache_layout=cache_layout)
+    config = dict(max_len=max_len, eos_id=eos_id, max_tokens_per_chunk=max_tokens_per_chunk,
+                  beam_size=beam_size, length_penalty=length_penalty, rollover=rollover,
+                  context_tokens=context_tokens, sot_prev_id=sot_prev_id,
+                  logit_rules=logit_rules,
+                  initial_context=[int(t) for t in (initial_prompt_ids or [])] or None,
+                  cache_layout=cache_layout)
+    key = (id(decoder), tuple(int(t) for t in prefix_ids), id(logit_rules),
+           *((k, tuple(v) if isinstance(v, list) else v) for k, v in config.items()
+             if k != "logit_rules"))
+    stream = None if stream_decoders is None else stream_decoders.get(key)
+    if stream is None:
+        stream = StreamingDecoder(decoder, prefix_ids, **config)
+        if stream_decoders is not None:
+            stream_decoders[key] = stream
+    stream.reset()
     out: list[int] = []
     segments = []
     for i in range(n_chunks):

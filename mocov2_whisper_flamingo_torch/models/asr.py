@@ -3,7 +3,12 @@
   wav -> log-mel (``ops/mel.py``) -> Whisper encoder -> KV-cached greedy or
   beam decode -> token ids
 
-The encoder's self-attention runs the flash-attention kernel. Weights come
+The encoder's self-attention runs the flash-attention kernel. On the card
+the encode and the decode loops replay CUDA graphs (``decode/programs.py``):
+``encode_program`` holds one graph per mel shape, ``decode_programs`` the
+decodes, the sampled rungs and the no-speech probe over a decoder prepared
+once, and ``transcribe`` keeps its streaming decoders across calls, so a
+second call of a shape captures nothing and prepares nothing. Weights come
 from the JAX-layout tree through ``models/convert.py::load_jax_params``, or
 from an HF Whisper state dict through ``load_whisper_torch``. ``transcribe``
 runs audio of any length: the long-form window loop with temperature
@@ -19,7 +24,7 @@ import torch
 from torch import nn
 
 from mocov2_whisper_flamingo_torch.decode.language import detect_language
-from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms
+from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms, EncodeProgram
 from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.convert import (
@@ -44,9 +49,11 @@ class WhisperASR(nn.Module):
         self.precision = precision
         self.encoder = WhisperEncoder(self.config, precision, self.device)
         self.decoder = WhisperDecoder(self.config, precision, self.device)
-        # transcribe_tokens: the decoder prepared once and the loops compiled
-        # (CUDA graphs on the card, the eager loop on the CPU).
+        # The encode and the decode loops compiled (CUDA graphs on the card,
+        # the eager functions on the CPU); the decoder prepared once.
+        self.encode_program = EncodeProgram(lambda mel: (self.encoder(mel),), self.encoder)
         self.decode_programs = DecodePrograms(self.decoder)
+        self.stream_decoders: dict = {}  # transcribe's streaming mode, by configuration
 
     def load_whisper_torch(self, state_dict) -> "WhisperASR":
         """Install an HF ``WhisperModel`` / ``WhisperForConditionalGeneration``
@@ -65,7 +72,11 @@ class WhisperASR(nn.Module):
 
     @torch.no_grad()
     def encode(self, mel: torch.Tensor) -> torch.Tensor:
-        return self.encoder(mel)
+        """mel ``[B, n_mels, frames]`` -> encoder output ``[B, frames // 2,
+        D]``: on the card a replay of ``encode_program``'s graph for the
+        shape (captured at its first call)."""
+        (out,) = self.encode_program(mel)
+        return out
 
     @torch.no_grad()
     def transcribe_tokens(
@@ -81,8 +92,8 @@ class WhisperASR(nn.Module):
     ) -> torch.Tensor:
         """wav -> token ids ``[B, max_len]`` (the best beam when ``beam_size
         > 1``). ``logit_rules``: an optional ``decode.logit_rules.LogitRules``.
-        The encode is eager; the decode goes through ``decode_programs`` (one
-        CUDA graph per shape on the card), whose prepared decoder (fused and
+        The encode and the decode replay their CUDA graphs on the card
+        (``encode_program``, ``decode_programs``); the prepared decoder (fused and
         cast to the compute dtype, or with ``weight_quant="int8"`` the decode
         step's weights quantized, ``prepare_decode_params``) is made once and
         refreshed from the weights inside the program."""
@@ -103,11 +114,11 @@ class WhisperASR(nn.Module):
                         ) -> tuple[torch.Tensor, torch.Tensor]:
         """Spoken-language id from the first 30 s: ``([B]`` best language
         token id, ``[B, n_lang]`` probabilities in the order of
-        ``language_token_ids``). ``decoder``: an already prepared decoder to
-        reuse in place of a second cast."""
+        ``language_token_ids``). ``decoder``: a prepared decoder up to date
+        with the weights (default: ``decode_programs``' own, refreshed)."""
         enc = self.encode(self.features(audio, pad_to=pad_to))
         if decoder is None:
-            decoder = self.decoder.prepare_decode_params()
+            decoder = self.decode_programs.refreshed_decoder()
         return detect_language(decoder, enc, sot_id, language_token_ids)
 
     @torch.no_grad()
@@ -164,12 +175,15 @@ class WhisperASR(nn.Module):
         "language_probs"}``: ``text`` (whole and per segment) when a
         ``tokenizer`` is given; ``words`` (``decode.timestamps.WordTiming``)
         when ``word_times`` with a ``group_fn``, aligned per window by DTW
-        and offset by the window's origin. The decoder is prepared once and
-        serves the decode, the no-speech probe and the alignment forward;
-        with ``weight_quant="int8"`` that is one int8 decoder."""
+        and offset by the window's origin. The decoder is ``decode_programs``'
+        prepared decoder for ``weight_quant`` (made once, refreshed once a
+        call) and serves the decode, the no-speech probe and the alignment
+        forward; the window encodes replay ``encode_program``, the rungs and
+        the probe ``decode_programs``' graphs, and streaming mode a
+        ``StreamingDecoder`` kept per configuration (``stream_decoders``)."""
         from mocov2_whisper_flamingo_torch.decode.streaming import transcribe_long_form
 
-        decoder = self.decoder.prepare_decode_params(weight_quant)
+        decoder = self.decode_programs.refreshed_decoder(weight_quant)
         text_fn = (lambda ids: tokenizer.decode(ids)) if tokenizer else None
         prefix_ids = [int(t) for t in prefix_ids]
         language = language_probs = None
@@ -190,7 +204,7 @@ class WhisperASR(nn.Module):
             initial_prompt_ids = tokenizer.encode(" " + initial_prompt.strip(),
                                                   add_special_tokens=False)
         tokens, segments = transcribe_long_form(
-            self.encoder, decoder, audio, prefix_ids, eos_id=eos_id,
+            self.encode, decoder, audio, prefix_ids, eos_id=eos_id,
             chunk_seconds=chunk_seconds, sample_rate=sample_rate, max_len=max_len,
             max_tokens_per_chunk=max_tokens_per_chunk, beam_size=beam_size,
             length_penalty=length_penalty, logit_rules=logit_rules,
@@ -199,7 +213,8 @@ class WhisperASR(nn.Module):
             temperatures=temperatures, best_of=best_of, logprob_threshold=logprob_threshold,
             compression_ratio_threshold=compression_ratio_threshold,
             no_speech_threshold=no_speech_threshold, no_speech_id=no_speech_id, sot_id=sot_id,
-            text_fn=text_fn, seed=seed, draws=draws, return_segments=True)
+            text_fn=text_fn, seed=seed, draws=draws, return_segments=True,
+            programs=self.decode_programs, stream_decoders=self.stream_decoders)
         if text_fn:
             for seg in segments:
                 seg["text"] = text_fn(seg["tokens"])

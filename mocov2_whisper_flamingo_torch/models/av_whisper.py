@@ -9,7 +9,9 @@
 
 Weights come from the JAX parameter tree through
 ``models/convert.py::load_jax_params``, or from an HF Whisper state dict
-through ``load_whisper_torch``.
+through ``load_whisper_torch``. On the card the encode and the decode loops
+replay CUDA graphs (``encode_program``, ``decode_programs``;
+``decode/programs.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 from torch import nn
 
 from mocov2_whisper_flamingo_torch.decode.beam import BeamResult
-from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms
+from mocov2_whisper_flamingo_torch.decode.programs import DecodePrograms, EncodeProgram
 from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.models import layers as L
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet
@@ -29,6 +31,7 @@ from mocov2_whisper_flamingo_torch.models.convert import (
     load_jax_params, whisper_decoder_from_torch)
 from mocov2_whisper_flamingo_torch.models.whisper import (
     WhisperConfig, WhisperDecoder, config_for)
+from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
 
 
 class AVWhisperNet(nn.Module):
@@ -56,8 +59,9 @@ class AVWhisperNet(nn.Module):
                            precision=precision, device=device, whisper_config=cfg)
         self.bridge = L.Linear(modelargs[0], cfg.d_model, True, precision, device)
         self.decoder = WhisperDecoder(cfg, precision, device)
-        # greedy/beam: the decoder prepared once and the loops compiled
-        # (CUDA graphs on the card, the eager loop on the CPU).
+        # The encode and the decode loops compiled (CUDA graphs on the card,
+        # the eager functions on the CPU); the decoder prepared once.
+        self.encode_program = EncodeProgram(self._encode, self.trunk, self.bridge)
         self.decode_programs = DecodePrograms(self.decoder)
         self.d_model = modelargs[0]
         self.precision = precision
@@ -78,10 +82,23 @@ class AVWhisperNet(nn.Module):
         return self
 
     @torch.no_grad()
-    def encode(self, input_batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+    def encode(self, input_batch: tuple,
+               video_resize: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """AV trunk up to the fused features, bridged to the decoder width.
-        Returns ``(features [B, T, d_w], valid [B, T])``."""
-        out, video_valid = self.trunk.fused_features(input_batch)
+        Returns ``(features [B, T, d_w], valid [B, T])``. ``video_resize``:
+        the batch's video is raw frames (uint8 ``[B, T, 3, H, W]``), which
+        the encode first puts through ``eval_video_pipeline`` at that size.
+        On the card a replay of ``encode_program``'s graph for the batch's
+        shapes (captured at their first call), with K1 inside."""
+        return self.encode_program(*input_batch, video_resize=video_resize)
+
+    def _encode(self, audio, audio_mask, video, video_mask, video_len,
+                video_resize: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``encode``'s eager function, the program's plain version."""
+        if video_resize is not None:
+            video = eval_video_pipeline(video, resize=video_resize)
+        out, video_valid = self.trunk.fused_features(
+            (audio, audio_mask, video, video_mask, video_len))
         return self.bridge(out), video_valid
 
     @torch.no_grad()
@@ -100,9 +117,9 @@ class AVWhisperNet(nn.Module):
                eos_id: int = 0, logit_rules=None,
                weight_quant: str | None = None,
                cache_quant: str | None = None) -> torch.Tensor:
-        """The eager encode, then ``greedy_decode`` through
-        ``decode_programs``: one CUDA graph per shape on the card, which
-        refreshes the prepared decoder from the weights as they stand.
+        """The encode, then ``greedy_decode`` through ``decode_programs``: on
+        the card a replay of each one's CUDA graph for the shape, the decode's
+        refreshing the prepared decoder from the weights as they stand.
         ``weight_quant="int8"``: the decode step's weights in int8
         (``WhisperDecoder.prepare_decode_params``); ``cache_quant``:
         ``"int8"`` or ``"int8-cross"`` caches (``init_cache``)."""
@@ -116,8 +133,8 @@ class AVWhisperNet(nn.Module):
              logit_rules=None, cache_quant: str | None = None,
              weight_quant: str | None = None, read_windows=None,
              cache_layout: str = "rows") -> BeamResult:
-        """The eager encode, then ``beam_search`` through
-        ``decode_programs`` (as ``greedy``)."""
+        """The encode, then ``beam_search`` through ``decode_programs`` (as
+        ``greedy``)."""
         features, valid = self.encode(input_batch)
         return self.decode_programs.beam(
             features, valid, prefix_ids, beam_size=beam_size, max_len=max_len, eos_id=eos_id,

@@ -54,6 +54,32 @@ def reset_launches() -> None:
     launches_by_kernel.clear()
 
 
+def uncounted(fn):
+    """Run ``fn()`` with the launches it makes left out of the counts.
+    Returns ``(fn's result, its launches, its launches by kernel)``: a CUDA
+    graph's capture records its launches here and ``credit`` adds them at
+    each replay (``decode/programs.py``), so that the counts stay the kernels
+    sent to the card."""
+    global launches
+    n0, by0 = launches, collections.Counter(launches_by_kernel)
+    try:
+        out = fn()
+        n, by = launches - n0, launches_by_kernel - by0
+    finally:
+        launches = n0
+        launches_by_kernel.clear()
+        launches_by_kernel.update(by0)
+    return out, n, by
+
+
+def credit(n: int, by_kernel: collections.Counter) -> None:
+    """Count ``n`` launches, ``by_kernel`` of each instantiation, that a
+    replayed CUDA graph sent to the card."""
+    global launches
+    launches += n
+    launches_by_kernel.update(by_kernel)
+
+
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The CUDA kernel that a call with this dtype and head dim launches."""
     if head_dim not in HEAD_DIMS:

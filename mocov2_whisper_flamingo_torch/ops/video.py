@@ -13,6 +13,8 @@ take the draws (``color_jitter_with_factors``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -38,15 +40,18 @@ def resize_bilinear(frames: torch.Tensor, size: int) -> torch.Tensor:
     return y.reshape(*lead, c, size, size)
 
 
+@functools.lru_cache(maxsize=None)
+def _channel_constants(values: tuple, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)[:, None, None]
+
+
 def _per_channel(values, device) -> torch.Tensor:
-    """``values`` as fp32 ``[C, 1, 1]`` on ``device``. On the card the copy
-    comes from page-locked memory, so it does not wait for the work already
-    queued on the stream (from pageable memory it would: a serving engine's
-    dispatch thread would wait there for the previous batch's decode)."""
-    t = torch.tensor(values, dtype=torch.float32)[:, None, None]
-    if device.type == "cuda":
-        t = t.pin_memory()
-    return t.to(device, non_blocking=True)
+    """``values`` as fp32 ``[C, 1, 1]`` on ``device``, copied from the host
+    once per device and kept: a serving engine's dispatch thread then never
+    waits at a copy for the work queued before it, and a CUDA graph of the
+    pipeline (``AVWhisperNet.encode``) reads the kept tensor, as a capture
+    copies nothing from the host."""
+    return _channel_constants(tuple(float(v) for v in values), torch.device(device))
 
 
 def normalize(frames: torch.Tensor, mean=IMAGENET_MEAN, std=IMAGENET_STD) -> torch.Tensor:

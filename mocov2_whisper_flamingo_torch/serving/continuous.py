@@ -424,12 +424,15 @@ class ContinuousEngine:
     def warmup(self, example_payload: tuple,
                encode_buckets: Sequence[int] = (1, 2, 4, 8, 16)) -> None:
         """Run the encode at every admission bucket (boundary admissions are
-        padded to powers of two) on the engine's stream, capture the segment
-        there on the card (``segment_program.captures`` records its seconds),
-        then one full decode of the example through the loop, so that live
-        traffic meets built kernels, chosen cuDNN algorithms, filled
-        allocator pools and the segment's graph."""
-        for b in encode_buckets:
+        padded to powers of two) on the engine's stream, the largest first
+        (with the AV builder's encode, this captures each bucket's encode
+        graph on the card into one pool, where each smaller bucket reuses
+        the blocks the larger ones freed), capture the segment there
+        (``segment_program.captures`` records its seconds), then one full
+        decode of the example through the loop, so that live traffic meets
+        built kernels, chosen cuDNN algorithms, filled allocator pools and
+        the encode's and the segment's graphs."""
+        for b in sorted(encode_buckets, reverse=True):
             if b <= self.capacity:
                 with self._device_lock, self._on_device():
                     self.encode([tuple(example_payload)] * b)
@@ -564,11 +567,11 @@ def make_continuous_av_engine(
 ) -> ContinuousEngine:
     """Continuous-batching engine over ``models.av_whisper.AVWhisperNet``
     on the model's device, with ``make_av_engine``'s payload per request.
+    Admissions are encoded by ``AVWhisperNet.encode`` (the video pipeline
+    inside), one CUDA graph per admission bucket on the card, in one pool.
     ``max_len`` must be a multiple of ``seg_steps`` (the segment grid).
     ``weight_quant="int8"``: int8 decode weights (the caches stay in the
     compute dtype, as in the JAX engine)."""
-    from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
-
     if max_len % seg_steps:
         raise ValueError(f"max_len={max_len} must be a multiple of seg_steps={seg_steps}")
     decoder = net.decoder.prepare_decode_params(weight_quant)
@@ -582,11 +585,9 @@ def make_continuous_av_engine(
         bucket = 1
         while bucket < n:
             bucket *= 2
-        audio, audio_mask, video_u8, video_mask, video_len = (
-            torch.as_tensor(x).to(device, non_blocking=True)
-            for x in pad_rows(payloads, bucket, pin_memory=cuda))
-        video = eval_video_pipeline(video_u8, resize=video_resize)
-        feats, valid = net.encode((audio, audio_mask, video, video_mask, video_len))
+        batch = tuple(torch.as_tensor(x).to(device, non_blocking=True)
+                      for x in pad_rows(payloads, bucket, pin_memory=cuda))
+        feats, valid = net.encode(batch, video_resize=video_resize)
         return feats[:n], valid[:n]
 
     return ContinuousEngine(

@@ -7,12 +7,12 @@ of ``serving/engine.py``)::
 
 How the JAX engine's asynchronous dispatch is rendered in PyTorch:
 
-- **Two threads, one stream.** The encode is a Python loop of launches and
-  the decode a replayed CUDA graph, so the dispatch thread is busy for as
-  long as it enqueues them: it collates a batch into pinned host memory,
-  copies it to the card, runs the decode and starts the copy of the token
-  rows into a pinned host buffer, all on one CUDA stream that the engine
-  owns, then records an event and hands the batch on. The completion thread
+- **Two threads, one stream.** The encode and the decode are replayed CUDA
+  graphs (``decode/programs.py``), so the dispatch thread enqueues a batch
+  in a few launches: it collates a batch into pinned host memory, copies it
+  to the card, replays the encode and the decode and starts the copy of
+  the token rows into a pinned host buffer, all on one CUDA stream that the
+  engine owns, then records an event and hands the batch on. The completion thread
   waits on that event (the GIL is released while it waits), runs
   ``postprocess`` and resolves the futures. What overlaps is the tail of
   batch N on the device and its post-processing with the collate of batch
@@ -20,11 +20,11 @@ How the JAX engine's asynchronous dispatch is rendered in PyTorch:
 - **Warm-up on the same stream.** The caching allocator pools memory per
   stream, so ``warmup`` runs through the engine's stream too; warm-up and
   live batches take turns under one lock. A warmed bucket has had its
-  kernels built, cuDNN's algorithms chosen, its decode captured as a CUDA
-  graph (``decode/programs.py``, through the model's ``greedy``/``beam``/
-  ``transcribe_tokens``) and its allocator pools filled;
+  kernels built, cuDNN's algorithms chosen, its encode and its decode
+  captured as CUDA graphs (through the model's ``encode`` and
+  ``decode_programs``) and its allocator pools filled;
   ``stats()["compiled_buckets"]`` lists the warmed buckets under the JAX
-  engine's name for them. The encode stays eager.
+  engine's name for them.
 - **Thread-local state.** Grad mode and the current stream are per thread;
   every decode sets both itself.
 - **Row independence.** Decoding is per row (beam search carries no state
@@ -461,28 +461,24 @@ def make_av_engine(
 
     Payload per request (fixed shapes): mel ``[3000, 80]`` f32, audio mask
     ``[3000]`` bool, video uint8 ``[T, 3, H, W]`` raw lip frames (resized
-    and normalised on the device), video mask ``[T]`` bool, video length
-    int32.
+    and normalised on the device, inside the encode's CUDA graph), video mask
+    ``[T]`` bool, video length int32.
 
     ``read_windows`` and ``cache_layout`` choose, in the JAX package, how a
     TPU reads and lays out the self cache, per bucket under ``"auto"``; they
     leave the tokens unchanged, and the port's beam search accepts them as
     no-ops, so ``"auto"`` passes the plain choices on. ``cache_quant`` and
     ``weight_quant``: as ``AVWhisperNet.beam``."""
-    from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
-
     prefix = [int(t) for t in prefix_ids]
     windows = None if read_windows == "auto" else read_windows
     layout = "rows" if cache_layout == "auto" else cache_layout
 
     def decode_batch(batch):
-        audio, audio_mask, video_u8, video_mask, video_len = batch
-        video = eval_video_pipeline(video_u8, resize=video_resize)
-        return net.beam(
-            (audio, audio_mask, video, video_mask, video_len), prefix,
-            beam_size=beam_size, max_len=max_len, eos_id=eos_id, logit_rules=logit_rules,
-            cache_quant=cache_quant, weight_quant=weight_quant, read_windows=windows,
-            cache_layout=layout).sequences[:, 0]  # top hypothesis per row
+        features, valid = net.encode(batch, video_resize=video_resize)
+        return net.decode_programs.beam(
+            features, valid, prefix, beam_size=beam_size, max_len=max_len, eos_id=eos_id,
+            logit_rules=logit_rules, cache_quant=cache_quant, weight_quant=weight_quant,
+            read_windows=windows, cache_layout=layout).sequences[:, 0]  # top hypothesis
 
     return ServingEngine(decode_batch, buckets=buckets, max_wait_s=max_wait_s,
                          postprocess=_postprocess(prefix, eos_id, tokenizer),

@@ -185,7 +185,7 @@ def test_engine_warmup_and_tokenizer(setup):
     with _engine(tdec, encode, capacity=4, tokenizer=Tok()) as eng:
         eng.warmup((utts[0], valid), encode_buckets=(1, 2, 4, 8))
         res = eng.transcribe(utts[1], valid, timeout=WAIT)
-    assert sizes == [1, 2, 4, 1, 1]  # buckets up to capacity, then the two decodes
+    assert sizes == [4, 2, 1, 1, 1]  # buckets up to capacity, largest first, then the two decodes
     want = _trimmed(solos[1])
     assert res.text == ",".join(str(t) for t in want[len(PREFIX):])
 

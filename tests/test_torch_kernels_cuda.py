@@ -465,6 +465,87 @@ def test_decode_program_capture_error_raises():
 
 
 @pytest.mark.cuda
+def test_graph_pool_counts_a_capture_s_k1_launches_once_per_replay():
+    """A graph whose eager run and capture both launch K1 twice: the counts
+    take neither run's launches, and two at every replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.decode.programs import GraphPool
+
+    q, k, v = _cuda_qkv((2, 130, 130, 2, 64), torch.bfloat16)
+    mask = _cuda_mask((130, 17), 130)
+    pool = GraphPool()
+    fa.reset_launches()
+    graph, out = pool.capture_graph(
+        lambda: (fa.flash_attention(q, k, v), fa.flash_attention(q, k, v, kv_valid=mask)),
+        torch.cuda.current_stream())
+    torch.cuda.synchronize()
+    assert fa.launches == 0 and not fa.launches_by_kernel
+    assert pool.captures[0]["k1_launches"] == 2
+    for n in (1, 2):
+        pool.replay(graph)
+        assert fa.launches == 2 * n and sum(fa.launches_by_kernel.values()) == 2 * n
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], fa.flash_attention(q, k, v))
+    assert torch.equal(out[1], fa.flash_attention(q, k, v, kv_valid=mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_encode_graph_replays_the_eager_encode_and_counts_k1_per_replay(precision):
+    """``WhisperASR.encode`` (K1 in each of its 2 layers) against the eager
+    encoder, bit for bit, at its capture and at a replay on another input;
+    each call counts the 2 launches its replay sent."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.BF16 if precision == "bf16" else L.FP32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        mel = torch.randn((2, 80, 100), generator=gen, device="cuda")
+        with torch.no_grad():
+            want = asr.encoder(mel)
+        fa.reset_launches()
+        got = asr.encode(mel)
+        torch.cuda.synchronize()
+        assert fa.launches == 2 and torch.equal(got, want)
+    assert len(asr.encode_program.captures) == 1 and asr.encode_program.replays == 2
+    assert asr.encode_program.captures[0]["k1_launches"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_sample_and_probe_programs_replay_the_eager_functions(precision):
+    """The sampler's graph against ``sample_decode`` with the same noise,
+    captured at the first draw and replayed with another; the no-speech
+    probe's graph against ``no_speech_probability``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.decode.sampling import (
+        GumbelDraws, no_speech_probability, sample_decode)
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    asr = _tiny_asr("cuda", L.BF16 if precision == "bf16" else L.FP32)
+    dec = asr.decoder.prepare_decode_params()
+    kw = dict(temperature=0.7, num_samples=3, max_len=12, eos_id=3)
+    rows = []
+    for seed in (0, 1):
+        feats, valid = _card_features(asr, 2, seed)
+        want = sample_decode(dec, feats, [1, 2], encoder_valid=valid, draws=GumbelDraws(seed),
+                             **kw)
+        got = asr.decode_programs.sample(feats, valid, [1, 2], draws=GumbelDraws(seed), **kw)
+        for name in ("sequences", "sum_logprob", "avg_logprob"):
+            assert torch.equal(getattr(got, name), getattr(want, name)), (name, seed)
+        rows.append(got.sequences)
+        prob = asr.decode_programs.no_speech(feats, valid, [1, 2], 5, sot_index=1)
+        assert torch.equal(prob, no_speech_probability(dec, feats, [1, 2], 5, sot_index=1,
+                                                       encoder_valid=valid))
+    assert not torch.equal(rows[0], rows[1])
+    assert [c["loop"] for c in asr.decode_programs.captures] == ["sample", "no_speech"]
+
+
+@pytest.mark.cuda
 def test_engine_warmup_captures_each_bucket_and_rows_equal_the_eager_loop():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
