@@ -17,10 +17,15 @@ their memory pools.
 
 Then the training path: the kernel's gradients through its autograd wrapper
 against autograd through the plain version; three fp32 optimizer steps on
-the card against the same steps on the CPU; and ``Trainer.fit`` at full
-width (BF16, B=4, 400 frames, 64 target tokens) with the config's dropout,
-with dropout 0, with activation checkpointing and with on-device
-augmentation, each timed per step, with one step split into its parts.
+the card against the same steps on the CPU, and on the card through the
+train program against the eager steps bit for bit; and ``Trainer.fit`` at
+full width (BF16, B=4, 400 frames, 64 target tokens) through the train
+program (``training/programs.py``: a forward graph and a backward-and-update
+graph per batch shape, the losses run eagerly between them) with the
+config's dropout, with dropout 0, with activation checkpointing and with
+on-device augmentation, each timed per step, beside an eager fit; one
+replayed step split into its parts, its synchronising calls, and program
+and eager steps in turns held bit for bit.
 
 Then the request server: the AV engine (``make_av_engine``, buckets 1 and 4,
 each bucket's decode captured at warm-up) answers nine requests at full
@@ -49,9 +54,10 @@ Then data-fed training: a dataset written to disk (16 train, 4 validation
 and 4 test clips of 12 s 48 kHz audio and 280-400 uint8 96x96 frames, and a
 MoCo v2 checkpoint of random weights) goes through ``DataModule`` (4 worker
 threads, 2 batches prefetched and placed on the card by the prefetch thread),
-``train.build_net`` and ``Trainer`` for 8 steps at full width, with host
-augmentation, with ``augmentation.on_device`` and with ``on_device_mel``;
-then ``train.main`` itself for 2 steps.
+``train.build_net`` and ``Trainer`` at full width, with host augmentation
+(4 steps: it waits on its loader), with ``augmentation.on_device`` and with
+``on_device_mel`` (8 steps each), each through the train program; then
+``train.main`` itself for 2 steps.
 
 Then long-form quality transcription (phase 14): ``WhisperASR.transcribe``
 over 90 s of audio in three 30 s windows with the temperature ladder, the
@@ -62,9 +68,9 @@ bit for bit; the timestamp-conditioned seek loop over a 30 s clip; one
 window in fp32 on the card against the CPU with one noise for both; and the
 ``transcribe`` command line writing all five formats.
 
-Then int8 (phase 15): the direct AV decode of phase 4 in turns with int8
-decode weights, int8 caches, an int8 cross cache and both, each timed, traced
-and measured for memory, its logits held against the bf16 step and its fp32
+Then int8 (phase 15): the direct AV decode of phase 4 (at 64 tokens) in turns
+with int8 decode weights, int8 caches, an int8 cross cache and both, each
+timed and measured for memory (the bf16 and w8 steps traced), its logits held against the bf16 step and its fp32
 tokens held card against CPU at small depth; an int8 audio engine against a
 direct decode of its bucket; ``transcribe(weight_quant="int8")`` with word
 times; and ``Trainer.fit`` with the frozen encoder in int8 beside bf16 storage.
@@ -99,6 +105,7 @@ import base64
 import collections
 import contextlib
 import dataclasses
+import gc
 import io
 import http.client
 import json
@@ -150,6 +157,7 @@ from mocov2_whisper_flamingo_torch.serving import (
     make_continuous_av_engine, pad_rows, trim_at_eos)
 from mocov2_whisper_flamingo_torch.serving import continuous
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
+from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.tools import (
     convert_checkpoint, export_model, max_frame_count, smoke_test, verify_model)
@@ -230,6 +238,10 @@ CONT_BUCKETS = (1, 2, 4, 8, 16)
 INT8_MODES = {"bf16": (None, None), "w8": ("int8", None), "c8": (None, "int8"),
               "c8x": (None, "int8-cross"), "w8_c8": ("int8", "int8")}
 INT8_FP32_MAX_LEN, INT8_LOGIT_SPREAD, INT8_LOGIT_STEPS, INT8_WINDOW = 32, 0.05, 8, 16
+# the modes whose eager decode step is traced over a window (the others' replayed
+# decodes are timed only: the script's time budget)
+INT8_TRACED = ("bf16", "w8")
+INT8_MAX_TOKENS = 64  # the timed decodes' length (phase 4: 160), for the time budget
 INT8_ASR_MAX_LEN = 32
 # Multi-rank training (phase 16): the legs' (data, model) meshes, two gloo
 # processes each on the one card; a rank's wall limit; fp32 micro-batches (2
@@ -889,12 +901,36 @@ def synthetic_train_batch(rng, b: int, frames: int, dev, augmentable: bool = Fal
     }
 
 
+def host_lengths(batch: dict) -> dict:
+    """A batch's lengths on the host, as ``Trainer._put_batch`` keeps them
+    for the CTC."""
+    return {k: batch[k].cpu() for k in ("audio_lengths", "target_lengths")}
+
+
+def same_train_state(a, b) -> dict:
+    """Parameters (of the nets), optimizer state tensors and generators of
+    two ``(net, optimizer, generator)``: ``equal`` bit for bit, else the
+    largest difference of each kind."""
+    (net_a, opt_a, gen_a), (net_b, opt_b, gen_b) = a, b
+    pairs = {"params": list(zip(net_a.parameters(), net_b.parameters())),
+             "optimizer": list(zip(opt_a.state_tensors(), opt_b.state_tensors()))}
+    out = {"equal": torch.equal(gen_a.get_state(), gen_b.get_state())}
+    for kind, tensors in pairs.items():
+        diff = max((x.double() - y.double()).abs().max().item() for x, y in tensors)
+        out[f"{kind}_max_abs_diff"] = diff
+        out["equal"] = out["equal"] and all(torch.equal(x, y) for x, y in tensors)
+    return out
+
+
 def check_train_steps(seed: int) -> dict:
     """Three fp32 optimizer steps through ``AVSRTask`` on the card and on the
     CPU from the same weights (whisper-small width and depth, B=2, 32
     frames, dropout 0, gates at 0.5 so that every trainable parameter has a
     gradient): losses and trainable parameters agree, frozen parameters do
-    not move, and K1 launches 15 times a step on the card."""
+    not move, and K1 launches 15 times a step on the card. On the card a
+    twin net takes the same steps through the train program
+    (``TrainProgram``: a capture, then replays), held against the eager
+    steps bit for bit: losses, parameters, optimizer state, generator."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     modelargs = MODELARGS[:5] + (0.0,)
@@ -917,16 +953,39 @@ def check_train_steps(seed: int) -> dict:
         task = AVSRTask(net)
         opt, _ = make_optimizer(training, 10, net.trainable_parameters())
         gen = torch.Generator(device=dev).manual_seed(seed)
+        if dev == "cuda":
+            twin = AVNet("audiovisual", None, 96, modelargs, VOCAB,
+                         whisper_name="whisper-small", precision=L.FP32, device=dev)
+            load_jax_params(twin, tree)
+            twin_opt, _ = make_optimizer(training, 10, twin.trainable_parameters())
+            twin_gen = torch.Generator(device=dev).manual_seed(seed)
+            program = TrainProgram(AVSRTask(twin), twin_opt, twin_gen, {})
         step_losses = []
         for batch in cpu_batches:
+            placed = {k: v.to(dev) for k, v in batch.items()}
             fa.reset_launches()
-            out = task.train_step(opt, {k: v.to(dev) for k, v in batch.items()}, gen)
+            out = task.train_step(opt, placed, gen, lengths=host_lengths(batch))
             if dev == "cuda" and fa.launches != 15:
                 raise AssertionError(f"fp32 train step launched K1 {fa.launches} times, "
                                      "expected 15 (12 encoder + 3 fusion)")
             if float(out["skipped"]):
                 raise AssertionError(f"fp32 train step on {dev} had a non-finite loss")
+            if dev == "cuda":
+                fa.reset_launches()
+                got = program.train_step(placed, host_lengths(batch))
+                if fa.launches != 15 or not all(torch.equal(got[k], out[k]) for k in out):
+                    raise AssertionError(f"fp32 train program step: K1 {fa.launches} launches, "
+                                         f"losses {got} against the eager step's {out}")
             step_losses.append({k: float(v) for k, v in out.items()})
+        if dev == "cuda":
+            program_check = same_train_state((net, opt, gen), (twin, twin_opt, twin_gen))
+            program_check.update(captures=len(program.captures), replays=program.replays)
+            log(f"train fp32 program against the eager step on the card, 3 steps: "
+                f"{json.dumps(program_check)}")
+            if not program_check["equal"] or program.replays != 6:
+                raise AssertionError(f"fp32 train program against the eager step: "
+                                     f"{program_check}")
+            del twin, twin_opt, program
         for name, param in net.named_parameters():
             if name in frozen and not torch.equal(param, frozen[name]):
                 raise AssertionError(f"frozen parameter {name} changed on {dev}")
@@ -953,7 +1012,8 @@ def check_train_steps(seed: int) -> dict:
         raise AssertionError(f"fp32 trainable parameters card vs CPU differ by {param_err}")
     return {"losses_card": [x["loss"] for x in l_gpu], "losses_cpu": [x["loss"] for x in l_cpu],
             "max_loss_diff": loss_err, "max_param_diff": param_err,
-            "largest_param_move": max(moved.values()), "k1_launches_per_step": 15}
+            "largest_param_move": max(moved.values()), "k1_launches_per_step": 15,
+            "program_vs_eager_on_the_card": program_check}
 
 
 def _leaf(tree, dotted: str):
@@ -980,11 +1040,12 @@ class _RecordingWriter:
 
 
 class _SyntheticDataModule:
-    """The same batch ``steps`` times; the train loader notes the K1 launch
-    count each time the trainer comes back for a batch."""
+    """The same batch ``steps`` times, its lengths on the host as a loader
+    hands them over; the train loader notes the K1 launch count each time
+    the trainer comes back for a batch."""
 
     def __init__(self, batch: dict, steps: int):
-        self.batch, self.steps, self.launch_marks = batch, steps, []
+        self.batch, self.steps, self.launch_marks = dict(batch, **host_lengths(batch)), steps, []
 
     def train_dataloader(self):
         dm = self
@@ -1007,10 +1068,9 @@ class _SyntheticDataModule:
     test_dataloader = val_dataloader
 
 
-def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
-              expected_launches: int) -> tuple[dict, Trainer]:
-    """``Trainer.fit`` for ``TRAIN_STEPS`` steps on one repeated batch at
-    full width; ms per step over the steps after the warm-up."""
+def make_trainer(name: str, seed: int, workdir: str, overrides: dict) -> tuple[Trainer, dict]:
+    """A ``Trainer`` at full width with phase 7's settings (gates at 0.5),
+    scalars kept in memory; and its config."""
     config = get_config({
         "training.epochs": 1, "training.accumulate_grad_batches": 1, "training.seed": seed,
         "output.log_every_n_steps": 1, "precision.rematerialize": False,
@@ -1023,8 +1083,22 @@ def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
             layer.ff_gate.fill_(GATE)
     trainer = Trainer(config, net, ByteTokenizer())
     trainer.writer = _RecordingWriter(trainer.writer.path)
+    return trainer, config
+
+
+def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
+              expected_launches: int, eager: bool = False) -> tuple[dict, Trainer]:
+    """``Trainer.fit`` for ``TRAIN_STEPS`` steps on one repeated batch at
+    full width; ms per step over the steps after the warm-up. The fit runs
+    the train program (its graphs captured in the first step and replayed in
+    every step, the eval graph in validation), or with ``eager`` the eager
+    step (``step_kind`` set so before the fit: the comparison)."""
+    trainer, config = make_trainer(name, seed, workdir, overrides)
+    if eager:
+        trainer.step_kind = "eager"
     trainer.step_timestamps = []
     dm = _SyntheticDataModule(batch, TRAIN_STEPS)
+    gc.collect()  # earlier phases' cyclic garbage (a net and its programs) out of the peak
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
@@ -1054,73 +1128,158 @@ def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
     ts = trainer.step_timestamps
     ms = (ts[-1] - ts[TRAIN_WARMUP - 1]) * 1e3 / (TRAIN_STEPS - TRAIN_WARMUP)
     b = len(batch["target_ids"])
-    out = {"train_ms_per_step": ms, "train_clips_per_sec": b / (ms * 1e-3),
+    out = {"step": trainer.step_kind, "train_ms_per_step": ms,
+           "train_clips_per_sec": b / (ms * 1e-3),
            "step_ms_each": [(y - x) * 1e3 for x, y in zip(ts, ts[1:])],
-           "peak_mem_gib": peak, "losses": step_losses, "val": val,
+           "first_step_s": ts[0] - t0, "peak_mem_gib": peak, "losses": step_losses, "val": val,
            "k1_launches_per_step": expected_launches, "k1_launches_in_fit": launches,
            "fit_s": fit_s}
+    if not eager:
+        out["program"] = program_record(trainer.program, TRAIN_STEPS)
     log(f"train path {name} bf16 B={b}: " + json.dumps(out))
     return out, trainer
 
 
+def program_record(program, steps: int) -> dict:
+    """A fit's train program: one pair of graphs captured per batch shape
+    and both replayed at every step, validation through the eval graph
+    (raises otherwise); the captures' seconds and the pools' bytes."""
+    if (program is None or program.replays != 2 * steps
+            or len(program.captures) != 2 * len(program.pairs)
+            or not program.eval_program.replays):
+        raise AssertionError(
+            f"the fit did not replay the train program at every step: "
+            f"{None if program is None else (program.replays, program.captures)}")
+    return {"captures": len(program.captures), "replays": program.replays,
+            "keys": len(program.pairs),
+            "capture_s": [c["capture_s"] for c in program.captures],
+            "instantiate_s": [c["instantiate_s"] for c in program.captures],
+            "k1_launches_by_graph": {c["loop"]: c["k1_launches"] for c in program.captures},
+            "pool_bytes": pool_bytes(program), "eval_pool_bytes": pool_bytes(program.eval_program),
+            "eval_captures": len(program.eval_program.captures),
+            "eval_replays": program.eval_program.replays}
+
+
 def step_breakdown(trainer: Trainer, batch: dict, iters: int = 3) -> dict:
-    """One train step taken apart on the card, part by part: the frozen
-    forward, the trainable forward, the losses, the backward and the
-    optimizer. ``between_events_ms`` and ``host_ms`` time the parts in the
-    flow of a whole step (CUDA events on the device timeline, idle gaps
-    included, and the host's clock; mean of ``iters`` steps).
-    ``device_busy_ms`` and ``device_ops`` are the summed kernel time and the
-    kernel count of each part run alone under ``torch.profiler``."""
-    net, task, opt, gen = trainer.net, trainer.task, trainer.optimizer, trainer.generator
-    inputs = (batch["audio"], batch["audio_mask"], batch["video"], batch["video_mask"],
-              batch["video_lengths"])
-    state = {}
-
-    def frozen_forward():
-        state["frozen"] = net.frozen_features(inputs)
-
-    def trainable_forward():
-        fused = net.fuse(*state["frozen"], batch["video_lengths"], train=True, generator=gen)
-        state["logits"] = net.decoder(fused["features"]).float()
-
-    def compute_losses():
-        state["loss"] = task.compute_losses(state["logits"], batch)["loss"]
-
-    def backward():
-        state["grads"] = list(torch.autograd.grad(state["loss"], opt.params))
-
-    def optimizer():
-        with torch.no_grad():
-            opt.step(state["grads"])
-
-    parts = {"frozen_forward": frozen_forward, "trainable_forward": trainable_forward,
-             "losses": compute_losses, "backward": backward, "optimizer": optimizer}
+    """One replayed train step taken apart on the card: graph F (the batch
+    copied in, then the replay), the eager losses between the graphs (their
+    gradients copied into B's inputs), graph B. ``between_events_ms`` and
+    ``host_ms`` time the parts in the flow of a whole step (CUDA events on
+    the device timeline, idle gaps included, and the host's clock; mean of
+    ``iters`` steps). ``profile``: one whole replayed step under
+    ``torch.profiler`` (device busy share; a replayed kernel carries no
+    PyTorch op name)."""
+    program, lengths = trainer.program, host_lengths(batch)
+    parts = ("forward", "losses", "backward")
     out = {key: {name: 0.0 for name in parts} for key in ("between_events_ms", "host_ms")}
     for _ in range(iters):
         marks = []
 
-        def mark():
+        def mark(part=None):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             marks.append((ev, time.perf_counter()))
 
         torch.cuda.synchronize()
         mark()
-        for part in parts.values():
-            part()
-            mark()
+        program.train_step(batch, lengths, mark=mark)
         torch.cuda.synchronize()
         for name, (e0, h0), (e1, h1) in zip(parts, marks, marks[1:]):
             out["between_events_ms"][name] += e0.elapsed_time(e1) / iters
             out["host_ms"][name] += (h1 - h0) * 1e3 / iters
+    out["step_ms"] = sum(out["between_events_ms"].values())
+    fa.reset_launches()
+    out["profile"] = profile(lambda: program.train_step(batch, lengths), top=8, cpu=False)
+    if sum(out["profile"]["k1_launches_by_kernel"].values()) != 15:
+        raise AssertionError(f"profiled replayed train step ran K1 "
+                             f"{out['profile']['k1_launches_by_kernel']}, expected 15")
+    log("replayed train step parts: " + json.dumps(out))
+    return out
 
-    alone = {}
-    for name, part in parts.items():
-        _, records, _, _ = traced(part)
-        alone[name] = (sum(ev.device_time for ev in records) / 1e3, len(records))
-    out["device_busy_ms"] = {name: ms for name, (ms, _) in alone.items()}
-    out["device_ops"] = {name: n for name, (_, n) in alone.items()}
-    log("train step parts: " + json.dumps(out))
+
+def sync_report(trainer: Trainer, batch: dict) -> dict:
+    """One replayed train step under ``torch.cuda.set_sync_debug_mode("warn")``:
+    every synchronising call it makes, with the innermost frames of the
+    repository's code and of ``torch`` that made it. Raises if one is made
+    outside the eager losses between the graphs (``F.ctc_loss``'s own host
+    copies are expected there)."""
+    import traceback
+    import warnings
+
+    lengths, found = host_lengths(batch), []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" not in str(message):
+            return  # the mode's own notice that it is a prototype
+        stack = traceback.extract_stack()[:-1]
+        frames = [f"{os.path.basename(f.filename)}:{f.lineno} {f.name}" for f in stack
+                  if "mocov2_whisper_flamingo_torch" in f.filename or "/torch/" in f.filename]
+        found.append({"where": frames[-4:], "in_losses": any(f.name == "_losses" for f in stack)})
+
+    trainer.program.train_step(batch, lengths)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            trainer.program.train_step(batch, lengths)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    out = {"syncs": len(found), "outside_losses": sum(not c["in_losses"] for c in found),
+           "calls": found}
+    log("synchronising calls in one replayed train step: " + json.dumps(out))
+    if out["outside_losses"]:
+        raise AssertionError(f"a replayed train step synchronised outside its losses: {out}")
+    return out
+
+
+def program_turns(trainer: Trainer, batch: dict, seed: int, workdir: str,
+                  steps: int = 3) -> dict:
+    """``trainer`` (phase 7's dropout-0 fit: its graphs captured) and an
+    eager twin loaded with its state take ``steps`` more steps on the batch,
+    in turns (program, eager, eager, program, ...), each followed by the
+    scalars logged as the fits log them and a synchronisation: ms per step
+    of each, the losses of every step and the parameters, optimizer state
+    and generator after the last held bit for bit (raises otherwise)."""
+    twin, _ = make_trainer("dropout_0_twin", seed, workdir, {"model.dropout": 0.0})
+    twin.step_kind = "eager"
+    twin.setup(TRAIN_STEPS)
+    twin.net.load_state_dict(trainer.net.state_dict())
+    twin.optimizer.load_state_dict(trainer.optimizer.state_dict())
+    twin.generator.set_state(trainer.generator.get_state())
+    twin.global_step = trainer.global_step
+    lengths = host_lengths(batch)
+    legs = {"program": (trainer, lambda: trainer.program.train_step(batch, lengths)),
+            "eager": (twin, lambda: twin.task.train_step(twin.optimizer, batch, twin.generator,
+                                                         lengths=lengths))}
+    ms = {name: [] for name in legs}
+    losses = {name: [] for name in legs}
+    for i in range(steps):
+        for name in (("program", "eager") if i % 2 == 0 else ("eager", "program")):
+            owner, step = legs[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = step()
+            owner.global_step += 1
+            owner._log_train(got)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            losses[name].append(got)
+    equal_losses = [all(torch.equal(a[k], b[k]) for k in a)
+                    for a, b in zip(losses["program"], losses["eager"])]
+    state = same_train_state((trainer.net, trainer.optimizer, trainer.generator),
+                             (twin.net, twin.optimizer, twin.generator))
+    out = {"program_ms_per_step": ms["program"], "eager_ms_per_step": ms["eager"],
+           "losses_bit_equal": equal_losses, "state_after": state,
+           "count": trainer.optimizer.count, "mini_step": trainer.optimizer.mini_step,
+           "losses": [float(x["loss"]) for x in losses["program"]]}
+    log("train step, program and eager in turns (bf16 B=4, dropout 0, scalars logged each "
+        "step): " + json.dumps(out))
+    if not all(equal_losses) or not state["equal"] \
+            or twin.optimizer.count != trainer.optimizer.count:
+        raise AssertionError(f"bf16 train program against the eager step: {out}")
     return out
 
 
@@ -1180,7 +1339,8 @@ def run_train_path(seed: int) -> dict:
                      "steps": TRAIN_STEPS, "warmup_steps": TRAIN_WARMUP, "precision": "bf16",
                      "accumulate_grad_batches": 1}}
     try:
-        out["dropout_0.1"], _ = fit_timed("dropout_0.1", seed, batch, workdir, {}, 12)
+        out["dropout_0.1"], trainer = fit_timed("dropout_0.1", seed, batch, workdir, {}, 12)
+        del trainer  # each fit's peak memory is its own
         out["dropout_0"], trainer = fit_timed("dropout_0", seed, batch, workdir,
                                               {"model.dropout": 0.0}, 15)
         first, last = out["dropout_0"]["losses"][0], out["dropout_0"]["losses"][5]
@@ -1188,30 +1348,26 @@ def run_train_path(seed: int) -> dict:
             raise AssertionError(f"dropout 0 on a repeated batch: loss {last} at step 6 is not "
                                  f"below {first} at step 1")
         out["step_parts"] = step_breakdown(trainer, batch)
+        out["sync_report"] = sync_report(trainer, batch)
+        out["turns"] = program_turns(trainer, batch, seed, workdir)
         fa.reset_launches()
-        out["profile"] = profile(lambda: trainer.task.train_step(trainer.optimizer, batch,
-                                                                 trainer.generator), top=10)
-        if sum(out["profile"]["k1_launches_by_kernel"].values()) != 15:
-            raise AssertionError(f"profiled train step ran K1 "
-                                 f"{out['profile']['k1_launches_by_kernel']}, expected 15")
-        # the guard's synchronisation: the same step with and without it
-        guard = {}
-        for label, skip in (("guarded", True), ("unguarded", False), ("guarded_again", True)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(6):
-                trainer.task.train_step(trainer.optimizer, batch, trainer.generator,
-                                        skip_nonfinite=skip)
-            torch.cuda.synchronize()
-            guard[label + "_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 6
-        out["nonfinite_guard"] = guard
-        log("train step with and without the non-finite guard: " + json.dumps(guard))
+        out["eager_profile"] = profile(lambda: trainer.task.train_step(
+            trainer.optimizer, batch, trainer.generator, lengths=host_lengths(batch)), top=10)
+        if sum(out["eager_profile"]["k1_launches_by_kernel"].values()) != 15:
+            raise AssertionError(f"profiled eager train step ran K1 "
+                                 f"{out['eager_profile']['k1_launches_by_kernel']}, expected 15")
         del trainer
-        out["dropout_0_remat"], _ = fit_timed("dropout_0_remat", seed, batch, workdir,
-                                              {"model.dropout": 0.0,
-                                               "precision.rematerialize": True}, 18)
-        out["dropout_0.1_augment"], _ = fit_timed("dropout_0.1_augment", seed, raw_batch,
-                                                  workdir, {"augmentation.on_device": True}, 12)
+        for name, overrides, launches, eager in (
+                ("dropout_0_eager", {"model.dropout": 0.0}, 15, True),
+                ("dropout_0_remat", {"model.dropout": 0.0, "precision.rematerialize": True},
+                 18, False),
+                ("dropout_0.1_augment", {"augmentation.on_device": True}, 12, False)):
+            out[name], trainer = fit_timed(name, seed, raw_batch if "augment" in name else batch,
+                                           workdir, overrides, launches, eager=eager)
+            del trainer
+        out["program_vs_eager_fit"] = {
+            key: (out["dropout_0"][key], out["dropout_0_eager"][key])
+            for key in ("train_ms_per_step", "peak_mem_gib", "first_step_s")}
         out["augment_ms_per_step"] = (out["dropout_0.1_augment"]["train_ms_per_step"]
                                       - out["dropout_0.1"]["train_ms_per_step"])
     finally:
@@ -2049,6 +2205,9 @@ def run_continuous(seed: int) -> dict:
 # clip (resampled by the native library), the range of lip frames per clip.
 DATA_CLIPS = {"train": 16, "val": 4, "test": 4}
 DATA_SECONDS, DATA_RATE, DATA_FRAMES = 12.0, 48_000, (280, 400)
+# steps of each mode's fit: the host mode waits ~3.7 s a step on its loader, so
+# it runs one epoch (4 batches), the others two
+DATA_STEPS = {"host": 4, "on_device": 8, "on_device_mel": 8}
 DATA_MODES = {"host": {},
               "on_device": {"augmentation.on_device": True},
               "on_device_mel": {"augmentation.on_device": True,
@@ -2140,9 +2299,9 @@ def data_config(data: dict, workdir: str, name: str, seed: int, overrides: dict)
 
 
 def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
-                expected_launches: int) -> tuple[dict, Trainer, DataModule]:
-    """``DataModule`` -> ``train.build_net`` -> ``Trainer.fit`` for
-    ``TRAIN_STEPS`` steps -> ``Trainer.test``, as ``train.main`` wires them;
+                expected_launches: int, steps: int) -> tuple[dict, Trainer, DataModule]:
+    """``DataModule`` -> ``train.build_net`` -> ``Trainer.fit`` for ``steps``
+    steps -> ``Trainer.test``, as ``train.main`` wires them;
     ms per step and the loader wait over the steps after the warm-up that
     do not start an epoch."""
     config = data_config(data, workdir, name, seed, overrides)
@@ -2157,37 +2316,44 @@ def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
     trainer.writer = _RecordingWriter(trainer.writer.path)
     trainer.step_timestamps, trainer.data_wait_s = [], []
     per_step = []
-    step = trainer.task.train_step
+    setup = trainer.setup
 
-    def counted_step(*args, **kwargs):
-        before = fa.launches
-        out = step(*args, **kwargs)
-        per_step.append(fa.launches - before)
-        return out
+    def counted_setup(total):  # the program exists once the fit has set up
+        setup(total)
+        step = trainer.program.train_step
 
-    trainer.task.train_step = counted_step
+        def counted_step(*args, **kwargs):
+            before = fa.launches
+            out = step(*args, **kwargs)
+            per_step.append(fa.launches - before)
+            return out
+
+        trainer.program.train_step = counted_step
+
+    trainer.setup = counted_setup
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     t0 = time.perf_counter()
-    trainer.fit(dm, max_steps=TRAIN_STEPS)
+    trainer.fit(dm, max_steps=steps)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     metrics = trainer.test(dm)
     launches = fa.launches
 
-    if len(per_step) != TRAIN_STEPS or set(per_step) != {expected_launches}:
+    if len(per_step) != steps or set(per_step) != {expected_launches}:
         raise AssertionError(f"data path {name}: K1 launches per train step {per_step}, "
                              f"expected {expected_launches} each")
     step_loss = {st: v for tag, v, st in trainer.writer.scalars if tag == "train/loss"}
-    losses = [step_loss[i] for i in range(1, TRAIN_STEPS + 1)]
+    losses = [step_loss[i] for i in range(1, steps + 1)]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"data path {name}: non-finite loss in {losses}")
     if any(tag == "train/skipped_steps" for tag, _, _ in trainer.writer.scalars):
         raise AssertionError(f"data path {name}: a step was skipped")
     if not os.path.exists(os.path.join(config["output"]["checkpoint_dir"],
-                                       f"step_{TRAIN_STEPS}.pt")):
+                                       f"step_{steps}.pt")):
         raise AssertionError(f"data path {name}: no checkpoint was written")
     predictions = os.path.join(os.path.dirname(trainer.writer.path), "predictions.txt")
     if (not any(tag == "test/wer" for tag, _, _ in trainer.writer.scalars)
@@ -2196,7 +2362,7 @@ def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
     ts, waits = trainer.step_timestamps, trainer.data_wait_s
     # step i (0-based) ends at ts[i]; time steps past the warm-up that do not
     # open an epoch (the gap before those holds validation and a checkpoint)
-    timed = [i for i in range(TRAIN_WARMUP, TRAIN_STEPS) if i % steps_per_epoch]
+    timed = [i for i in range(TRAIN_WARMUP, steps) if i % steps_per_epoch]
     ms = float(np.mean([(ts[i] - ts[i - 1]) * 1e3 for i in timed]))
     out = {"train_ms_per_step": ms, "train_clips_per_sec": B / (ms * 1e-3),
            "data_wait_ms": float(np.mean([waits[i] * 1e3 for i in timed])),
@@ -2205,7 +2371,8 @@ def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
            "timed_steps": [i + 1 for i in timed], "steps_per_epoch": steps_per_epoch,
            "peak_mem_gib": peak, "losses": losses, "test_wer": metrics["wer"],
            "k1_launches_per_step": expected_launches, "k1_launches_in_fit_and_test": launches,
-           "fit_s": fit_s, "probe_s": probe_s}
+           "fit_s": fit_s, "probe_s": probe_s,
+           "program": program_record(trainer.program, steps)}
     log(f"data path {name} bf16 B={B}: " + json.dumps(out))
     return out, trainer, dm
 
@@ -2331,7 +2498,7 @@ def run_data_path(seed: int, expected_launches: int) -> dict:
         out["loader_breakdown"] = loader_breakdown(data, seed)
         for name, overrides in DATA_MODES.items():
             out[name], trainer, dm = fit_on_data(name, data, workdir, seed, overrides,
-                                                 expected_launches)
+                                                 expected_launches, DATA_STEPS[name])
             if name == "host":
                 out["moco_fold"] = check_moco_fold(trainer.net, data["moco"])
             if name == "on_device_mel":
@@ -2900,13 +3067,17 @@ def check_int8_logits(net, feats, valid, rng) -> dict:
 
 
 def time_int8_decodes(net, batch, feats, valid) -> dict:
-    """The direct decode of phase 4 in each mode, in turns: device ms and
+    """The direct decode of phase 4 in each mode, in turns: for the modes of
+    ``INT8_TRACED``, device ms and
     kernels per step over a window of ``INT8_WINDOW`` loop steps (two
     device-only traced searches, with and without the window, so that the
     cache and the prefix steps cancel), then a first ``AVWhisperNet.beam``
     call, which captures the mode's decode program (its seconds), and a
     timed one (encode and 156 replayed steps) with its K1 launches and peak
-    memory; the prepared decoder's and the cache's bytes."""
+    memory; the prepared decoder's and the cache's bytes. The decodes run
+    ``INT8_MAX_TOKENS`` tokens, not phase 4's 160: each mode's first call
+    captures after an eager run, and the five of them are the phase's
+    largest cost."""
     enc_ms = cuda_ms(lambda: net.encode(batch), 3)
     out = {"encode_ms": enc_ms}
     for name, (wq, cq) in INT8_MODES.items():
@@ -2914,8 +3085,8 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
         dec = net.decoder.prepare_decode_params(wq)
         torch.cuda.synchronize()
         prepare_ms = (time.perf_counter() - t0) * 1e3
-        windows, t_trace = [], time.perf_counter()
-        for loop_steps in (0, INT8_WINDOW):
+        windows, records, t_trace = [], [], time.perf_counter()
+        for loop_steps in (0, INT8_WINDOW) if name in INT8_TRACED else ():
             _, records, _, _ = traced(lambda: beam_search(
                 dec, feats, PREFIX, beam_size=BEAM, max_len=len(PREFIX) + loop_steps,
                 eos_id=EOS, encoder_valid=valid, cache_quant=cq), cpu=False)
@@ -2924,13 +3095,15 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
         for ev in records:  # the longer window's kernels, the prefix's included
             by_kernel[ev.name[:60]] = by_kernel.get(ev.name[:60], 0.0) + ev.device_time / 1e3
         top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6])
-        cache = cache_bytes(dec.init_cache(feats, max_len=MAX_TOKENS, beam_groups=BEAM,
+        per_step = ([(windows[1][i] - windows[0][i]) / INT8_WINDOW for i in (0, 1)] if windows
+                    else [None, None])
+        cache = cache_bytes(dec.init_cache(feats, max_len=INT8_MAX_TOKENS, beam_groups=BEAM,
                                            quant=cq))
         decoder_bytes = module_bytes(dec)
         trace_s = time.perf_counter() - t_trace
         del dec
-        decode = lambda: net.beam(batch, PREFIX, beam_size=BEAM, max_len=MAX_TOKENS, eos_id=EOS,
-                                  weight_quant=wq, cache_quant=cq)
+        decode = lambda: net.beam(batch, PREFIX, beam_size=BEAM, max_len=INT8_MAX_TOKENS,
+                                  eos_id=EOS, weight_quant=wq, cache_quant=cq)
         _, first_s = timed_call(decode)
         capture = net.decode_programs.captures[-1]
         torch.cuda.reset_peak_memory_stats()
@@ -2940,18 +3113,17 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
         seq = res.sequences
         if launches != 15:
             raise AssertionError(f"int8 mode {name}: K1 launched {launches} times, expected 15")
-        if tuple(seq.shape) != (B, BEAM, MAX_TOKENS) or not torch.isfinite(res.scores).all() \
+        if tuple(seq.shape) != (B, BEAM, INT8_MAX_TOKENS) or not torch.isfinite(res.scores).all() \
                 or not bool((seq[:, :, :len(PREFIX)] == torch.tensor(PREFIX, device=seq.device))
                             .all()):
             raise AssertionError(f"int8 mode {name}: bad beam output {tuple(seq.shape)}")
-        n_steps = MAX_TOKENS - len(PREFIX)
+        n_steps = INT8_MAX_TOKENS - len(PREFIX)
         row = {"weight_quant": wq, "cache_quant": cq, "wall_ms": wall_s * 1e3,
                "rtf": B * SECONDS_PER_CLIP / wall_s,
                "decode_ms_per_step": (wall_s * 1e3 - enc_ms) / n_steps,
                "prepare_ms": prepare_ms, "first_call_s": first_s,
                "capture_s": capture["capture_s"], "instantiate_s": capture["instantiate_s"],
-               "device_ms_per_step": (windows[1][0] - windows[0][0]) / INT8_WINDOW,
-               "device_ops_per_step": (windows[1][1] - windows[0][1]) / INT8_WINDOW,
+               "device_ms_per_step": per_step[0], "device_ops_per_step": per_step[1],
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                "decoder_bytes": decoder_bytes, "cache_bytes": cache,
                "k1_launches_per_batch": launches, "trace_s": trace_s,
@@ -3128,6 +3300,11 @@ def multicard_fit(seed: int, batches: list[dict], tree, mesh: tuple, precision: 
     trainer.probe = probe(trainer) if probe else None
     trainer.fit(_MeshDataModule(batches, trainer.mesh, steps), max_steps=steps)
     torch.cuda.synchronize()
+    # several ranks: the eager step (gloo collectives are not captured); one: the program
+    ranks = trainer.mesh.shape["data"] * trainer.mesh.shape["model"]
+    if (trainer.step_kind, trainer.program is None) != (("eager", True) if ranks > 1
+                                                        else ("program", False)):
+        raise AssertionError(f"a fit on {ranks} ranks ran the {trainer.step_kind} step")
     return trainer, tree
 
 

@@ -57,9 +57,10 @@ all of them, inputs copied into static buffers, clones returned. K1 runs
 inside it: its TMA tensor maps are kernel parameters, so a graph holds the
 static buffers' addresses, which every replay fills.
 
-Only ``tools/export_model.py``'s ``BeamProgram`` and training stay eager:
-``torch.export`` traces the loop, not a replay, and a training step
-differentiates the encode.
+The train and eval steps are programs of this kind too
+(``training/programs.py``: a forward graph and a backward-and-update graph
+with the losses run eagerly between them). Only ``tools/export_model.py``'s
+``BeamProgram`` stays eager: ``torch.export`` traces the loop, not a replay.
 """
 
 from __future__ import annotations
@@ -112,14 +113,18 @@ class GraphPool:
         self._side = None  # capture stream for callers on the default stream
         self._failed: list = []  # graphs whose capture raised
 
-    def capture_graph(self, fn, stream, restore=(), **record) -> tuple:
+    def capture_graph(self, fn, stream, restore=(), generators=(), **record) -> tuple:
         """Capture ``fn()`` into a new graph in this pool and return
         ``(graph, fn's outputs in the pool)``. ``fn`` runs once eagerly on
         the capture stream first; ``restore``: tensors that ``fn`` writes in
         place, copied aside before that run and back after it, so that the
         eager run leaves them as they were and the first replay does the
-        call's work. Neither run counts K1's launches: the capture's are
-        kept with the graph and counted at each replay."""
+        call's work. ``generators``: CUDA generators that ``fn`` draws from;
+        each is put back where the eager run found it and registered with
+        the graph, so that every replay draws from the generator's state
+        then and advances it as the eager function would. Neither run counts
+        K1's launches: the capture's are kept with the graph and counted at
+        each replay."""
         dev = stream.device
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -132,9 +137,13 @@ class GraphPool:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(capture_stream):
             saved = [t.clone() for t in restore]
+            states = [g.get_state() for g in generators]
             fa.uncounted(fn)  # eager: the rules' tables, library handles, workspaces
             for t, s in zip(restore, saved):
                 t.copy_(s)
+            for g, state in zip(generators, states):
+                g.set_state(state)
+                graph.register_generator_state(g)
             del saved
             t0 = time.perf_counter()
             try:

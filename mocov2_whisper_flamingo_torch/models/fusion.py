@@ -14,7 +14,8 @@ probabilities, so such a block takes the plain attention path. Otherwise the
 block runs the flash kernel, whose backward recomputes the attention.
 Dropout follows ``ff2``. With ``remat`` each block runs under
 ``torch.utils.checkpoint`` and its recompute replays the block's dropout
-draws from the generator state the block started with.
+draws from the generator state the block started with (under CUDA graph
+capture: the first run's kept draws).
 """
 
 from __future__ import annotations
@@ -82,9 +83,25 @@ def _checkpointed(block: GatedBlock, x, xa, video_valid, generator):
     """``block`` under activation checkpointing. The recompute rewinds the
     generator to where the block's first run found it, so it replays the same
     dropout draws, and then puts the generator back where the recompute
-    found it, so later draws do not repeat earlier ones."""
+    found it, so later draws do not repeat earlier ones.
+
+    Under CUDA graph capture (the train program, ``training/programs.py``)
+    the generator's state lives on the host and cannot be rewound inside a
+    graph: the first run keeps its draws (``L.KeptDraws``) and the
+    recompute, captured in another graph, reads them back. The numbers are
+    those of the rewind, and the generator ends where the rewind leaves it."""
     if generator is None:
         return checkpoint(block, x, xa, video_valid, use_reentrant=False,
+                          preserve_rng_state=False)
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        kept = L.KeptDraws(generator)
+
+        def run_kept(x, xa, video_valid):
+            if kept.draws:
+                kept.replay()
+            return block(x, xa, video_valid, kept)
+
+        return checkpoint(run_kept, x, xa, video_valid, use_reentrant=False,
                           preserve_rng_state=False)
     start = generator.get_state()
     first_run = True

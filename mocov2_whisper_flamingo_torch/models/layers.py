@@ -215,14 +215,46 @@ class QuantEmbedding(nn.Module):
         return self.embedding_q[ids].float() * self.scale[ids].float()[..., None]
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+class KeptDraws:
+    """A draw source that keeps its uniform draws: a checkpointed block's
+    first run under CUDA graph capture draws from ``generator`` and keeps
+    each draw; its recompute (``replay()`` first) takes them back in order.
+    A capture cannot rewind a generator (``get_state`` / ``set_state`` read
+    and write the host), and the kept tensors hold the same numbers that a
+    rewound generator would draw again (``models/fusion.py``)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.draws: list[torch.Tensor] = []
+        self._next: int | None = None  # None: drawing; else the next kept draw
+
+    def replay(self) -> None:
+        self._next = 0
+
+    def uniform(self, shape, device) -> torch.Tensor:
+        if self._next is None:
+            self.draws.append(torch.rand(shape, generator=self.generator, device=device))
+            return self.draws[-1]
+        draw = self.draws[self._next]
+        self._next += 1
+        return draw
+
+
+def uniform(shape, generator: "torch.Generator | KeptDraws", device) -> torch.Tensor:
+    """Uniform ``[0, 1)`` draws of ``shape`` from a generator or a ``KeptDraws``."""
+    if isinstance(generator, KeptDraws):
+        return generator.uniform(shape, device)
+    return torch.rand(shape, generator=generator, device=device)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: "torch.Generator | KeptDraws | None",
             deterministic: bool) -> torch.Tensor:
     """Inverted dropout with an explicit generator (which must live on x's
-    device): ``x / (1 - rate)`` where kept, 0 elsewhere. The identity when
-    ``deterministic``, at rate 0 or without a generator."""
+    device) or ``KeptDraws``: ``x / (1 - rate)`` where kept, 0 elsewhere. The
+    identity when ``deterministic``, at rate 0 or without a generator."""
     if deterministic or rate == 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = uniform(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -131,11 +131,15 @@ def mix_noise_segments(mel_tf: torch.Tensor, noise_bed: torch.Tensor, starts: to
 def add_babble_noise(mel_tf: torch.Tensor, noise_bed: torch.Tensor,
                      generator: torch.Generator, snr_levels=SNR_LEVELS) -> torch.Tensor:
     """Mel-domain babble mixing on ``[..., T, F]``: a random segment of the
-    noise bed at a random SNR level per sample."""
+    noise bed at a random SNR level per sample. ``snr_levels``: numbers, or
+    an fp32 tensor of them on the mel's device (no host copy, as a CUDA graph
+    capture needs)."""
     *batch, t, _ = mel_tf.shape
     starts, level = draw_babble_noise(tuple(batch), t, noise_bed.shape[-1], generator,
                                       len(snr_levels))
-    snr = torch.tensor(snr_levels, dtype=torch.float32, device=mel_tf.device)[level]
+    if not torch.is_tensor(snr_levels):
+        snr_levels = torch.tensor(snr_levels, dtype=torch.float32, device=mel_tf.device)
+    snr = snr_levels[level]
     return mix_noise_segments(mel_tf, noise_bed, starts, snr)
 
 
@@ -252,7 +256,8 @@ def make_batch_augment(config, device: torch.device | str):
         time_mask_ratio=a_cfg.get("time_mask_ratio", 8),
         n_time_masks=a_cfg.get("n_time_masks", 2),
     )
-    snr_levels = tuple(float(x) for x in a_cfg.get("snr_levels", SNR_LEVELS))
+    snr_levels = torch.tensor([float(x) for x in a_cfg.get("snr_levels", SNR_LEVELS)],
+                              dtype=torch.float32, device=device)
     noise_bed = None
     noise_file = a_cfg.get("noise_file")
     if noise_file:

@@ -14,7 +14,8 @@ example's input length. It is a loop of T - 1 steps of about ten small ops,
 forward and again backward, so on a CUDA card it is bound by kernel
 launches. ``ctc_native_nll`` computes the same per-example NLL with
 ``torch.nn.functional.ctc_loss`` (one kernel each way); ``ctc_loss`` takes it
-for CUDA tensors and the recursion for CPU tensors. The JAX package computes
+for CUDA tensors and the recursion for CPU tensors. On the card the lengths
+may be given on the host, which spares ``F.ctc_loss`` their read-back. The JAX package computes
 CTC outside any Pallas kernel, so neither is a kernel port.
 """
 
@@ -101,10 +102,14 @@ def ctc_native_nll(log_probs: torch.Tensor, labels: torch.Tensor,
     """The same ``[B]`` NLL from ``torch.nn.functional.ctc_loss``. An
     infeasible example gives ``inf`` here where the recursion gives about
     ``1e30``. Its gradient is NaN unless ``zero_infinity`` zeroes it inside
-    the call: masking the NLL afterwards multiplies that NaN by 0."""
+    the call: masking the NLL afterwards multiplies that NaN by 0.
+
+    The lengths stay where they are given: ``F.ctc_loss`` sizes its grids
+    from host integers, so lengths on the card are read back (a wait for
+    every kernel queued before), and lengths on the host are not."""
     dev = log_probs.device
     return F.ctc_loss(log_probs.transpose(0, 1), labels.to(dev).long(),
-                      input_lengths.to(dev).long(), label_lengths.to(dev).long(),
+                      input_lengths.long(), label_lengths.long(),
                       blank=blank_id, reduction="none", zero_infinity=zero_infinity)
 
 

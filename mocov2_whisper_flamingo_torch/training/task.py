@@ -76,26 +76,33 @@ class AVSRTask:
             for c in counts]), self.data_group)
         return list(torch.clamp(total, min=1))
 
-    def _global_losses(self, losses: dict) -> dict:
+    def global_losses(self, losses: dict) -> dict:
         """Detached per-rank shares -> the global batch's losses."""
         names = sorted(losses)
         total = all_reduce_sum(torch.stack([losses[k].detach().float() for k in names]),
                                self.data_group)
         return dict(zip(names, total))
 
-    def compute_losses(self, logits: torch.Tensor, batch: dict) -> dict:
+    def compute_losses(self, logits: torch.Tensor, batch: dict,
+                       lengths: dict | None = None) -> dict:
         """logits ``[B, T', V]``; batch carries target_ids ``[B, L]``,
-        target_lengths ``[B]``, audio_lengths ``[B]``."""
+        target_lengths ``[B]``, audio_lengths ``[B]``. ``lengths``: the same
+        ``audio_lengths`` and ``target_lengths`` on the host (CPU tensors),
+        given to the CTC so that ``F.ctc_loss`` on the card reads nothing
+        back (``Trainer._put_batch`` keeps them)."""
         targets = batch["target_ids"]
         target_lengths = batch["target_lengths"].reshape(-1)
-        input_lengths = torch.clamp(batch["audio_lengths"].reshape(-1), max=logits.shape[1])
+        ctc_lengths = lengths if lengths is not None else batch
+        input_lengths = torch.clamp(ctc_lengths["audio_lengths"].reshape(-1),
+                                    max=logits.shape[1])
 
         t_min = min(logits.shape[1], targets.shape[1])
         ce_targets = targets[:, :t_min]
         if self.pad_to_ignore:
             pos = torch.arange(t_min, device=targets.device)[None, :]
             ce_targets = torch.where(pos < target_lengths[:, None], ce_targets, -100)
-        nll = ctc_loss(logits, targets, input_lengths, target_lengths, blank_id=self.ctc_blank,
+        nll = ctc_loss(logits, targets, input_lengths,
+                       ctc_lengths["target_lengths"].reshape(-1), blank_id=self.ctc_blank,
                        reduction="none")
         rows, tokens = self._global_counts(nll.device, nll.shape[0], (ce_targets != -100).sum())
         per_row = nll / torch.clamp(target_lengths.to(nll.device), min=1).to(nll.dtype)
@@ -105,10 +112,9 @@ class AVSRTask:
                                           reduction="sum") / tokens
         return {"ctc_loss": ctc, "ce_loss": ce, "loss": ctc + ce}
 
-    def feature_mse_losses(self, batch: dict, generator: torch.Generator | None = None,
-                           train: bool = True) -> dict:
-        features, audio_feat = self.net.forward_features(_inputs(batch), train=train,
-                                                         generator=generator)
+    def feature_losses(self, features: torch.Tensor, audio_feat: torch.Tensor) -> dict:
+        """The feature-alignment losses of the fused features and the audio
+        stream, both ``[B, T', D]``."""
         features = features.float()
         audio_feat = audio_feat.detach().float()
         sq = (features - audio_feat).square()
@@ -119,57 +125,73 @@ class AVSRTask:
         elements, rows = self._global_counts(sq.device, sq.numel(), cos.shape[0])
         return {"loss": sq.sum() / elements, "cosine_sim": cos.sum() / rows}
 
+    def forward_outputs(self, batch: dict, generator: torch.Generator | None = None,
+                        train: bool = True) -> tuple:
+        """The net's outputs that the losses read: ``(logits,)``, or
+        ``(features, audio)`` in ``feature_mse`` mode."""
+        if self.loss_mode == "feature_mse":
+            return tuple(self.net.forward_features(_inputs(batch), train=train,
+                                                   generator=generator))
+        return (self.net(_inputs(batch), train=train, generator=generator),)
+
+    def losses_of(self, outputs: tuple, batch: dict, lengths: dict | None = None) -> dict:
+        """The losses of ``forward_outputs``' outputs (rank-local shares)."""
+        if self.loss_mode == "feature_mse":
+            return self.feature_losses(*outputs)
+        return self.compute_losses(outputs[0], batch, lengths)
+
     def loss_fn(self, batch: dict, generator: torch.Generator | None = None,
-                train: bool = True) -> tuple[torch.Tensor, dict]:
+                train: bool = True, lengths: dict | None = None) -> tuple[torch.Tensor, dict]:
         if train and self.augment_fn is not None and generator is not None:
             batch = self.augment_fn(batch, generator)
-        if self.loss_mode == "feature_mse":
-            losses = self.feature_mse_losses(batch, generator, train)
-            return losses["loss"], losses
-        logits = self.net(_inputs(batch), train=train, generator=generator)
-        losses = self.compute_losses(logits, batch)
+        losses = self.losses_of(self.forward_outputs(batch, generator, train), batch, lengths)
         return losses["loss"], losses
 
     # -- steps -------------------------------------------------------------------
 
     def train_step(self, optimizer, batch: dict, generator: torch.Generator | None = None,
-                   skip_nonfinite: bool = True) -> dict:
-        """One micro-batch: forward in train mode, backward over the
+                   skip_nonfinite: bool = True, lengths: dict | None = None) -> dict:
+        """One micro-batch, eagerly: forward in train mode, backward over the
         optimizer's parameters, and the optimizer's step. Returns the
-        detached losses.
+        detached losses. This is the plain version of the train program
+        (``training/programs.py::TrainProgram``), which ``Trainer.fit`` runs
+        on one process; a mesh of several ranks runs this.
 
         ``skip_nonfinite``: a step whose loss is NaN or Inf applies nothing:
         no parameter, optimizer state, accumulation counter or accumulated
-        gradient changes, and ``losses["skipped"]`` is 1. The decision reads
-        one bool back from the device, so it costs one synchronisation per
-        step, after the backward is enqueued and before the optimizer's
-        kernels."""
-        loss, losses = self.loss_fn(batch, generator, train=True)
+        gradient changes, and ``losses["skipped"]`` is 1. The decision is a
+        device tensor that the optimizer applies with ``torch.where``, as the
+        JAX step does, so nothing is read back. ``lengths``: as for
+        ``compute_losses``."""
+        loss, losses = self.loss_fn(batch, generator, train=True, lengths=lengths)
         grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, optimizer.params)]
-        losses = self._global_losses(losses)
-        ok = True
+        losses = self.global_losses(losses)
+        ok = None
         if skip_nonfinite:
-            ok = bool(torch.isfinite(losses["loss"]))
-            losses["skipped"] = torch.tensor(0.0 if ok else 1.0, device=loss.device)
-        if ok:
-            with torch.no_grad():
-                optimizer.step(grads)
+            ok = torch.isfinite(losses["loss"])
+            losses["skipped"] = (~ok).float()
+        with torch.no_grad():
+            optimizer.step(grads, ok)
         return losses
 
     @torch.no_grad()
-    def eval_step(self, batch: dict) -> tuple[dict, torch.Tensor]:
+    def eval_step(self, batch: dict, lengths: dict | None = None) -> tuple[dict, torch.Tensor]:
         """``(losses, predictions [B, T'])`` in eval mode."""
+        return self.eval_losses(self.forward_outputs(batch, train=False), batch, lengths)
+
+    def eval_losses(self, outputs: tuple, batch: dict,
+                    lengths: dict | None = None) -> tuple[dict, torch.Tensor]:
+        """``eval_step``'s losses and predictions from its forward's outputs."""
+        losses = self.global_losses(self.losses_of(outputs, batch, lengths))
         if self.loss_mode == "feature_mse":
-            losses = self.feature_mse_losses(batch, train=False)
             # No decode in feature-pretraining mode; dummy predictions keep
             # the trainer's eval loop uniform.
             preds = torch.zeros((batch["target_ids"].shape[0], 1), dtype=torch.long,
                                 device=batch["target_ids"].device)
-            return self._global_losses(losses), preds
-        logits = self.net(_inputs(batch), train=False)
-        return self._global_losses(self.compute_losses(logits, batch)), logits.argmax(dim=-1)
+            return losses, preds
+        return losses, outputs[0].argmax(dim=-1)
 
     # -- decode ---------------------------------------------------------------
 

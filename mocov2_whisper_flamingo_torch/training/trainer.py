@@ -30,6 +30,17 @@ batch, this computes: the same losses, updates, checkpoints and WER.
 - The train-mode draws come from a generator seeded by the data index: the
   ranks of one model group draw the same dropout masks on their (whole)
   activations, or they would drift apart.
+
+**The step it runs.** On one process the train and eval steps are the
+compiled programs of ``training/programs.py::TrainProgram`` (``program``):
+on the card a forward graph and a backward-and-update graph per batch
+shape, with the losses between them, the optimizer's state and the
+non-finite guard on the card and nothing read back inside a step; on the
+CPU the same object's eager parts. A mesh of more than one rank runs the
+eager ``AVSRTask.train_step`` / ``eval_step``: its collectives (gloo; NCCL
+across cards) are not captured, which waits for a machine with more than one
+card. ``step_kind`` names the step (``"program"`` or ``"eager"``), and
+``setup`` logs it.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.parallel.mesh import (
     gather_state_dict, load_whole_state_dict, make_mesh, shard_module, sharded_dims)
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer, no_decay_mask
+from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.utils.tb_writer import SummaryWriter
 from mocov2_whisper_flamingo_torch.utils.wer import wer as corpus_wer
@@ -56,9 +68,12 @@ logger = logging.getLogger(__name__)
 
 class _PlacedBatch(dict):
     """A batch placed by ``Trainer._put_batch``; ``ready``: the event after
-    its host-to-device copies (None off the card)."""
+    its host-to-device copies (None off the card); ``lengths``: its
+    ``audio_lengths`` and ``target_lengths`` on the host, for the CTC (None
+    when they did not come from the host)."""
 
     ready: torch.cuda.Event | None = None
+    lengths: dict | None = None
 
 
 class _NullWriter:
@@ -198,11 +213,14 @@ class Trainer:
         self.optimizer = None
         self.schedule = None
         self.generator = None
+        self.program = None  # TrainProgram on one process (setup)
+        ranks = self.mesh.shape["data"] * self.mesh.shape["model"]
+        self.step_kind = "program" if ranks == 1 else "eager"
         self.global_step = 0
         # Optional per-step wall-clock trace (set to [] before fit to
-        # enable): one timestamp after each step. With the task's
-        # non-finite guard on, a step ends in a synchronisation, so the gaps
-        # are whole steps, data preparation included.
+        # enable): one timestamp after each step, taken on the host. A step
+        # reads nothing back, so the gaps are whole steps only where the
+        # caller synchronises (the scalars logged every step do).
         self.step_timestamps: list[float] | None = None
         # Optional (set to [] before fit): seconds each train step waited on
         # the loader for its batch.
@@ -269,6 +287,22 @@ class Trainer:
         # One stream of draws per data index (the same on every rank of a
         # model group); data index 0 draws what one process draws.
         self.generator.manual_seed(int(training.get("seed", 0)) + (self.mesh.data_index << 32))
+        if self.step_kind == "program":
+            self.program = TrainProgram(self.task, self.optimizer, self.generator,
+                                        self._program_settings())
+        logger.info("train step: %s on %s, mesh %s", self.step_kind, self.device, self.mesh.shape)
+
+    def _program_settings(self) -> dict:
+        """The train settings that change the train program's kernels (part
+        of its graphs' keys)."""
+        training, cfg = self.config["training"], self.config
+        return {"dropout": cfg.get("model", {}).get("dropout"),
+                "rematerialize": bool(cfg.get("precision", {}).get("rematerialize")),
+                "on_device_augment": self.task.augment_fn is not None,
+                "accumulate_grad_batches": self.optimizer.accum,
+                "frozen_weight_quant": training.get("frozen_weight_quant"),
+                "frozen_param_dtype": training.get("frozen_param_dtype"),
+                "loss_mode": self.task.loss_mode}
 
     def _put_batch(self, batch: dict) -> "_PlacedBatch":
         """Host batch -> tensors on the trainer's device (``target_text``
@@ -284,6 +318,9 @@ class Trainer:
         placed.update({k: None for k, v in batch.items() if v is None})
         arrays = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                   for k, v in batch.items() if k != "target_text" and v is not None}
+        host = {k: arrays.get(k) for k in ("audio_lengths", "target_lengths")}
+        if all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in host.values()):
+            placed.lengths = host
         if self.device.type != "cuda":
             placed.update({k: v.to(self.device) for k, v in arrays.items()})
             return placed
@@ -368,9 +405,15 @@ class Trainer:
                     break
                 if self.data_wait_s is not None:
                     self.data_wait_s.append(time.perf_counter() - t_wait)
-                placed = self._ready(batch if pre_placed else self._put_batch(batch))
+                placed = batch if pre_placed else self._put_batch(batch)
+                lengths = placed.lengths
+                placed = self._ready(placed)
                 placed.pop("target_text", None)
-                losses = self.task.train_step(self.optimizer, placed, self.generator)
+                if self.program is not None:
+                    losses = self.program.train_step(placed, lengths)
+                else:
+                    losses = self.task.train_step(self.optimizer, placed, self.generator,
+                                                  lengths=lengths)
                 self.global_step += 1
                 if self.step_timestamps is not None:
                     self.step_timestamps.append(time.perf_counter())
@@ -424,10 +467,13 @@ class Trainer:
         texts of every data index are gathered in global-batch order."""
         losses_by_batch: list[dict] = []
         rows: list[tuple[int, list[str], list[str]]] = []
+        step = self.program.eval_step if self.program is not None else self.task.eval_step
         for batch in loader:
-            placed = self._ready(self._put_batch(batch))
+            placed = self._put_batch(batch)
+            lengths = placed.lengths
+            placed = self._ready(placed)
             texts = placed.pop("target_text", [])
-            losses, preds = self.task.eval_step(placed)
+            losses, preds = step(placed, lengths)
             losses_by_batch.append({k: float(v) for k, v in losses.items()})
             rows.append((len(texts) or int(placed["target_ids"].shape[0]), list(texts),
                          self.task.decode_predictions(preds, self.tokenizer)))

@@ -778,3 +778,208 @@ def test_serve_tool_on_the_card_answers_health_a_transcript_and_metrics():
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=30)
+
+
+# -- the train program (training/programs.py) -------------------------------------------------
+
+TRAIN_VOCAB = 48
+TRAIN_CASES = {  # dropout, rematerialize, on-device augmentation, loss mode, K1 per step
+    "dropout": (0.1, False, False, "ctc_ce", 1),
+    "remat_dropout": (0.1, True, False, "ctc_ce", 1),
+    "remat_flash": (0.0, True, False, "ctc_ce", 5),
+    "augment": (0.1, False, True, "ctc_ce", 1),
+    "feature_mse": (0.1, False, False, "feature_mse", 1),
+}
+
+
+def _train_twins(precision, dropout, remat, augment, loss_mode, accum=1, seed=0):
+    """Two tasks and optimizers over twin tiny AV nets on the card (a 1-layer
+    d_model 64 Whisper encoder over 3000 mel frames, MoCo ResNet-50, 2
+    fusion blocks at Dh 32, fusion gates 0.5), each with a generator seeded
+    alike."""
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.config import get_config
+    from mocov2_whisper_flamingo_torch.models import layers as L
+    from mocov2_whisper_flamingo_torch.models.av_net import AVNet
+    from mocov2_whisper_flamingo_torch.models.convert import load_jax_params, random_avnet_params
+    from mocov2_whisper_flamingo_torch.models.whisper import WhisperConfig
+    from mocov2_whisper_flamingo_torch.ops.augment import make_batch_augment
+    from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
+    from mocov2_whisper_flamingo_torch.training.task import AVSRTask
+
+    cfg = WhisperConfig(n_mels=80, d_model=64, encoder_layers=1, decoder_layers=1, n_heads=2,
+                        d_ff=128, vocab_size=TRAIN_VOCAB, max_source_positions=1500,
+                        max_target_positions=32)
+    tree, twins = None, []
+    for _ in range(2):
+        net = AVNet("audiovisual", None, 96, (64, 2, 4, 3000, 128, dropout), TRAIN_VOCAB,
+                    device="cuda", whisper_config=cfg, remat=remat,
+                    precision=L.BF16 if precision == "bf16" else L.FP32)
+        if tree is None:
+            tree = random_avnet_params(net, seed)
+            for layer in tree["fusion"]["layers"]:
+                layer["attn_gate"] = layer["ff_gate"] = np.float32(0.5)
+        load_jax_params(net, tree)
+        augment_fn = (make_batch_augment(get_config({"augmentation.on_device": True}), "cuda")
+                      if augment else None)
+        task = AVSRTask(net, loss_mode=loss_mode, augment_fn=augment_fn)
+        opt, _ = make_optimizer({"max_lr": 1e-3, "warmup_ratio": 0.3, "weight_decay": 0.01,
+                                 "gradient_clip_val": 1.0, "accumulate_grad_batches": accum},
+                                6, net.trainable_parameters())
+        twins.append((task, opt, torch.Generator(device="cuda").manual_seed(seed + 5)))
+    return twins
+
+
+def _train_batch(rng, augmentable, b=2, tv=8, n_target=5):
+    """A batch on the card and its lengths on the host. Each row's targets
+    are distinct: ``F.ctc_loss``'s CUDA backward adds a repeated label's
+    gradients atomically, in no fixed order."""
+    import numpy as np
+
+    video = rng.integers(0, 256, (b, tv, 3, 32, 32))
+    lengths = {"audio_lengths": torch.full((b,), 1500, dtype=torch.int32),
+               "target_lengths": torch.tensor([n_target, n_target - 2], dtype=torch.int32)}
+    batch = {
+        "audio": torch.from_numpy(rng.standard_normal((b, 3000, 80)).astype(np.float32)),
+        "audio_mask": torch.ones((b, 3000), dtype=torch.bool),
+        "video": (torch.from_numpy(video.astype(np.uint8)) if augmentable else
+                  torch.from_numpy((video / 255.0 - 0.4).astype(np.float32))),
+        "video_mask": torch.ones((b, tv), dtype=torch.bool),
+        "video_lengths": torch.tensor([tv, tv - 2], dtype=torch.int32),
+        "target_ids": torch.from_numpy(np.stack([rng.permutation(TRAIN_VOCAB - 1)[:n_target] + 1
+                                                 for _ in range(b)])),
+        **lengths}
+    return {k: v.cuda() for k, v in batch.items()}, lengths
+
+
+def _same_state(a, b) -> bool:
+    (ta, oa, ga), (tb, ob, gb) = a, b
+    return (all(torch.equal(x, y) for x, y in zip(oa.params, ob.params))
+            and all(torch.equal(x, y) for x, y in zip(oa.state_tensors(), ob.state_tensors()))
+            and torch.equal(ga.get_state(), gb.get_state()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(TRAIN_CASES))
+def test_train_program_replays_the_eager_step_bit_for_bit(case, precision):
+    """Three micro-batches through ``TrainProgram.train_step`` (a capture of
+    F and B, then replays) and through ``AVSRTask.train_step`` on a twin:
+    losses, parameters, moments, counts and the generator bit for bit, K1
+    counted per step as the eager step launches it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+
+    dropout, remat, augment, loss_mode, k1 = TRAIN_CASES[case]
+    program_side, eager_side = _train_twins(precision, dropout, remat, augment, loss_mode)
+    program = TrainProgram(*program_side, {"case": case})
+    rng = np.random.default_rng(1)
+    for step in range(3):
+        batch, lengths = _train_batch(rng, augment)
+        fa.reset_launches()
+        got = program.train_step(batch, lengths)
+        torch.cuda.synchronize()
+        assert fa.launches == k1, step
+        fa.reset_launches()
+        want = eager_side[0].train_step(eager_side[1], batch, eager_side[2], lengths=lengths)
+        torch.cuda.synchronize()
+        assert fa.launches == k1, step
+        assert sorted(got) == sorted(want)
+        assert all(torch.equal(got[k], want[k]) for k in got), (step, got, want)
+        assert _same_state(program_side, eager_side), step
+    assert len(program.captures) == 2 and program.replays == 6 and len(program.pairs) == 1
+    assert program_side[1].count == 3
+
+
+@pytest.mark.cuda
+def test_train_program_poisoned_micro_batch_changes_nothing_at_accum_2():
+    """``accumulate_grad_batches`` 2, a NaN micro-batch between the two
+    halves of an update: it changes no state in the replayed step, and the
+    program and the eager step stay bit-equal through it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+
+    program_side, eager_side = _train_twins("fp32", 0.1, False, False, "ctc_ce", accum=2)
+    program = TrainProgram(*program_side, {})
+    rng = np.random.default_rng(2)
+    for step in range(5):
+        batch, lengths = _train_batch(rng, False)
+        if step == 3:
+            batch["audio"] = torch.full_like(batch["audio"], float("nan"))
+            before = [t.clone() for t in (*program_side[1].params,
+                                          *program_side[1].state_tensors())]
+        got = program.train_step(batch, lengths)
+        want = eager_side[0].train_step(eager_side[1], batch, eager_side[2], lengths=lengths)
+        assert float(got["skipped"]) == float(want["skipped"]) == float(step == 3)
+        if step == 3:
+            after = (*program_side[1].params, *program_side[1].state_tensors())
+            assert all(torch.equal(x, y) for x, y in zip(after, before))
+        assert _same_state(program_side, eager_side), step
+    assert program_side[1].count == 2 and program_side[1].mini_step == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_eval_graph_equals_the_eager_eval_step(precision):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+
+    (task, opt, gen), _ = _train_twins(precision, 0.0, False, False, "ctc_ce")
+    program = TrainProgram(task, opt, gen, {})
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        batch, lengths = _train_batch(rng, False)
+        fa.reset_launches()
+        losses, preds = program.eval_step(batch, lengths)
+        torch.cuda.synchronize()
+        assert fa.launches == 3  # 1 encoder layer + 2 fusion blocks
+        want_losses, want_preds = task.eval_step(batch, lengths)
+        assert torch.equal(preds, want_preds)
+        assert all(torch.equal(losses[k], want_losses[k]) for k in losses)
+    assert len(program.eval_program.captures) == 1 and program.eval_program.replays == 2
+
+
+@pytest.mark.cuda
+def test_replayed_train_step_reads_nothing_back_outside_the_losses():
+    """A replayed step under ``set_sync_debug_mode("error")``, the eager
+    losses between the graphs exempted (``F.ctc_loss`` syncs on its own
+    host copies): the batch's copies, both replays, the guard and the
+    update never wait for the device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+
+    side, _ = _train_twins("bf16", 0.1, False, False, "ctc_ce")
+    program = TrainProgram(*side, {})
+    rng = np.random.default_rng(4)
+    program.train_step(*_train_batch(rng, False))  # the captures
+    batch, lengths = _train_batch(rng, False)
+    torch.cuda.synchronize()
+    losses_fn = program._losses
+
+    def exempt(*args):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return losses_fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    program._losses = exempt
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        losses = program.train_step(batch, lengths)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert program.replays == 4 and np.isfinite(float(losses["loss"]))

@@ -322,7 +322,7 @@ def test_clip_divides_by_the_norm_itself():
     p = torch.nn.Parameter(torch.zeros(4))
     opt = TO.Optimizer([("w.kernel", p)], dict(TRAINING, weight_decay=0.0), 10)
     seen = []
-    opt.adamw.step = lambda: seen.append(p.grad.clone())
+    opt._adamw = lambda g, apply: seen.append(g.clone())  # the clipped gradient AdamW takes
     opt.step([torch.tensor([3.0, 4.0, 0.0, 0.0])])   # norm 5 -> scaled to norm 1
     opt.step([torch.tensor([0.3, 0.4, 0.0, 0.0])])   # norm 0.5 -> untouched
     opt.step([torch.zeros(4)])                       # norm 0 -> untouched, no NaN
