@@ -89,8 +89,9 @@ by shape and its logits held against the plain backend's;
 ``tools/export_model.py``'s ``torch.export`` forward (exported at B=2, run
 at B=3 against the live net on the plain backend and with K1, in process
 and in a fresh child on the card) and its beam program (B=1, beam 5,
-max_len 6, tokens against the live decode), each export and reload
-timed; ``convert_checkpoint``, ``smoke_test`` and ``max_frame_count`` on
+max_len 64, the CLI's default; the search one ``while_loop``; tokens
+against the same program run eagerly, and beside it the net's beam), each
+export, reload and run timed; ``convert_checkpoint``, ``smoke_test`` and ``max_frame_count`` on
 phase 13's dataset and MoCo checkpoint.
 
 Every phase raises on failure. The last two lines of stdout are the
@@ -3664,9 +3665,9 @@ TOOLS_FUSION = ((2, 16), (1, 8), (2, 12), (4, 10), (3, 16))
 VERIFY_K1_RTOL = 2e-2  # K1 against plain logits, bf16: TOL[bf16] of the logits' largest value
 EXPORT_PLAIN_ATOL = 1e-3  # the artifact against the live net on the plain backend
 EXPORT_K1_ATOL = 0.1  # the artifact against the live net with K1: the JAX CLI's bf16 atol
-# The beam program's max_len: 4 forced tokens and 2 searched steps. The export unrolls every
-# step, so its time grows with max_len; the script's time budget keeps it short.
-TOOLS_BEAM_LEN = 6
+# The beam program's max_len, the CLI's default: 4 forced tokens and 60 searched steps. The
+# search is one while_loop in the artifact, so its export and size do not grow with it.
+TOOLS_BEAM_LEN = 64
 
 
 def launched(fn, expected: int, what: str):
@@ -3686,6 +3687,8 @@ def run_verify_model(net, seed: int) -> dict:
     with k1_shapes(shapes):
         stability, stab_s = launched(lambda: verify_model.test_model_stability(net),
                                      3 * TOOLS_FORWARD_LAUNCHES, "verify_model stability")
+        torch.cuda.synchronize()
+        allocated_before = torch.cuda.memory_allocated()  # what earlier phases left behind
         memory, mem_s = launched(lambda: verify_model.test_memory_usage(net),
                                  TOOLS_GRAD_LAUNCHES, "verify_model forward+backward")
         in_shapes, shapes_s = launched(lambda: verify_model.test_input_shapes(net),
@@ -3707,6 +3710,8 @@ def run_verify_model(net, seed: int) -> dict:
                          for m, r in stability.items()},
            "memory": memory, "peak_gib": memory["peak_bytes_in_use"] / 2**30,
            "in_use_gib": memory["bytes_in_use"] / 2**30,
+           "allocated_before_gib": allocated_before / 2**30,
+           "step_in_use_gib": (memory["bytes_in_use"] - allocated_before) / 2**30,
            "k1_launches": {"stability": 3 * TOOLS_FORWARD_LAUNCHES,
                            "forward_backward": TOOLS_GRAD_LAUNCHES,
                            "shapes": 3 * TOOLS_FORWARD_LAUNCHES},
@@ -3721,12 +3726,11 @@ def run_verify_model(net, seed: int) -> dict:
     return out
 
 
-def run_export(net, dnet, workdir: str) -> dict:
-    """``tools/export_model.py`` on the card: the forward exported at B=2 and
+def run_export(net, workdir: str) -> dict:
+    """``tools/export_model.py``'s forward on the card: exported at B=2 and
     run at B=3, against the live net on the plain backend and with K1, in
-    process and in a fresh child, and at B=1 against the plain backend; the
-    beam program at B=1 against the live plain-backend beam. Each export and
-    reload timed."""
+    process and in a fresh child, and at B=1 against the plain backend.
+    Export and reload timed."""
     out = {}
     fwd_path = os.path.join(workdir, "forward.pt2")
     _, out["forward_export_s"] = timed_call(lambda: export_model.export_forward(
@@ -3757,25 +3761,51 @@ def run_export(net, dnet, workdir: str) -> dict:
             and out["forward_vs_k1_max_abs_err"] <= EXPORT_K1_ATOL and fresh):
         raise AssertionError(f"the forward artifact fails its checks: {out}")
     os.remove(fwd_path)
+    return out
 
+
+def run_export_beam(dnet, workdir: str) -> dict:
+    """``export_model.export_beam`` at the CLI's ``max_len`` on the card:
+    the artifact's search is one ``while_loop``; its tokens against the
+    same program run eagerly, and beside them the net's beam. Export,
+    reload and run timed."""
+    out = {}
     beam_path = os.path.join(workdir, "beam.pt2")
     bb = export_model._example_batch(1, device="cuda")
     bb = (bb[0].transpose(1, 2).contiguous(),) + bb[1:]  # mel as [B, 80, T]
-    with export_model.plain_attention(dnet):
+    # The artifact is held against the same program run eagerly (the CLI's check); beside
+    # it, the net's beam, which reads the keys 0 .. i where the loop reads the whole window
+    # under the position mask, so bf16 may round the two apart.
+    program = export_model.BeamProgram(dnet, PREFIX, BEAM, TOOLS_BEAM_LEN, EOS, 1.0)
+    with export_model.plain_attention(dnet), torch.no_grad():
+        (eager_seqs, eager_scores), out["beam_eager_s"] = launched(
+            lambda: program(bb), 0, "the eager beam program")
         live = dnet.beam(bb, PREFIX, beam_size=BEAM, max_len=TOOLS_BEAM_LEN, eos_id=EOS)
+    del program
     _, out["beam_export_s"] = timed_call(lambda: export_model.export_beam(
         dnet, bb, PREFIX, beam_path, beam_size=BEAM, max_len=TOOLS_BEAM_LEN, eos_id=EOS))
+    out["beam_max_len"] = TOOLS_BEAM_LEN
     out["beam_bytes"] = os.path.getsize(beam_path)
-    program, out["beam_reload_s"] = timed_call(lambda: torch.export.load(beam_path).module())
+    exported, out["beam_reload_s"] = timed_call(lambda: torch.export.load(beam_path))
+    out["beam_loop_nodes"] = sum(
+        1 for n in exported.graph.nodes
+        if n.op == "call_function" and n.target is torch.ops.higher_order.while_loop)
+    program = exported.module()
     with torch.no_grad():
         (seqs, scores), out["beam_run_s"] = launched(lambda: program(bb), 0,
                                                      "the beam artifact")
-    out["beam_tokens_equal"] = bool(torch.equal(seqs, live.sequences))
-    out["beam_score_max_abs_err"] = (scores - live.scores).abs().max().item()
+    del program, exported
+    out["beam_tokens_equal"] = bool(torch.equal(seqs, eager_seqs))
+    out["beam_score_max_abs_err"] = (scores - eager_scores).abs().max().item()
+    out["beam_generated_lengths"] = (seqs[0, :, len(PREFIX):] != EOS).sum(-1).tolist()
+    out["net_beam_tokens_equal"] = bool(torch.equal(seqs, live.sequences))
+    out["net_beam_score_max_abs_err"] = (scores - live.scores).abs().max().item()
     log("export: " + json.dumps(out))
+    if out["beam_loop_nodes"] != 1:
+        raise AssertionError(f"the beam artifact holds {out['beam_loop_nodes']} while_loops")
     if not out["beam_tokens_equal"]:
-        raise AssertionError(f"beam artifact tokens {seqs} differ from the live beam's "
-                             f"{live.sequences}")
+        raise AssertionError(f"beam artifact tokens {seqs} differ from the eager program's "
+                             f"{eager_seqs}")
     return out
 
 
@@ -3836,7 +3866,8 @@ def run_tools(seed: int) -> dict:
                 layer.attn_gate.fill_(GATE)
                 layer.ff_gate.fill_(GATE)
         out = {"verify_model": run_verify_model(net, seed)}
-        out["export"] = run_export(net, build(seed, L.BF16, "cuda"), workdir)
+        out["export"] = run_export(net, workdir)
+        out["export"].update(run_export_beam(build(seed, L.BF16, "cuda"), workdir))
         out["data_tools"] = run_data_tools(net, seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -20,6 +20,13 @@ prefix steps dequantize it in the compute dtype and the loop steps fold its
 scales into the attention, the two reads the JAX package's search makes.
 Ties between equal scores are broken towards the lower index, as
 ``lax.top_k`` does.
+
+``BeamLoop`` holds one search's state and its step, in two forms:
+``beam_search`` loops over it in Python with an int step index (what the
+decode graphs of ``decode/programs.py`` capture), and
+``tools/export_model.py::BeamProgram`` runs it as the body of one
+``while_loop`` with the index a device tensor, the counterpart of the JAX
+search's ``lax.scan``.
 """
 
 from __future__ import annotations
@@ -80,6 +87,144 @@ def _length_denominators(max_len: int, length_penalty: float, device) -> list[to
     return [gen_lens[g] ** lp for g in range(max_len)]
 
 
+class BeamLoop:
+    """One beam search: its constants, its carried state and its step.
+
+    The constructor allocates the caches and the state and teacher-forces
+    the prefix (``n_prefix - 1`` steps, beams identical). ``state`` is then
+    the carried state, a flat tuple: ``(run_tokens [B, K, L], run_scores
+    [B, K], pool_tokens [B, K, L], pool_scores [B, K], heur_ok [B])``
+    followed by the self caches (``self_k``, ``self_v`` and, with an int8
+    cache, their scales), stacked over layers. ``step(state, i)`` returns
+    the state after step ``i``, for ``i`` in ``n_prefix - 1 .. max_len - 2``;
+    the cross caches and the encoder mask are loop constants.
+
+    The step takes its index in one of two forms, fixed per loop:
+
+    - a Python int (``device_steps=False``): ``beam_search``'s loop, which
+      the decode graphs of ``decode/programs.py`` capture. Each step reads
+      the keys ``0 .. i`` and writes its K/V into the self caches in place.
+    - a 0-d long tensor on the device (``device_steps=True``): the body of
+      the ``while_loop`` that ``tools/export_model.py::BeamProgram``
+      exports. The current token is a gather at ``i``, the new token an
+      out-of-place scatter, the length denominator an index into one
+      stacked table of the same 0-d powers, and the decode step reads the
+      whole window under the ``<= position`` mask and writes its K/V out of
+      place, so no carried tensor is mutated. It takes no logit rules and
+      no cache quant.
+    """
+
+    def __init__(self, decoder, encoder_out: torch.Tensor, prefix_ids, *, beam_size: int,
+                 max_len: int, eos_id: int, length_penalty: float = 1.0,
+                 encoder_valid: torch.Tensor | None = None, early_stopping: bool = False,
+                 logit_rules=None, renorm_after_rules: bool = False,
+                 cache_quant: str | None = None, device_steps: bool = False):
+        if device_steps and (logit_rules is not None or cache_quant is not None):
+            raise ValueError("a beam loop with device steps takes no logit rules and no "
+                             "cache quant")
+        dev = encoder_out.device
+        b, k = encoder_out.shape[0], beam_size
+        self.decoder, self.encoder_valid = decoder, encoder_valid
+        self.b, self.k, self.max_len, self.eos_id = b, k, max_len, eos_id
+        self.early_stopping, self.logit_rules = early_stopping, logit_rules
+        self.renorm_after_rules, self.device_steps = renorm_after_rules, device_steps
+        prefix = prefix_tensor(prefix_ids, dev)
+        self.n_prefix = n_prefix = int(prefix.shape[0])
+        self.denoms = _length_denominators(max_len, length_penalty, dev)
+
+        cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=k,
+                                   quant=cache_quant)
+        self.self_names = [n for n in ("self_k", "self_v", "self_k_scale", "self_v_scale")
+                           if n in cache]
+        run_tokens = torch.full((b, k, max_len), eos_id, dtype=torch.long, device=dev)
+        run_tokens[:, :, :n_prefix] = prefix
+        run_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+        run_scores[:, 0] = 0.0
+        pool_tokens = torch.full((b, k, max_len), eos_id, dtype=torch.long, device=dev)
+        pool_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+        heur_ok = torch.ones((b,), dtype=torch.bool, device=dev)
+        self.can_bank = (torch.arange(2 * k, device=dev) < k)[None, :]
+        self.row_base = torch.arange(b, device=dev)[:, None] * k
+        if device_steps:
+            self.denom_table = torch.stack(self.denoms)
+
+        for i in range(n_prefix - 1):  # teacher-force the prefix (beams identical)
+            decoder.decode_step(prefix[i].expand(b * k, 1), cache, i, encoder_valid)
+        self.cross = {n: v for n, v in cache.items() if n not in self.self_names}
+        self.state = (run_tokens, run_scores, pool_tokens, pool_scores, heur_ok,
+                      *(cache[n] for n in self.self_names))
+
+    def step(self, state: tuple, i) -> tuple:
+        """The state after step ``i`` (a Python int or a 0-d long tensor on
+        the device, as the loop was made)."""
+        if isinstance(i, torch.Tensor) != self.device_steps:
+            raise TypeError(f"this beam loop takes its step index as "
+                            f"{'a 0-d tensor' if self.device_steps else 'an int'}")
+        run_tokens, run_scores, pool_tokens, pool_scores, heur_ok, *selfs = state
+        b, k, max_len, n_prefix = self.b, self.k, self.max_len, self.n_prefix
+        k2 = 2 * k
+        cache = dict(self.cross, **dict(zip(self.self_names, selfs)))
+        flat_tokens = run_tokens.reshape(b * k, max_len)
+        if self.device_steps:
+            cur = flat_tokens.gather(1, i.expand(b * k, 1))
+            logits, cache = self.decoder.decode_step(
+                cur, cache, max_len - 1, self.encoder_valid, positions=i.expand(b * k),
+                fold_scales=True, in_place=False)
+        else:
+            cur = flat_tokens[:, i:i + 1]
+            logits, cache = self.decoder.decode_step(cur, cache, i, self.encoder_valid,
+                                                     fold_scales=True)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        if self.logit_rules is not None:
+            logp = self.logit_rules(logp, flat_tokens, i + 1, n_prefix)
+            if self.renorm_after_rules:
+                logp = torch.log_softmax(logp, dim=-1)
+        # Per-beam top-2K, then top-2K of the K*2K union: exact, since every
+        # global top-2K candidate is inside its own beam's top-2K.
+        s1, t1 = torch.topk(logp, k2, dim=-1)
+        total1 = run_scores[..., None] + s1.reshape(b, k, k2)
+        s2k, flat = _top_k(total1.reshape(b, k * k2), k2)
+        beam2k = flat // k2
+        tok2k = t1.reshape(b, k * k2).gather(1, flat)
+        hits = (tok2k == self.eos_id) | (i + 2 >= max_len)
+
+        cand_tokens = _take_rows(run_tokens, beam2k)
+        # Generated length after this step: the loop starts at n_prefix - 1,
+        # so the index runs over 1 .. max_len - n_prefix and is never negative.
+        if self.device_steps:
+            cand_tokens = cand_tokens.scatter(2, (i + 1).expand(b, k2, 1), tok2k[..., None])
+            denom = self.denom_table.gather(0, (i + 2 - n_prefix).reshape(1))[0]
+        else:
+            cand_tokens[:, :, i + 1] = tok2k
+            denom = self.denoms[i + 2 - n_prefix]
+
+        # ---- bank finished candidates into the hypothesis pool ----
+        bank_ok = hits & self.can_bank & heur_ok[:, None]
+        if self.early_stopping:
+            pool_full = (pool_scores > NEG_INF / 2).all(dim=-1)
+            bank_ok &= ~pool_full[:, None]
+        bank = torch.where(bank_ok, s2k / denom, NEG_INF)
+        pool_scores, pool_idx = _top_k(torch.cat([pool_scores, bank], dim=1), k)
+        pool_tokens = _take_rows(torch.cat([pool_tokens, cand_tokens], dim=1), pool_idx)
+
+        # ---- the K best unfinished candidates continue ----
+        run_scores, sel = _top_k(s2k + hits * NEG_INF, k)
+        sel_beam = beam2k.gather(1, sel)
+        run_tokens = _take_rows(cand_tokens, sel)
+        rows = (self.row_base + sel_beam).reshape(-1)
+        selfs = [cache[name].index_select(1, rows) for name in self.self_names]
+
+        # ---- early-stop heuristic (the pool can no longer improve) ----
+        best_possible = run_scores[:, 0] / denom
+        pool_done = (pool_scores > NEG_INF / 2).all(dim=-1)
+        worst = pool_scores.min(dim=-1).values
+        heur_ok = heur_ok & (~pool_done | (best_possible > worst))
+        if self.device_steps:  # a while_loop's body returns its carries' strides
+            run_scores, pool_scores = (x.clone(memory_format=torch.contiguous_format)
+                                       for x in (run_scores, pool_scores))
+        return (run_tokens, run_scores, pool_tokens, pool_scores, heur_ok, *selfs)
+
+
 @torch.no_grad()
 def beam_search(
     decoder,
@@ -98,7 +243,9 @@ def beam_search(
     cache_layout: str = "rows",
 ) -> BeamResult:
     """Batched beam search; returns the K best finished hypotheses per
-    example, best first, EOS-filled past each end.
+    example, best first, EOS-filled past each end. A Python loop over
+    ``BeamLoop.step`` with an int index; ``tools/export_model.py`` exports
+    the same step as the body of one ``while_loop``.
 
     ``decoder`` is a prepared ``WhisperDecoder``
     (``prepare_decode_params``). ``prefix_ids``: ints, or a long tensor on
@@ -120,72 +267,11 @@ def beam_search(
     if cache_layout not in ("rows", "bhjtd"):
         raise ValueError(f"unknown cache_layout {cache_layout!r}; expected 'rows' or 'bhjtd'")
     del read_windows
-    dev = encoder_out.device
-    b, k = encoder_out.shape[0], beam_size
-    k2 = 2 * k
-    prefix = prefix_tensor(prefix_ids, dev)
-    n_prefix = int(prefix.shape[0])
-    denoms = _length_denominators(max_len, length_penalty, dev)
-
-    cache = decoder.init_cache(encoder_out, max_len=max_len, beam_groups=k, quant=cache_quant)
-    self_names = [n for n in ("self_k", "self_v", "self_k_scale", "self_v_scale") if n in cache]
-    run_tokens = torch.full((b, k, max_len), eos_id, dtype=torch.long, device=dev)
-    run_tokens[:, :, :n_prefix] = prefix
-    run_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
-    run_scores[:, 0] = 0.0
-    pool_tokens = torch.full((b, k, max_len), eos_id, dtype=torch.long, device=dev)
-    pool_scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
-    heur_ok = torch.ones((b,), dtype=torch.bool, device=dev)
-    can_bank = (torch.arange(k2, device=dev) < k)[None, :]
-    row_base = torch.arange(b, device=dev)[:, None] * k
-
-    for i in range(n_prefix - 1):  # teacher-force the prefix (beams identical)
-        decoder.decode_step(prefix[i].expand(b * k, 1), cache, i, encoder_valid)
-
-    for i in range(n_prefix - 1, max_len - 1):
-        cur = run_tokens.reshape(b * k, max_len)[:, i:i + 1]
-        logits, cache = decoder.decode_step(cur, cache, i, encoder_valid, fold_scales=True)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        if logit_rules is not None:
-            logp = logit_rules(logp, run_tokens.reshape(b * k, max_len), i + 1, n_prefix)
-            if renorm_after_rules:
-                logp = torch.log_softmax(logp, dim=-1)
-        # Per-beam top-2K, then top-2K of the K*2K union: exact, since every
-        # global top-2K candidate is inside its own beam's top-2K.
-        s1, t1 = torch.topk(logp, k2, dim=-1)
-        total1 = run_scores[..., None] + s1.reshape(b, k, k2)
-        s2k, flat = _top_k(total1.reshape(b, k * k2), k2)
-        beam2k = flat // k2
-        tok2k = t1.reshape(b, k * k2).gather(1, flat)
-        hits = (tok2k == eos_id) | (i + 2 >= max_len)
-
-        cand_tokens = _take_rows(run_tokens, beam2k)
-        cand_tokens[:, :, i + 1] = tok2k
-
-        # ---- bank finished candidates into the hypothesis pool ----
-        # Generated length after this step: the loop starts at n_prefix - 1,
-        # so the index runs over 1 .. max_len - n_prefix and is never negative.
-        denom = denoms[i + 2 - n_prefix]
-        bank_ok = hits & can_bank & heur_ok[:, None]
-        if early_stopping:
-            pool_full = (pool_scores > NEG_INF / 2).all(dim=-1)
-            bank_ok &= ~pool_full[:, None]
-        bank = torch.where(bank_ok, s2k / denom, NEG_INF)
-        pool_scores, pool_idx = _top_k(torch.cat([pool_scores, bank], dim=1), k)
-        pool_tokens = _take_rows(torch.cat([pool_tokens, cand_tokens], dim=1), pool_idx)
-
-        # ---- the K best unfinished candidates continue ----
-        run_scores, sel = _top_k(s2k + hits * NEG_INF, k)
-        sel_beam = beam2k.gather(1, sel)
-        run_tokens = _take_rows(cand_tokens, sel)
-        rows = (row_base + sel_beam).reshape(-1)
-        for name in self_names:
-            cache[name] = cache[name].index_select(1, rows)
-
-        # ---- early-stop heuristic (the pool can no longer improve) ----
-        best_possible = run_scores[:, 0] / denom
-        pool_done = (pool_scores > NEG_INF / 2).all(dim=-1)
-        worst = pool_scores.min(dim=-1).values
-        heur_ok = heur_ok & (~pool_done | (best_possible > worst))
-
-    return BeamResult(sequences=pool_tokens, scores=pool_scores)
+    loop = BeamLoop(decoder, encoder_out, prefix_ids, beam_size=beam_size, max_len=max_len,
+                    eos_id=eos_id, length_penalty=length_penalty, encoder_valid=encoder_valid,
+                    early_stopping=early_stopping, logit_rules=logit_rules,
+                    renorm_after_rules=renorm_after_rules, cache_quant=cache_quant)
+    state = loop.state
+    for i in range(loop.n_prefix - 1, max_len - 1):
+        state = loop.step(state, i)
+    return BeamResult(sequences=state[2], scores=state[3])

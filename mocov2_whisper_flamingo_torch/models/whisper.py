@@ -476,9 +476,12 @@ class WhisperDecoder(nn.Module):
 
     def _self_step(self, li: int, layer: DecoderLayer, x: torch.Tensor, cache: dict,
                    index: int, where: tuple, write: bool | torch.Tensor = True,
-                   fold_scales: bool = False) -> torch.Tensor:
+                   fold_scales: bool = False, in_place: bool = True) -> torch.Tensor:
         """``where``: the cache entries the step's K/V go to, and the key mask
-        over ``0 .. index`` (None: every row stands at ``index``)."""
+        over ``0 .. index`` (None: every row stands at ``index``).
+        ``in_place=False``: ``cache["self_k"]`` and ``["self_v"]`` are lists
+        of per-layer tensors, and the layer's entries are replaced by written
+        copies."""
         cfg, sa = self.config, layer.self_attn
         y = layer.self_attn_ln(x)
         if sa.qkv is not None:
@@ -492,7 +495,11 @@ class WhisperDecoder(nn.Module):
         gate = write if isinstance(write, torch.Tensor) else None
 
         def put(dst, val):  # dst[write_at] = val, kept as it was where the gate is False
-            dst[write_at] = val if gate is None else torch.where(gate, val, dst[write_at])
+            val = val if gate is None else torch.where(gate, val, dst[write_at])
+            if not in_place:  # a written copy
+                return dst.index_put(write_at, val)
+            dst[write_at] = val
+            return dst
 
         if gate is not None or write:
             k, v = _split_heads(k, cfg.n_heads)[:, 0], _split_heads(v, cfg.n_heads)[:, 0]
@@ -503,8 +510,9 @@ class WhisperDecoder(nn.Module):
                     put(dst, val_q)
                     put(scales, val_scale)
             else:
-                put(ck, k.to(ck.dtype))
-                put(cv, v.to(cv.dtype))
+                ck, cv = put(ck, k.to(ck.dtype)), put(cv, v.to(cv.dtype))
+                if not in_place:
+                    cache["self_k"][li], cache["self_v"][li] = ck, cv
         # Positions past ``index`` are masked to exact zeros in the JAX
         # package; here they are simply not read.
         ck, cv = ck[:, : index + 1], cv[:, : index + 1]
@@ -564,7 +572,8 @@ class WhisperDecoder(nn.Module):
                     encoder_valid: torch.Tensor | None = None,
                     positions: torch.Tensor | None = None,
                     write: bool | torch.Tensor = True,
-                    fold_scales: bool = False) -> tuple[torch.Tensor, dict]:
+                    fold_scales: bool = False,
+                    in_place: bool = True) -> tuple[torch.Tensor, dict]:
         """One step. ``tokens [rows, 1]``; ``index`` is the (Python int)
         position. Writes the step's K/V into ``cache`` in place and returns
         ``(logits [rows, V] fp32, cache)``.
@@ -581,8 +590,19 @@ class WhisperDecoder(nn.Module):
 
         ``fold_scales`` (int8 self cache only): False dequantizes the cached
         K/V in the compute dtype before the attention, True folds their fp32
-        scales into the scores and probabilities (see the module doc)."""
+        scales into the scores and probabilities (see the module doc).
+
+        ``in_place=False`` (needs ``positions`` and a float self cache)
+        leaves ``cache`` as it was and returns a new dict whose self caches
+        are written copies: the body of a ``torch.export``'d ``while_loop``
+        (``decode/beam.py::BeamLoop``) may not mutate what it carries."""
         prec = self.precision
+        if not in_place:
+            if positions is None or "self_k_scale" in cache:
+                raise ValueError("an out-of-place decode step needs positions and a float "
+                                 "self cache")
+            cache = dict(cache, self_k=list(cache["self_k"].unbind(0)),
+                         self_v=list(cache["self_v"].unbind(0)))
         if positions is None:
             pe = self.pos_embed[index]
             where = ((slice(None), index), None)
@@ -594,11 +614,15 @@ class WhisperDecoder(nn.Module):
         x = prec.cast(self.embed_tokens(tokens) + pe)
         cks, cvs = cache.get("cross_k_scale"), cache.get("cross_v_scale")
         for li, layer in enumerate(self.layers):
-            x = x + self._self_step(li, layer, x, cache, index, where, write, fold_scales)
+            x = x + self._self_step(li, layer, x, cache, index, where, write, fold_scales,
+                                    in_place)
             x = x + self._cross_step(layer, x, cache["cross_k"][li], cache["cross_v"][li],
                                      encoder_valid, None if cks is None else cks[li],
                                      None if cvs is None else cvs[li])
             x = x + layer.mlp(layer.mlp_ln(x))
         x = self.ln_post(x)
         logits = self._vocab_logits(prec.cast(x))
+        if not in_place:
+            cache["self_k"], cache["self_v"] = (torch.stack(cache["self_k"]),
+                                                torch.stack(cache["self_v"]))
         return logits[:, 0], cache

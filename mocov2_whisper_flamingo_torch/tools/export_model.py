@@ -17,9 +17,13 @@ Counterpart of the JAX package's ``tools/export_model.py`` (StableHLO through
   verifies at B=3, so the batch axis is shown to be symbolic; the artifact
   runs at B=1 as well.
 - ``export_beam`` exports the serving program, the AV encode and the beam
-  search unrolled to ``max_len`` steps, at one (batch, beam, max_len)
-  bucket. The decoder is prepared for decoding (``prepare_decode_params``)
-  once, before tracing, and the artifact holds the prepared copy.
+  search, at one (batch, beam, max_len) bucket. The search is one
+  ``while_loop`` over the beam step (``BeamProgram``), as the JAX artifact's
+  is one ``lax.scan``: the artifact's size and the export's time do not
+  grow with ``max_len``. The decoder is prepared for decoding
+  (``prepare_decode_params``) once, before tracing, and the artifact holds
+  the prepared copy. The CLI holds the artifact against the same program
+  run eagerly.
 - ``verify_export`` reloads the artifact, runs it and compares it with the
   live model; ``verify_export_fresh_process`` does the same in a fresh
   interpreter that never traced it.
@@ -112,36 +116,63 @@ def export_forward(net, example_batch, path: str, symbolic_batch: bool = True,
 class BeamProgram(nn.Module):
     """The serving program of an ``AVWhisperNet``: ``AVWhisperNet.beam``'s
     encode and beam search, on a decoder prepared once. Holds the trunk, the
-    bridge and the prepared decoder (not the unprepared one). It runs the
-    eager ``beam_search``, not the net's CUDA graph (``decode/programs.py``):
-    ``torch.export`` traces the loop and cannot trace a replay."""
+    bridge and the prepared decoder (not the unprepared one).
+
+    The search is ``decode/beam.py::BeamLoop``: the prefix's teacher-forced
+    steps, then one ``torch._higher_order_ops.while_loop`` over the step's
+    device form, ``max_len - n_prefix`` times, as the JAX search is one
+    ``lax.scan``. ``torch.export`` traces the body once, so the artifact and
+    the export's time do not grow with ``max_len``. Called eagerly (the
+    CLI's reference), torch runs the same loop through dynamo. Not the net's
+    CUDA graph
+    (``decode/programs.py``): ``torch.export`` cannot trace a replay."""
 
     def __init__(self, net, prefix_ids, beam_size: int, max_len: int, eos_id: int,
                  length_penalty: float):
         super().__init__()
         self.trunk, self.bridge = net.trunk, net.bridge
         self.decoder = net.decoder.prepare_decode_params()
+        if self.decoder.vocab_table is self.decoder.embed_tokens.embedding:
+            # fp32: the vocab table is the embedding itself, and the loop's
+            # body may not take two inputs that alias; the logits read the
+            # embedding then, the same values.
+            self.decoder.vocab_table = None
         self.prefix = [int(t) for t in prefix_ids]
         self.search = dict(beam_size=beam_size, max_len=max_len, eos_id=eos_id,
                            length_penalty=length_penalty)
 
     def forward(self, input_batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
-        from mocov2_whisper_flamingo_torch.decode.beam import beam_search
+        from torch._higher_order_ops import while_loop
+
+        from mocov2_whisper_flamingo_torch.decode.beam import BeamLoop
 
         features, valid = self.trunk.fused_features(input_batch)  # AVWhisperNet.encode
-        res = beam_search(self.decoder, self.bridge(features), self.prefix,
-                          encoder_valid=valid, **self.search)
-        return res.sequences, res.scores
+        loop = BeamLoop(self.decoder, self.bridge(features), self.prefix, encoder_valid=valid,
+                        device_steps=True, **self.search)
+        last = loop.max_len - 1
+        start = torch.full((), loop.n_prefix - 1, dtype=torch.long, device=features.device)
+        _, *state = while_loop(lambda i, *_: i < last,
+                               lambda i, *state: (i + 1, *loop.step(state, i)),
+                               (start, *loop.state))
+        return state[2], state[3]  # pool tokens [B, K, max_len], pool scores [B, K]
 
 
 def export_beam(net, example_batch, prefix_ids, path: str, beam_size: int = 5,
                 max_len: int = 64, eos_id: int = 0, length_penalty: float = 1.0) -> bytes:
     """Export the serving program of ``net`` (an ``AVWhisperNet``): AV encode
     -> beam search -> (sequences [B, K, L], scores [B, K]) at the example's
-    shapes, ``max_len`` steps unrolled. Returns the bytes written."""
+    shapes, the search one ``while_loop`` (``BeamProgram``). Returns the
+    bytes written."""
     program = BeamProgram(net, prefix_ids, beam_size, max_len, eos_id, length_penalty)
     with plain_attention(net), torch.no_grad():
         exported = torch.export.export(program, (tuple(example_batch),), strict=False)
+    # Each node of the loop's body carries, as its stack trace, the text of
+    # the traced while_loop call, which names every weight the body reads:
+    # ~90 MB of a whisper-small artifact. The traces are debug text only.
+    for module in exported.graph_module.modules():
+        if isinstance(module, torch.fx.GraphModule):
+            for node in module.graph.nodes:
+                node.meta.pop("stack_trace", None)
     blob = _save(exported, path)
     logger.info("exported beam decode (B=%d K=%d L=%d): %d bytes to %s",
                 example_batch[0].shape[0], beam_size, max_len, len(blob), path)
@@ -278,13 +309,22 @@ def main(argv=None) -> int:
         bb = _example_batch(args.beam_batch, device=device)
         bb = (bb[0].transpose(1, 2).contiguous(),) + bb[1:]  # mel as [B, 80, T]
         prefix = [1, 2]
-        with plain_attention(dnet):
+        # The artifact is held against the same program run eagerly (its loop
+        # runs the same body): token ids exact, scores within 1e-4. Beside it,
+        # agreement with the net's own beam, which reads the keys 0 .. i where
+        # the loop reads the whole window under the position mask: in bf16
+        # the two may round apart.
+        program = BeamProgram(dnet, prefix, args.beam_size, args.max_len, 0, 1.0)
+        with plain_attention(dnet), torch.no_grad():
+            eager = program(bb)
             res = dnet.beam(bb, prefix, beam_size=args.beam_size, max_len=args.max_len,
                             eos_id=0)
         export_beam(dnet, bb, prefix, args.beam_output, beam_size=args.beam_size,
                     max_len=args.max_len, eos_id=0)
-        ok = ok and verify_export(args.beam_output, bb,
-                                  reference_out=(res.sequences, res.scores))
+        ok = ok and verify_export(args.beam_output, bb, reference_out=eager)
+        logger.info("eager beam program vs the net's beam: tokens %s, largest score "
+                    "difference %.3e", "equal" if torch.equal(eager[0], res.sequences)
+                    else "differ", (eager[1] - res.scores).abs().max().item())
 
     ok = ok and verify_export_fresh_process(args.output, batch3, reference_out=live3, atol=0.1)
     print("EXPORT:", "PASS" if ok else "FAIL")

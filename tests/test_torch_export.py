@@ -3,7 +3,9 @@ the tiny configuration of tests/test_tools.py: the ``torch.export`` forward
 artifact (symbolic batch, symbolic video time) and the beam-decode artifact
 against the JAX live forward and beam, in process and in a fresh
 interpreter. Weights go to both packages through the bridge; fp32 logits
-within 1e-4, beam tokens exact."""
+within 1e-4, beam tokens exact. The beam artifact's search is one
+``while_loop``, so it is exported at two lengths and its size does not grow;
+its body's device form is held against the eager search's int form."""
 
 import jax
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from mocov2_whisper_flamingo_torch.decode.beam import BeamLoop, beam_search
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet as TNet
 from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet as TAVWNet
 from mocov2_whisper_flamingo_torch.models.convert import (
@@ -30,6 +33,9 @@ TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4
 BEAM_TINY = dict(TINY, max_source_positions=64)
 ATOL = 1e-4  # fp32 logits and beam scores
 PREFIX, MAX_LEN, EOS, BEAM = [1, 2], 12, 13, 3  # EOS: a token the decoder emits mid-beam
+# The beam artifact's second length (twice the steps, the same graph) and an EOS with which
+# its hypotheses run past MAX_LEN: one banks mid-way, two are force-banked at the last step.
+LONG_LEN, LONG_EOS = 24, 40
 
 
 def _gates(trunk_tree) -> None:
@@ -66,7 +72,9 @@ def forward_setup():
 
 
 @pytest.fixture(scope="module")
-def beam_setup():
+def beam_nets():
+    """The torch net, its batch and ``jax_beam(max_len, eos_id)``: the
+    jitted JAX beam's (sequences, scores) on the same weights and batch."""
     tnet = TAVWNet(modelargs=MODELARGS, vocab_size=VOCAB, device="cpu",
                    whisper_config=TConfig(**BEAM_TINY))
     tree = random_jax_params(tnet, 5)
@@ -86,12 +94,23 @@ def beam_setup():
     jnet.trunk.whisper_encoder = JEncoder(cfg, jnet.trunk.precision, "xla")
     jnet.decoder = JDecoder(cfg, jnet.precision, "xla")
     jbatch, tbatch = _batch(21, 2, 6, mel=(80, 128), hw=32, lens=[6, 4])
-    def beam(p, x):
-        res = jnet.beam(p, x, PREFIX, beam_size=BEAM, max_len=MAX_LEN, eos_id=EOS)
-        return res.sequences, res.scores
+    params = jax.tree.map(jnp.asarray, tree)
 
-    seqs, scores = jax.jit(beam)(jax.tree.map(jnp.asarray, tree), jbatch)
-    return tnet, tbatch, (np.array(seqs), np.array(scores))
+    def jax_beam(max_len: int, eos_id: int = EOS):
+        def beam(p, x):
+            res = jnet.beam(p, x, PREFIX, beam_size=BEAM, max_len=max_len, eos_id=eos_id)
+            return res.sequences, res.scores
+
+        seqs, scores = jax.jit(beam)(params, jbatch)
+        return np.array(seqs), np.array(scores)
+
+    return tnet, tbatch, jax_beam
+
+
+@pytest.fixture(scope="module")
+def beam_setup(beam_nets):
+    tnet, tbatch, jax_beam = beam_nets
+    return tnet, tbatch, jax_beam(MAX_LEN)
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +176,7 @@ def test_symbolic_time_needs_symbolic_batch(forward_setup, tmp_path):
 
 
 def test_beam_artifact_tokens_equal_the_jax_beam(beam_setup, artifacts):
-    """The serving artifact (AV encode + beam search unrolled to max_len)
+    """The serving artifact (AV encode + beam search as one while_loop)
     gives the JAX beam's token ids exactly, and its scores within 1e-4. It
     holds the decoder prepared once (fused QKV), not the unprepared one."""
     _, tbatch, (seqs, scores) = beam_setup
@@ -188,3 +207,79 @@ def test_both_artifacts_verify_in_a_fresh_process(forward_setup, beam_setup, art
     assert em.verify_export_fresh_process(
         paths["beam"], bbatch,
         reference_out=(torch.from_numpy(seqs), torch.from_numpy(scores)), atol=ATOL)
+
+
+def _loop_nodes(exported) -> list:
+    return [n for n in exported.graph.nodes
+            if n.op == "call_function" and n.target is torch.ops.higher_order.while_loop]
+
+
+def test_beam_artifact_is_one_loop_at_any_length(beam_nets, artifacts, tmp_path):
+    """At twice the steps the artifact is the same graph: one ``while_loop``
+    node at both lengths, its size within 5 % of the shorter one's, and its
+    tokens still the JAX beam's (scores within 1e-4), with hypotheses that
+    run to the longer length."""
+    tnet, tbatch, jax_beam = beam_nets
+    paths, sizes = artifacts
+    path = str(tmp_path / "beam_long.pt2")
+    size = len(em.export_beam(tnet, tbatch, PREFIX, path, beam_size=BEAM, max_len=LONG_LEN,
+                              eos_id=LONG_EOS))
+    assert abs(size - sizes["beam"]) <= 0.05 * sizes["beam"], (size, sizes["beam"])
+    assert len(_loop_nodes(torch.export.load(paths["beam"]))) == 1
+    exported = torch.export.load(path)
+    assert len(_loop_nodes(exported)) == 1
+    seqs, scores = jax_beam(LONG_LEN, LONG_EOS)
+    with torch.no_grad():
+        got_seqs, got_scores = exported.module()(tbatch)
+    assert got_seqs.shape == (2, BEAM, LONG_LEN)
+    lengths = (seqs != LONG_EOS).sum(-1)
+    assert lengths.max() == LONG_LEN and lengths.min() < MAX_LEN  # force-banked and banked
+    np.testing.assert_array_equal(got_seqs.numpy(), seqs)
+    np.testing.assert_allclose(got_scores.numpy(), scores, atol=ATOL, rtol=0)
+
+
+def test_beam_step_device_form_equals_int_form(beam_nets):
+    """``BeamLoop.step`` with a 0-d tensor index (the exported body) against
+    the int index of the eager search, step for step from the eager
+    search's states: tokens, pool, the early-stop flags and the self caches
+    bit for bit, and no carried tensor written. The scores agree within a
+    few fp32 ulps, not bit for bit: the device form's softmax sums over the
+    whole window (masked keys weigh exactly 0), the int form's over ``0 ..
+    i``, and the CPU's vectorised sum groups the two differently."""
+    tnet, tbatch, _ = beam_nets
+    decoder = tnet.decoder.prepare_decode_params()
+    with torch.no_grad():
+        features, valid = tnet.trunk.fused_features(tbatch)
+        enc = tnet.bridge(features)
+    kw = dict(beam_size=BEAM, max_len=LONG_LEN, eos_id=LONG_EOS, encoder_valid=valid)
+    ints = BeamLoop(decoder, enc, PREFIX, **kw)
+    device = BeamLoop(decoder, enc, PREFIX, device_steps=True, **kw)
+    state = ints.state
+    for a, b in zip(state, device.state):
+        assert torch.equal(a, b)
+    names = ("run_tokens", "run_scores", "pool_tokens", "pool_scores", "heur_ok",
+             "self_k", "self_v")
+    for i in range(len(PREFIX) - 1, LONG_LEN - 1):
+        before = [x.clone() for x in state]
+        got = device.step(state, torch.tensor(i))
+        for x, y in zip(state, before):
+            assert torch.equal(x, y)  # the device form writes nothing it carries
+        want = ints.step(state, i)
+        for name, x, y in zip(names, got, want):
+            if name.endswith("scores"):
+                np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=4 * 2.0 ** -23, atol=0,
+                                           err_msg=f"{name} at step {i}")
+            else:
+                assert torch.equal(x, y), f"{name} at step {i}"
+        state = want
+    res = beam_search(decoder, enc, PREFIX, encoder_valid=valid, beam_size=BEAM,
+                      max_len=LONG_LEN, eos_id=LONG_EOS)
+    assert torch.equal(state[2], res.sequences) and torch.equal(state[3], res.scores)
+    with pytest.raises(ValueError, match="device steps"):
+        BeamLoop(decoder, enc, PREFIX, cache_quant="int8", device_steps=True, **kw)
+    with pytest.raises(TypeError, match="int"):
+        ints.step(state, torch.tensor(1))
+    cache = decoder.init_cache(enc, max_len=LONG_LEN, beam_groups=BEAM)
+    with pytest.raises(ValueError, match="positions"):  # the out-of-place write needs them
+        decoder.decode_step(torch.zeros((2 * BEAM, 1), dtype=torch.long), cache, 0,
+                            in_place=False)

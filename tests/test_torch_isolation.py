@@ -1,8 +1,8 @@
 """The port stands alone: no file of ``mocov2_whisper_flamingo_torch`` (nor
-``chip_smoke.py``, ``k1_ablation.py``, the card-only kernel tests, the rank worker of the
-multi-process tests, nor the port's examples) imports JAX or the JAX
-package, and its entry points default to the CUDA card, refusing to fall
-back to the CPU silently."""
+``chip_smoke.py``, ``k1_ablation.py``, ``export_beam_times.py``, the card-only
+kernel tests, the rank worker of the multi-process tests, nor the port's
+examples) imports JAX or the JAX package, and its entry points default to the
+CUDA card, refusing to fall back to the CPU silently."""
 
 import ast
 from pathlib import Path
@@ -12,7 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mocov2_whisper_flamingo_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "k1_ablation.py",
+    ROOT / "chip_smoke.py", ROOT / "k1_ablation.py", ROOT / "export_beam_times.py",
     ROOT / "tests" / "test_torch_kernels_cuda.py", ROOT / "tests" / "torch_multicard_worker.py",
     ROOT / "examples" / "torch_end_to_end.py", ROOT / "examples" / "torch_serving_demo.py",
     ROOT / "examples" / "torch_transcribe_demo.py"]
