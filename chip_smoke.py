@@ -89,14 +89,17 @@ by shape and its logits held against the plain backend's;
 ``tools/export_model.py``'s ``torch.export`` forward (exported at B=2, run
 at B=3 against the live net on the plain backend and with K1, in process
 and in a fresh child on the card) and its beam program (B=1, beam 5,
-max_len 64, the CLI's default; the search one ``while_loop``; tokens
-against the same program run eagerly, and beside it the net's beam), each
-export, reload and run timed; ``convert_checkpoint``, ``smoke_test`` and ``max_frame_count`` on
-phase 13's dataset and MoCo checkpoint.
+max_len 64, the CLI's default; the prefix and the search a ``while_loop``
+each, as the JAX artifact is two scans; tokens against the same program run
+eagerly, and beside it the net's beam), each export, reload and run timed;
+``convert_checkpoint``, ``smoke_test`` and ``max_frame_count`` on phase
+13's dataset and MoCo checkpoint.
 
-Every phase raises on failure. The last two lines of stdout are the
-``kernels`` JSON line and ``{"ok": true, "device": {...}}``. Exits non-zero
-without a CUDA card.
+Each phase's end is logged with the seconds since the start and the card's
+allocated and reserved memory that the phase left, which is then released
+(``phase_end_s``, ``phase_end_mem_gib``). Every phase raises on failure.
+The last two lines of stdout are the ``kernels`` JSON line and ``{"ok":
+true, "device": {...}}``. Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -3666,8 +3669,10 @@ VERIFY_K1_RTOL = 2e-2  # K1 against plain logits, bf16: TOL[bf16] of the logits'
 EXPORT_PLAIN_ATOL = 1e-3  # the artifact against the live net on the plain backend
 EXPORT_K1_ATOL = 0.1  # the artifact against the live net with K1: the JAX CLI's bf16 atol
 # The beam program's max_len, the CLI's default: 4 forced tokens and 60 searched steps. The
-# search is one while_loop in the artifact, so its export and size do not grow with it.
+# prefix and the search are a while_loop each in the artifact (the JAX artifact's two
+# scans), so its export and size do not grow with it.
 TOOLS_BEAM_LEN = 64
+TOOLS_BEAM_LOOPS = 2
 
 
 def launched(fn, expected: int, what: str):
@@ -3766,9 +3771,9 @@ def run_export(net, workdir: str) -> dict:
 
 def run_export_beam(dnet, workdir: str) -> dict:
     """``export_model.export_beam`` at the CLI's ``max_len`` on the card:
-    the artifact's search is one ``while_loop``; its tokens against the
-    same program run eagerly, and beside them the net's beam. Export,
-    reload and run timed."""
+    the artifact's prefix and search are a ``while_loop`` each; its tokens
+    against the same program run eagerly, and beside them the net's beam.
+    Export, reload and run timed."""
     out = {}
     beam_path = os.path.join(workdir, "beam.pt2")
     bb = export_model._example_batch(1, device="cuda")
@@ -3801,8 +3806,9 @@ def run_export_beam(dnet, workdir: str) -> dict:
     out["net_beam_tokens_equal"] = bool(torch.equal(seqs, live.sequences))
     out["net_beam_score_max_abs_err"] = (scores - live.scores).abs().max().item()
     log("export: " + json.dumps(out))
-    if out["beam_loop_nodes"] != 1:
-        raise AssertionError(f"the beam artifact holds {out['beam_loop_nodes']} while_loops")
+    if out["beam_loop_nodes"] != TOOLS_BEAM_LOOPS:
+        raise AssertionError(f"the beam artifact holds {out['beam_loop_nodes']} while_loops, "
+                             f"expected {TOOLS_BEAM_LOOPS}")
     if not out["beam_tokens_equal"]:
         raise AssertionError(f"beam artifact tokens {seqs} differ from the eager program's "
                              f"{eager_seqs}")
@@ -3877,6 +3883,26 @@ def run_tools(seed: int) -> dict:
     return out
 
 
+def memory_gib() -> dict:
+    torch.cuda.synchronize()
+    return {"allocated": torch.cuda.memory_allocated() / 2**30,
+            "reserved": torch.cuda.memory_reserved() / 2**30}
+
+
+def release_memory() -> None:
+    """Free what a finished phase still holds on the card: what dynamo's
+    caches keep of the programs it traced (phase 17's exports and eager
+    beam program, weights included), its nets, graphs and pools caught in
+    reference cycles (they wait for the collector), the cuBLAS workspace
+    that each stream it ran a product on keeps (32 MiB each, for the life of
+    the process unless cleared; no graph of a finished phase replays again)
+    and the allocator's cached blocks."""
+    torch._dynamo.reset()
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
 def _train_scalars(scalars) -> dict:
     return {f"{tag}@{step}": v for tag, v, step in scalars if tag.startswith("train/")}
 
@@ -3911,10 +3937,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     phase_end_s = {}  # seconds since the start of the run at the end of each phase
+    phase_end_mem_gib = {}  # the card's memory each phase leaves, and after its release
 
     def done(name: str) -> None:
         phase_end_s[name] = time.perf_counter() - t0
-        log(f"{name} done at {phase_end_s[name]:.1f} s")
+        left = memory_gib()
+        release_memory()
+        phase_end_mem_gib[name] = dict(left, released=memory_gib())
+        log(f"{name} done at {phase_end_s[name]:.1f} s; it left {left['allocated']:.3f} GiB "
+            f"allocated, {left['reserved']:.3f} GiB reserved; released to "
+            f"{phase_end_mem_gib[name]['released']['allocated']:.3f} GiB allocated")
 
     gen = torch.Generator().manual_seed(args.seed)
     rows = check_kernel(gen)
@@ -3993,7 +4025,8 @@ def main() -> int:
                       "serve_path": serve_path, "longform_path": longform_path,
                       "data_path": data_path, "int8_path": int8_path,
                       "multicard_path": multicard_path, "tools_path": tools_path,
-                      "phase_end_s": phase_end_s, "card": smi}),
+                      "phase_end_s": phase_end_s, "phase_end_mem_gib": phase_end_mem_gib,
+                      "card": smi}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,9 +24,10 @@ Ties between equal scores are broken towards the lower index, as
 ``BeamLoop`` holds one search's state and its step, in two forms:
 ``beam_search`` loops over it in Python with an int step index (what the
 decode graphs of ``decode/programs.py`` capture), and
-``tools/export_model.py::BeamProgram`` runs it as the body of one
-``while_loop`` with the index a device tensor, the counterpart of the JAX
-search's ``lax.scan``.
+``tools/export_model.py::BeamProgram`` runs two ``while_loop`` calls with
+the index a device tensor, one over the prefix's teacher-forced step and
+one over the search step, the counterparts of the JAX beam's two
+``lax.scan`` calls.
 """
 
 from __future__ import annotations
@@ -99,19 +100,25 @@ class BeamLoop:
     the state after step ``i``, for ``i`` in ``n_prefix - 1 .. max_len - 2``;
     the cross caches and the encoder mask are loop constants.
 
-    The step takes its index in one of two forms, fixed per loop:
+    The loop takes its index in one of two forms, fixed per loop:
 
     - a Python int (``device_steps=False``): ``beam_search``'s loop, which
-      the decode graphs of ``decode/programs.py`` capture. Each step reads
-      the keys ``0 .. i`` and writes its K/V into the self caches in place.
-    - a 0-d long tensor on the device (``device_steps=True``): the body of
-      the ``while_loop`` that ``tools/export_model.py::BeamProgram``
-      exports. The current token is a gather at ``i``, the new token an
-      out-of-place scatter, the length denominator an index into one
-      stacked table of the same 0-d powers, and the decode step reads the
-      whole window under the ``<= position`` mask and writes its K/V out of
-      place, so no carried tensor is mutated. It takes no logit rules and
-      no cache quant.
+      the decode graphs of ``decode/programs.py`` capture. The prefix is a
+      Python loop of decode steps. Each step reads the keys ``0 .. i`` and
+      writes its K/V into the self caches in place.
+    - a 0-d long tensor on the device (``device_steps=True``): the loops
+      that ``tools/export_model.py::BeamProgram`` exports, as the JAX beam
+      is two ``lax.scan`` calls. The prefix is one ``while_loop`` over
+      ``prefix_step`` (none for a one-token prefix, as in JAX), and ``step``
+      is the body of the search's. Both bodies' decode steps read the whole
+      window under the ``<= position`` mask, as the JAX scans' steps do: a
+      traced body has one shape at every ``i``, while the keys ``0 .. i``
+      grow with it, and the masked keys weigh exactly 0. They write their
+      K/V out of place, so no carried tensor is mutated. In the search body
+      the current token is a gather at ``i``, the new token an out-of-place
+      scatter and the length denominator an index into one stacked table of
+      the same 0-d powers. The device form takes no logit rules and no
+      cache quant.
     """
 
     def __init__(self, decoder, encoder_out: torch.Tensor, prefix_ids, *, beam_size: int,
@@ -145,14 +152,48 @@ class BeamLoop:
         heur_ok = torch.ones((b,), dtype=torch.bool, device=dev)
         self.can_bank = (torch.arange(2 * k, device=dev) < k)[None, :]
         self.row_base = torch.arange(b, device=dev)[:, None] * k
+        self.prefix = prefix
+        self.cross = {n: v for n, v in cache.items() if n not in self.self_names}
+        selfs = tuple(cache[n] for n in self.self_names)
+        # Teacher-force the prefix (beams identical).
         if device_steps:
             self.denom_table = torch.stack(self.denoms)
+            selfs = self._prefix_loop(selfs)
+        else:
+            for i in range(n_prefix - 1):
+                decoder.decode_step(prefix[i].expand(b * k, 1), cache, i, encoder_valid)
+        self.state = (run_tokens, run_scores, pool_tokens, pool_scores, heur_ok, *selfs)
 
-        for i in range(n_prefix - 1):  # teacher-force the prefix (beams identical)
-            decoder.decode_step(prefix[i].expand(b * k, 1), cache, i, encoder_valid)
-        self.cross = {n: v for n, v in cache.items() if n not in self.self_names}
-        self.state = (run_tokens, run_scores, pool_tokens, pool_scores, heur_ok,
-                      *(cache[n] for n in self.self_names))
+    def prefix_step(self, selfs: tuple, i: torch.Tensor) -> tuple:
+        """The self caches after teacher-forcing prefix token ``i`` (a 0-d
+        long tensor on the device; device form only), all beams alike: the
+        body of the prefix's ``while_loop``. Like ``step``'s device form it
+        reads the whole window under the ``<= position`` mask and returns
+        written copies."""
+        if not self.device_steps:
+            raise TypeError("only a beam loop with device steps runs its prefix by steps")
+        cache = dict(self.cross, **dict(zip(self.self_names, selfs)))
+        rows = self.b * self.k
+        cur = self.prefix.index_select(0, i.reshape(1)).expand(rows, 1)
+        _, cache = self.decoder.decode_step(cur, cache, self.max_len - 1, self.encoder_valid,
+                                            positions=i.expand(rows), in_place=False)
+        return tuple(cache[n] for n in self.self_names)
+
+    def _prefix_loop(self, selfs: tuple) -> tuple:
+        """The self caches after the whole prefix, in the device form: one
+        ``while_loop`` over ``prefix_step`` from ``i = 0``, the counterpart of
+        the JAX prefix's ``lax.scan``. As there, a one-token prefix has no
+        loop."""
+        from torch._higher_order_ops import while_loop
+
+        if self.n_prefix == 1:
+            return selfs
+        last = self.n_prefix - 1
+        start = torch.zeros((), dtype=torch.long, device=self.prefix.device)
+        _, *selfs = while_loop(lambda i, *_: i < last,
+                               lambda i, *selfs: (i + 1, *self.prefix_step(selfs, i)),
+                               (start, *selfs))
+        return tuple(selfs)
 
     def step(self, state: tuple, i) -> tuple:
         """The state after step ``i`` (a Python int or a 0-d long tensor on
@@ -245,7 +286,7 @@ def beam_search(
     """Batched beam search; returns the K best finished hypotheses per
     example, best first, EOS-filled past each end. A Python loop over
     ``BeamLoop.step`` with an int index; ``tools/export_model.py`` exports
-    the same step as the body of one ``while_loop``.
+    the same step as the body of a ``while_loop``.
 
     ``decoder`` is a prepared ``WhisperDecoder``
     (``prepare_decode_params``). ``prefix_ids``: ints, or a long tensor on

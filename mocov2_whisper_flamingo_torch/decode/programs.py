@@ -60,9 +60,9 @@ static buffers' addresses, which every replay fills.
 The train and eval steps are programs of this kind too
 (``training/programs.py``: a forward graph and a backward-and-update graph
 with the losses run eagerly between them). ``tools/export_model.py``'s
-``BeamProgram`` is no graph: ``torch.export`` traces its search, one
-``while_loop`` over ``decode/beam.py::BeamLoop.step``, into a ``.pt2``, and
-cannot trace a replay.
+``BeamProgram`` is no graph: ``torch.export`` traces its prefix and its
+search, a ``while_loop`` each over ``decode/beam.py::BeamLoop.prefix_step``
+and ``BeamLoop.step``, into a ``.pt2``, and cannot trace a replay.
 """
 
 from __future__ import annotations

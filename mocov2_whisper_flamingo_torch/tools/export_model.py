@@ -17,10 +17,11 @@ Counterpart of the JAX package's ``tools/export_model.py`` (StableHLO through
   verifies at B=3, so the batch axis is shown to be symbolic; the artifact
   runs at B=1 as well.
 - ``export_beam`` exports the serving program, the AV encode and the beam
-  search, at one (batch, beam, max_len) bucket. The search is one
-  ``while_loop`` over the beam step (``BeamProgram``), as the JAX artifact's
-  is one ``lax.scan``: the artifact's size and the export's time do not
-  grow with ``max_len``. The decoder is prepared for decoding
+  search, at one (batch, beam, max_len) bucket. The prefix is one
+  ``while_loop`` over its teacher-forced step and the search another over
+  the beam step (``BeamProgram``), as the JAX artifact's are two
+  ``lax.scan`` calls: the artifact's size and the export's time grow neither
+  with ``max_len`` nor with the prefix. The decoder is prepared for decoding
   (``prepare_decode_params``) once, before tracing, and the artifact holds
   the prepared copy. The CLI holds the artifact against the same program
   run eagerly.
@@ -118,13 +119,17 @@ class BeamProgram(nn.Module):
     encode and beam search, on a decoder prepared once. Holds the trunk, the
     bridge and the prepared decoder (not the unprepared one).
 
-    The search is ``decode/beam.py::BeamLoop``: the prefix's teacher-forced
-    steps, then one ``torch._higher_order_ops.while_loop`` over the step's
-    device form, ``max_len - n_prefix`` times, as the JAX search is one
-    ``lax.scan``. ``torch.export`` traces the body once, so the artifact and
-    the export's time do not grow with ``max_len``. Called eagerly (the
-    CLI's reference), torch runs the same loop through dynamo. Not the net's
-    CUDA graph
+    The search is ``decode/beam.py::BeamLoop`` in its device form, two
+    ``torch._higher_order_ops.while_loop`` calls, as the JAX beam is two
+    ``lax.scan`` calls: ``BeamLoop``'s constructor teacher-forces the
+    prefix in one (``n_prefix - 1`` steps; no loop for a one-token prefix,
+    as in JAX), then a loop over the search step runs ``max_len -
+    n_prefix`` times. Both bodies read the whole cache window under the
+    ``<= position`` mask: a traced body has one shape at every index.
+    ``torch.export`` traces each body once, so the artifact and the export's
+    time grow neither with ``max_len`` nor with the prefix. Called eagerly
+    (the CLI's reference), torch runs the same loops through dynamo. Not
+    the net's CUDA graph
     (``decode/programs.py``): ``torch.export`` cannot trace a replay."""
 
     def __init__(self, net, prefix_ids, beam_size: int, max_len: int, eos_id: int,
@@ -161,12 +166,14 @@ def export_beam(net, example_batch, prefix_ids, path: str, beam_size: int = 5,
                 max_len: int = 64, eos_id: int = 0, length_penalty: float = 1.0) -> bytes:
     """Export the serving program of ``net`` (an ``AVWhisperNet``): AV encode
     -> beam search -> (sequences [B, K, L], scores [B, K]) at the example's
-    shapes, the search one ``while_loop`` (``BeamProgram``). Returns the
-    bytes written."""
+    shapes, the prefix and the search a ``while_loop`` each (one loop for a
+    one-token prefix; ``BeamProgram``). Raises where a loop cannot be
+    exported: no unrolled form stands behind it. Returns the bytes
+    written."""
     program = BeamProgram(net, prefix_ids, beam_size, max_len, eos_id, length_penalty)
     with plain_attention(net), torch.no_grad():
         exported = torch.export.export(program, (tuple(example_batch),), strict=False)
-    # Each node of the loop's body carries, as its stack trace, the text of
+    # Each node of a loop's body carries, as its stack trace, the text of
     # the traced while_loop call, which names every weight the body reads:
     # ~90 MB of a whisper-small artifact. The traces are debug text only.
     for module in exported.graph_module.modules():

@@ -3,9 +3,11 @@ the tiny configuration of tests/test_tools.py: the ``torch.export`` forward
 artifact (symbolic batch, symbolic video time) and the beam-decode artifact
 against the JAX live forward and beam, in process and in a fresh
 interpreter. Weights go to both packages through the bridge; fp32 logits
-within 1e-4, beam tokens exact. The beam artifact's search is one
-``while_loop``, so it is exported at two lengths and its size does not grow;
-its body's device form is held against the eager search's int form."""
+within 1e-4, beam tokens exact. The beam artifact is two ``while_loop``
+nodes, the prefix's and the search's, as the JAX artifact is two scans (one
+for a one-token prefix), so it is exported at two lengths and its size does
+not grow; the loops' device form is held against the eager search's int
+form."""
 
 import jax
 import jax.numpy as jnp
@@ -14,10 +16,11 @@ import pytest
 import torch
 
 from mocov2_whisper_flamingo_torch.decode.beam import BeamLoop, beam_search
+from mocov2_whisper_flamingo_torch.models.asr import WhisperASR as TASR
 from mocov2_whisper_flamingo_torch.models.av_net import AVNet as TNet
 from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet as TAVWNet
 from mocov2_whisper_flamingo_torch.models.convert import (
-    load_jax_params, random_avnet_params, random_jax_params)
+    load_jax_params, random_asr_params, random_avnet_params, random_jax_params)
 from mocov2_whisper_flamingo_torch.models.whisper import WhisperConfig as TConfig
 from mocov2_whisper_flamingo_torch.tools import export_model as em
 from mocov2_whisper_flamingo_tpu.models.av_net import AVNet as JNet
@@ -32,6 +35,7 @@ TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4
             vocab_size=VOCAB, max_source_positions=1500, max_target_positions=32)
 BEAM_TINY = dict(TINY, max_source_positions=64)
 ATOL = 1e-4  # fp32 logits and beam scores
+ULPS = 4 * 2.0 ** -23  # the device form against the int form: 4 fp32 ulps
 PREFIX, MAX_LEN, EOS, BEAM = [1, 2], 12, 13, 3  # EOS: a token the decoder emits mid-beam
 # The beam artifact's second length (twice the steps, the same graph) and an EOS with which
 # its hypotheses run past MAX_LEN: one banks mid-way, two are force-banked at the last step.
@@ -73,8 +77,9 @@ def forward_setup():
 
 @pytest.fixture(scope="module")
 def beam_nets():
-    """The torch net, its batch and ``jax_beam(max_len, eos_id)``: the
-    jitted JAX beam's (sequences, scores) on the same weights and batch."""
+    """The torch net, its batch and ``jax_beam(max_len, eos_id, prefix)``:
+    the jitted JAX beam's (sequences, scores) on the same weights and
+    batch."""
     tnet = TAVWNet(modelargs=MODELARGS, vocab_size=VOCAB, device="cpu",
                    whisper_config=TConfig(**BEAM_TINY))
     tree = random_jax_params(tnet, 5)
@@ -96,9 +101,9 @@ def beam_nets():
     jbatch, tbatch = _batch(21, 2, 6, mel=(80, 128), hw=32, lens=[6, 4])
     params = jax.tree.map(jnp.asarray, tree)
 
-    def jax_beam(max_len: int, eos_id: int = EOS):
+    def jax_beam(max_len: int, eos_id: int = EOS, prefix=tuple(PREFIX)):
         def beam(p, x):
-            res = jnet.beam(p, x, PREFIX, beam_size=BEAM, max_len=max_len, eos_id=eos_id)
+            res = jnet.beam(p, x, list(prefix), beam_size=BEAM, max_len=max_len, eos_id=eos_id)
             return res.sequences, res.scores
 
         seqs, scores = jax.jit(beam)(params, jbatch)
@@ -176,7 +181,7 @@ def test_symbolic_time_needs_symbolic_batch(forward_setup, tmp_path):
 
 
 def test_beam_artifact_tokens_equal_the_jax_beam(beam_setup, artifacts):
-    """The serving artifact (AV encode + beam search as one while_loop)
+    """The serving artifact (AV encode + beam search as two while_loops)
     gives the JAX beam's token ids exactly, and its scores within 1e-4. It
     holds the decoder prepared once (fused QKV), not the unprepared one."""
     _, tbatch, (seqs, scores) = beam_setup
@@ -215,19 +220,20 @@ def _loop_nodes(exported) -> list:
 
 
 def test_beam_artifact_is_one_loop_at_any_length(beam_nets, artifacts, tmp_path):
-    """At twice the steps the artifact is the same graph: one ``while_loop``
-    node at both lengths, its size within 5 % of the shorter one's, and its
-    tokens still the JAX beam's (scores within 1e-4), with hypotheses that
-    run to the longer length."""
+    """At twice the steps the artifact is the same graph: the search is one
+    ``while_loop`` at any length and the prefix one more, so two loop nodes
+    at both lengths (as the JAX artifact holds two scans), its size within
+    5 % of the shorter one's, and its tokens still the JAX beam's (scores
+    within 1e-4), with hypotheses that run to the longer length."""
     tnet, tbatch, jax_beam = beam_nets
     paths, sizes = artifacts
     path = str(tmp_path / "beam_long.pt2")
     size = len(em.export_beam(tnet, tbatch, PREFIX, path, beam_size=BEAM, max_len=LONG_LEN,
                               eos_id=LONG_EOS))
     assert abs(size - sizes["beam"]) <= 0.05 * sizes["beam"], (size, sizes["beam"])
-    assert len(_loop_nodes(torch.export.load(paths["beam"]))) == 1
+    assert len(_loop_nodes(torch.export.load(paths["beam"]))) == 2
     exported = torch.export.load(path)
-    assert len(_loop_nodes(exported)) == 1
+    assert len(_loop_nodes(exported)) == 2
     seqs, scores = jax_beam(LONG_LEN, LONG_EOS)
     with torch.no_grad():
         got_seqs, got_scores = exported.module()(tbatch)
@@ -248,14 +254,16 @@ def test_beam_step_device_form_equals_int_form(beam_nets):
     i``, and the CPU's vectorised sum groups the two differently."""
     tnet, tbatch, _ = beam_nets
     decoder = tnet.decoder.prepare_decode_params()
+    decoder.vocab_table = None  # the fp32 table is the embedding: a loop refuses aliases
     with torch.no_grad():
         features, valid = tnet.trunk.fused_features(tbatch)
         enc = tnet.bridge(features)
     kw = dict(beam_size=BEAM, max_len=LONG_LEN, eos_id=LONG_EOS, encoder_valid=valid)
     ints = BeamLoop(decoder, enc, PREFIX, **kw)
-    device = BeamLoop(decoder, enc, PREFIX, device_steps=True, **kw)
+    with torch.no_grad():  # its prefix loop, as the export traces it
+        device = BeamLoop(decoder, enc, PREFIX, device_steps=True, **kw)
     state = ints.state
-    for a, b in zip(state, device.state):
+    for a, b in zip(state, device.state):  # after the prefix, a while_loop in the device form
         assert torch.equal(a, b)
     names = ("run_tokens", "run_scores", "pool_tokens", "pool_scores", "heur_ok",
              "self_k", "self_v")
@@ -267,7 +275,7 @@ def test_beam_step_device_form_equals_int_form(beam_nets):
         want = ints.step(state, i)
         for name, x, y in zip(names, got, want):
             if name.endswith("scores"):
-                np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=4 * 2.0 ** -23, atol=0,
+                np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=ULPS, atol=0,
                                            err_msg=f"{name} at step {i}")
             else:
                 assert torch.equal(x, y), f"{name} at step {i}"
@@ -279,7 +287,82 @@ def test_beam_step_device_form_equals_int_form(beam_nets):
         BeamLoop(decoder, enc, PREFIX, cache_quant="int8", device_steps=True, **kw)
     with pytest.raises(TypeError, match="int"):
         ints.step(state, torch.tensor(1))
+    with pytest.raises(TypeError, match="device steps"):  # its prefix is already forced
+        ints.prefix_step(state[5:], torch.tensor(0))
     cache = decoder.init_cache(enc, max_len=LONG_LEN, beam_groups=BEAM)
     with pytest.raises(ValueError, match="positions"):  # the out-of-place write needs them
         decoder.decode_step(torch.zeros((2 * BEAM, 1), dtype=torch.long), cache, 0,
                             in_place=False)
+
+
+def test_beam_artifact_of_a_one_token_prefix_is_one_loop(beam_nets, tmp_path):
+    """A one-token prefix has nothing to teacher-force, and the JAX beam
+    runs no prefix scan then: the artifact holds one ``while_loop`` node,
+    the search's, and its tokens equal the JAX beam's with that prefix
+    (scores within 1e-4)."""
+    tnet, tbatch, jax_beam = beam_nets
+    path = str(tmp_path / "beam_one_token.pt2")
+    em.export_beam(tnet, tbatch, PREFIX[:1], path, beam_size=BEAM, max_len=MAX_LEN,
+                   eos_id=EOS)
+    exported = torch.export.load(path)
+    assert len(_loop_nodes(exported)) == 1
+    seqs, scores = jax_beam(MAX_LEN, EOS, PREFIX[:1])
+    with torch.no_grad():
+        got_seqs, got_scores = exported.module()(tbatch)
+    assert (seqs[..., 0] == PREFIX[0]).all() and len(np.unique(seqs[..., 1:])) > 3
+    np.testing.assert_array_equal(got_seqs.numpy(), seqs)
+    np.testing.assert_allclose(got_scores.numpy(), scores, atol=ATOL, rtol=0)
+
+
+def test_device_prefix_loop_equals_the_int_prefix():
+    """The device form's prefix ``while_loop`` (what ``BeamLoop``'s
+    constructor runs there, the artifact's first loop, run eagerly) against
+    the int form's Python prefix and against the JAX beam's prefix
+    ``lax.scan`` on the same weights: four prefix tokens (three iterations)
+    through a 2-layer fp32 decoder, so that the second layer's K/V come
+    through the attention over the masked window. Against the int form the
+    self caches agree within 4 fp32 ulps (``ULPS``, the scores' tolerance of
+    ``test_beam_step_device_form_equals_int_form``) of each cache's largest
+    entry: the device form's softmax sums the whole window, the int form's
+    ``0 .. i``, and a small entry carries the absolute rounding of the
+    layer before it. Against JAX they agree within ``ATOL``, the file's fp32
+    tolerance. The slots past the prefix stay empty."""
+    cfg = dict(BEAM_TINY, decoder_layers=2)
+    asr = TASR(config=TConfig(**cfg), device="cpu")
+    tree = random_asr_params(asr, 7)
+    rng = np.random.default_rng(3)
+    tree["decoder"]["pos_embed"] = 4.0 * rng.standard_normal(
+        tree["decoder"]["pos_embed"].shape).astype(np.float32)
+    load_jax_params(asr, tree)
+    decoder = asr.decoder.prepare_decode_params()
+    decoder.vocab_table = None  # the fp32 table is the embedding: a loop refuses aliases
+    enc = rng.standard_normal((2, 20, cfg["d_model"])).astype(np.float32)
+    valid = np.arange(20)[None] < np.array([[20], [13]])
+    prefix = [1, 5, 9, 2]
+    kw = dict(beam_size=BEAM, max_len=MAX_LEN, eos_id=EOS, encoder_valid=torch.from_numpy(valid))
+    with torch.no_grad():
+        want = BeamLoop(decoder, torch.from_numpy(enc), prefix, **kw).state[5:]
+        got = BeamLoop(decoder, torch.from_numpy(enc), prefix, device_steps=True,
+                       **kw).state[5:]
+
+    jdec = JDecoder(JConfig(**cfg))
+    jp = jdec.prepare_decode_params(jax.tree.map(jnp.asarray, tree["decoder"]))
+
+    @jax.jit
+    def jax_prefix(jp, enc, valid):
+        def step(cache, i):
+            cur = jnp.broadcast_to(jnp.asarray(prefix, jnp.int32)[i], (2 * BEAM, 1))
+            return jdec.decode_step(jp, cur, cache, i, encoder_valid=valid)[1], None
+
+        cache = jdec.init_cache(jp, enc, max_len=MAX_LEN, beam_groups=BEAM)
+        cache, _ = jax.lax.scan(step, cache, jnp.arange(len(prefix) - 1))
+        return [jnp.stack([c["self"][n] for c in cache]) for n in ("k", "v")]
+
+    from_jax = jax_prefix(jp, jnp.asarray(enc), jnp.asarray(valid))
+    for name, x, y, j in zip(("self_k", "self_v"), got, want, from_jax):
+        assert x.shape == y.shape == j.shape == (cfg["decoder_layers"], 2 * BEAM, MAX_LEN,
+                                                 cfg["n_heads"], cfg["d_model"] // cfg["n_heads"])
+        assert torch.count_nonzero(x[:, :, len(prefix) - 1:]) == 0, name
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0,
+                                   atol=ULPS * y.abs().max().item(), err_msg=name)
+        np.testing.assert_allclose(x.numpy(), np.asarray(j), rtol=0, atol=ATOL, err_msg=name)
