@@ -40,9 +40,10 @@ that the next replay never overwrites a result that a caller holds.
   completion thread waits on events while its dispatch thread captures. A
   capture or replay error raises: on the card nothing runs eagerly behind a
   program.
-- **K1's launch counts** (``ops/flash_attention.py``) leave out the eager
-  run's and the capture's launches; the capture's are added at each replay,
-  so a count stays the K1 kernels sent to the card.
+- **The kernels' launch counts** (K1's in ``ops/flash_attention.py``, the
+  CTC's in ``ops/losses.py``) leave out the eager run's and the capture's
+  launches; the capture's are added at each replay, so a count stays the
+  kernels sent to the card.
 - **Order.** The graphs of one object share its prepared decoders and its
   pool, so its calls are serialised across threads (a lock) and streams
   (each call's stream waits for the event after the last replay).
@@ -77,6 +78,7 @@ from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
 from mocov2_whisper_flamingo_torch.decode.sampling import (
     GumbelDraws, SampleResult, no_speech_probability, sample_decode, sample_noise)
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
+from mocov2_whisper_flamingo_torch.ops import losses
 
 
 def program_key(loop: str, decoder, features: torch.Tensor, valid: torch.Tensor | None,
@@ -98,6 +100,13 @@ def _pinned_prefix(prefix_ids) -> torch.Tensor:
     if isinstance(prefix_ids, torch.Tensor):
         return prefix_ids
     return torch.tensor([int(t) for t in prefix_ids], dtype=torch.long).pin_memory()
+
+
+def _uncounted(fn) -> tuple:
+    """``fn()`` with none of its kernel launches counted: ``(its result,
+    ((K1's launches, by kernel), (the CTC's launches, by kernel)))``."""
+    (out, k1, k1_by_kernel), ctc, ctc_by_kernel = losses.uncounted(lambda: fa.uncounted(fn))
+    return out, ((k1, k1_by_kernel), (ctc, ctc_by_kernel))
 
 
 class GraphPool:
@@ -125,8 +134,8 @@ class GraphPool:
         each is put back where the eager run found it and registered with
         the graph, so that every replay draws from the generator's state
         then and advances it as the eager function would. Neither run counts
-        K1's launches: the capture's are kept with the graph and counted at
-        each replay."""
+        the kernels' launches (K1's and the CTC's): the capture's are kept
+        with the graph and counted at each replay."""
         dev = stream.device
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -140,7 +149,7 @@ class GraphPool:
         with torch.cuda.stream(capture_stream):
             saved = [t.clone() for t in restore]
             states = [g.get_state() for g in generators]
-            fa.uncounted(fn)  # eager: the rules' tables, library handles, workspaces
+            _uncounted(fn)  # eager: the rules' tables, library handles, workspaces
             for t, s in zip(restore, saved):
                 t.copy_(s)
             for g, state in zip(generators, states):
@@ -151,7 +160,7 @@ class GraphPool:
             try:
                 with torch.cuda.graph(graph, pool=self.pool, stream=capture_stream,
                                       capture_error_mode="thread_local"):
-                    outputs, k1, k1_by_kernel = fa.uncounted(fn)
+                    outputs, launched = _uncounted(fn)
                     t1 = time.perf_counter()
             except BaseException:
                 # PyTorch stops a pool's recording only when a capture ends
@@ -163,16 +172,17 @@ class GraphPool:
                 raise
             t2 = time.perf_counter()
         stream.wait_stream(capture_stream)
-        graph.k1_launches = (k1, k1_by_kernel)
+        graph.launched = launched
         self.captures.append({**record, "capture_s": t1 - t0, "instantiate_s": t2 - t1,
-                              "k1_launches": k1})
+                              "k1_launches": launched[0][0], "ctc_launches": launched[1][0]})
         return graph, outputs
 
     def replay(self, graph: torch.cuda.CUDAGraph) -> None:
-        """Replay a graph of this pool and count the K1 launches it holds."""
+        """Replay a graph of this pool and count the kernel launches it holds."""
         graph.replay()
         self.replays += 1
-        fa.credit(*graph.k1_launches)
+        fa.credit(*graph.launched[0])
+        losses.credit(*graph.launched[1])
 
     def run_keyed(self, graphs: dict, key: tuple, fn, inputs: tuple, stream, keep=None,
                   **record) -> tuple:

@@ -51,7 +51,10 @@ class WhisperASR(nn.Module):
         self.decoder = WhisperDecoder(self.config, precision, self.device)
         # The encode and the decode loops compiled (CUDA graphs on the card,
         # the eager functions on the CPU); the decoder prepared once.
-        self.encode_program = EncodeProgram(lambda mel: (self.encoder(mel),), self.encoder)
+        # The program holds the encoder, not the net: a net dropped by its
+        # last name frees its graphs' pools without waiting for the collector.
+        encoder = self.encoder
+        self.encode_program = EncodeProgram(lambda mel: (encoder(mel),), encoder)
         self.decode_programs = DecodePrograms(self.decoder)
         self.stream_decoders: dict = {}  # transcribe's streaming mode, by configuration
 

@@ -17,6 +17,7 @@ replay CUDA graphs (``encode_program``, ``decode_programs``;
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Sequence
 
 import torch
@@ -61,7 +62,10 @@ class AVWhisperNet(nn.Module):
         self.decoder = WhisperDecoder(cfg, precision, device)
         # The encode and the decode loops compiled (CUDA graphs on the card,
         # the eager functions on the CPU); the decoder prepared once.
-        self.encode_program = EncodeProgram(self._encode, self.trunk, self.bridge)
+        # The program holds the modules, not the net: a net dropped by its last
+        # name frees its graphs' pools without waiting for the collector.
+        self.encode_program = EncodeProgram(functools.partial(_encode, self.trunk, self.bridge),
+                                            self.trunk, self.bridge)
         self.decode_programs = DecodePrograms(self.decoder)
         self.d_model = modelargs[0]
         self.precision = precision
@@ -91,15 +95,6 @@ class AVWhisperNet(nn.Module):
         On the card a replay of ``encode_program``'s graph for the batch's
         shapes (captured at their first call), with K1 inside."""
         return self.encode_program(*input_batch, video_resize=video_resize)
-
-    def _encode(self, audio, audio_mask, video, video_mask, video_len,
-                video_resize: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-        """``encode``'s eager function, the program's plain version."""
-        if video_resize is not None:
-            video = eval_video_pipeline(video, resize=video_resize)
-        out, video_valid = self.trunk.fused_features(
-            (audio, audio_mask, video, video_mask, video_len))
-        return self.bridge(out), video_valid
 
     @torch.no_grad()
     def ctc_logits(self, input_batch: tuple) -> torch.Tensor:
@@ -140,3 +135,12 @@ class AVWhisperNet(nn.Module):
             features, valid, prefix_ids, beam_size=beam_size, max_len=max_len, eos_id=eos_id,
             length_penalty=length_penalty, logit_rules=logit_rules, cache_quant=cache_quant,
             weight_quant=weight_quant, read_windows=read_windows, cache_layout=cache_layout)
+
+
+def _encode(trunk: AVNet, bridge: L.Linear, audio, audio_mask, video, video_mask, video_len,
+            video_resize: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``AVWhisperNet.encode``'s eager function, the program's plain version."""
+    if video_resize is not None:
+        video = eval_video_pipeline(video, resize=video_resize)
+    out, video_valid = trunk.fused_features((audio, audio_mask, video, video_mask, video_len))
+    return bridge(out), video_valid

@@ -88,7 +88,7 @@ def _checkpointed(block: GatedBlock, x, xa, video_valid, generator):
     Under CUDA graph capture (the train program, ``training/programs.py``)
     the generator's state lives on the host and cannot be rewound inside a
     graph: the first run keeps its draws (``L.KeptDraws``) and the
-    recompute, captured in another graph, reads them back. The numbers are
+    recompute, later in the same captured step, reads them back. The numbers are
     those of the rewind, and the generator ends where the rewind leaves it."""
     if generator is None:
         return checkpoint(block, x, xa, video_valid, use_reentrant=False,

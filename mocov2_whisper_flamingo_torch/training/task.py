@@ -83,26 +83,27 @@ class AVSRTask:
                                self.data_group)
         return dict(zip(names, total))
 
-    def compute_losses(self, logits: torch.Tensor, batch: dict,
-                       lengths: dict | None = None) -> dict:
+    @property
+    def loss_names(self) -> tuple:
+        """The names of the losses that the steps return (``skipped`` aside)."""
+        if self.loss_mode == "feature_mse":
+            return ("cosine_sim", "loss")
+        return ("ce_loss", "ctc_loss", "loss")
+
+    def compute_losses(self, logits: torch.Tensor, batch: dict) -> dict:
         """logits ``[B, T', V]``; batch carries target_ids ``[B, L]``,
-        target_lengths ``[B]``, audio_lengths ``[B]``. ``lengths``: the same
-        ``audio_lengths`` and ``target_lengths`` on the host (CPU tensors),
-        given to the CTC so that ``F.ctc_loss`` on the card reads nothing
-        back (``Trainer._put_batch`` keeps them)."""
+        target_lengths ``[B]``, audio_lengths ``[B]`` on the logits' device
+        (the CTC reads them there: nothing is read back)."""
         targets = batch["target_ids"]
         target_lengths = batch["target_lengths"].reshape(-1)
-        ctc_lengths = lengths if lengths is not None else batch
-        input_lengths = torch.clamp(ctc_lengths["audio_lengths"].reshape(-1),
-                                    max=logits.shape[1])
+        input_lengths = torch.clamp(batch["audio_lengths"].reshape(-1), max=logits.shape[1])
 
         t_min = min(logits.shape[1], targets.shape[1])
         ce_targets = targets[:, :t_min]
         if self.pad_to_ignore:
             pos = torch.arange(t_min, device=targets.device)[None, :]
             ce_targets = torch.where(pos < target_lengths[:, None], ce_targets, -100)
-        nll = ctc_loss(logits, targets, input_lengths,
-                       ctc_lengths["target_lengths"].reshape(-1), blank_id=self.ctc_blank,
+        nll = ctc_loss(logits, targets, input_lengths, target_lengths, blank_id=self.ctc_blank,
                        reduction="none")
         rows, tokens = self._global_counts(nll.device, nll.shape[0], (ce_targets != -100).sum())
         per_row = nll / torch.clamp(target_lengths.to(nll.device), min=1).to(nll.dtype)
@@ -134,23 +135,23 @@ class AVSRTask:
                                                    generator=generator))
         return (self.net(_inputs(batch), train=train, generator=generator),)
 
-    def losses_of(self, outputs: tuple, batch: dict, lengths: dict | None = None) -> dict:
+    def losses_of(self, outputs: tuple, batch: dict) -> dict:
         """The losses of ``forward_outputs``' outputs (rank-local shares)."""
         if self.loss_mode == "feature_mse":
             return self.feature_losses(*outputs)
-        return self.compute_losses(outputs[0], batch, lengths)
+        return self.compute_losses(outputs[0], batch)
 
     def loss_fn(self, batch: dict, generator: torch.Generator | None = None,
-                train: bool = True, lengths: dict | None = None) -> tuple[torch.Tensor, dict]:
+                train: bool = True) -> tuple[torch.Tensor, dict]:
         if train and self.augment_fn is not None and generator is not None:
             batch = self.augment_fn(batch, generator)
-        losses = self.losses_of(self.forward_outputs(batch, generator, train), batch, lengths)
+        losses = self.losses_of(self.forward_outputs(batch, generator, train), batch)
         return losses["loss"], losses
 
     # -- steps -------------------------------------------------------------------
 
     def train_step(self, optimizer, batch: dict, generator: torch.Generator | None = None,
-                   skip_nonfinite: bool = True, lengths: dict | None = None) -> dict:
+                   skip_nonfinite: bool = True) -> dict:
         """One micro-batch, eagerly: forward in train mode, backward over the
         optimizer's parameters, and the optimizer's step. Returns the
         detached losses. This is the plain version of the train program
@@ -161,9 +162,8 @@ class AVSRTask:
         no parameter, optimizer state, accumulation counter or accumulated
         gradient changes, and ``losses["skipped"]`` is 1. The decision is a
         device tensor that the optimizer applies with ``torch.where``, as the
-        JAX step does, so nothing is read back. ``lengths``: as for
-        ``compute_losses``."""
-        loss, losses = self.loss_fn(batch, generator, train=True, lengths=lengths)
+        JAX step does, so nothing is read back."""
+        loss, losses = self.loss_fn(batch, generator, train=True)
         grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, optimizer.params)]
@@ -177,14 +177,10 @@ class AVSRTask:
         return losses
 
     @torch.no_grad()
-    def eval_step(self, batch: dict, lengths: dict | None = None) -> tuple[dict, torch.Tensor]:
+    def eval_step(self, batch: dict) -> tuple[dict, torch.Tensor]:
         """``(losses, predictions [B, T'])`` in eval mode."""
-        return self.eval_losses(self.forward_outputs(batch, train=False), batch, lengths)
-
-    def eval_losses(self, outputs: tuple, batch: dict,
-                    lengths: dict | None = None) -> tuple[dict, torch.Tensor]:
-        """``eval_step``'s losses and predictions from its forward's outputs."""
-        losses = self.global_losses(self.losses_of(outputs, batch, lengths))
+        outputs = self.forward_outputs(batch, train=False)
+        losses = self.global_losses(self.losses_of(outputs, batch))
         if self.loss_mode == "feature_mse":
             # No decode in feature-pretraining mode; dummy predictions keep
             # the trainer's eval loop uniform.

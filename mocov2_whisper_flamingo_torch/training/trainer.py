@@ -33,10 +33,10 @@ batch, this computes: the same losses, updates, checkpoints and WER.
 
 **The step it runs.** On one process the train and eval steps are the
 compiled programs of ``training/programs.py::TrainProgram`` (``program``):
-on the card a forward graph and a backward-and-update graph per batch
-shape, with the losses between them, the optimizer's state and the
-non-finite guard on the card and nothing read back inside a step; on the
-CPU the same object's eager parts. A mesh of more than one rank runs the
+on the card one graph per batch shape that replays the whole step
+(forward, losses with the CTC kernel, backward, guard and update, the
+optimizer's state on the card) and reads nothing back; on the CPU the eager
+step. A mesh of more than one rank runs the
 eager ``AVSRTask.train_step`` / ``eval_step``: its collectives (gloo; NCCL
 across cards) are not captured, which waits for a machine with more than one
 card. ``step_kind`` names the step (``"program"`` or ``"eager"``), and
@@ -68,12 +68,9 @@ logger = logging.getLogger(__name__)
 
 class _PlacedBatch(dict):
     """A batch placed by ``Trainer._put_batch``; ``ready``: the event after
-    its host-to-device copies (None off the card); ``lengths``: its
-    ``audio_lengths`` and ``target_lengths`` on the host, for the CTC (None
-    when they did not come from the host)."""
+    its host-to-device copies (None off the card)."""
 
     ready: torch.cuda.Event | None = None
-    lengths: dict | None = None
 
 
 class _NullWriter:
@@ -318,9 +315,6 @@ class Trainer:
         placed.update({k: None for k, v in batch.items() if v is None})
         arrays = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
                   for k, v in batch.items() if k != "target_text" and v is not None}
-        host = {k: arrays.get(k) for k in ("audio_lengths", "target_lengths")}
-        if all(isinstance(v, torch.Tensor) and v.device.type == "cpu" for v in host.values()):
-            placed.lengths = host
         if self.device.type != "cuda":
             placed.update({k: v.to(self.device) for k, v in arrays.items()})
             return placed
@@ -405,15 +399,12 @@ class Trainer:
                     break
                 if self.data_wait_s is not None:
                     self.data_wait_s.append(time.perf_counter() - t_wait)
-                placed = batch if pre_placed else self._put_batch(batch)
-                lengths = placed.lengths
-                placed = self._ready(placed)
+                placed = self._ready(batch if pre_placed else self._put_batch(batch))
                 placed.pop("target_text", None)
                 if self.program is not None:
-                    losses = self.program.train_step(placed, lengths)
+                    losses = self.program.train_step(placed)
                 else:
-                    losses = self.task.train_step(self.optimizer, placed, self.generator,
-                                                  lengths=lengths)
+                    losses = self.task.train_step(self.optimizer, placed, self.generator)
                 self.global_step += 1
                 if self.step_timestamps is not None:
                     self.step_timestamps.append(time.perf_counter())
@@ -469,11 +460,9 @@ class Trainer:
         rows: list[tuple[int, list[str], list[str]]] = []
         step = self.program.eval_step if self.program is not None else self.task.eval_step
         for batch in loader:
-            placed = self._put_batch(batch)
-            lengths = placed.lengths
-            placed = self._ready(placed)
+            placed = self._ready(self._put_batch(batch))
             texts = placed.pop("target_text", [])
-            losses, preds = step(placed, lengths)
+            losses, preds = step(placed)
             losses_by_batch.append({k: float(v) for k, v in losses.items()})
             rows.append((len(texts) or int(placed["target_ids"].shape[0]), list(texts),
                          self.task.decode_predictions(preds, self.tokenizer)))

@@ -26,6 +26,7 @@ from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
 from mocov2_whisper_flamingo_torch.models.convert import (
     load_jax_params, random_asr_params, random_jax_params)
 from mocov2_whisper_flamingo_torch.models.whisper import WhisperConfig, WhisperDecoder
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 VOCAB, EOS = 96, 20  # EOS: a token the random decoder emits mid-sequence
 PREFIX = [1, 2]
@@ -261,3 +262,36 @@ def test_programs_on_the_cpu_reject_an_unknown_layout_and_quant(av_net):
         programs.beam(feats, valid, PREFIX, cache_layout="columns")
     with pytest.raises(ValueError, match="weight_quant"):
         programs.greedy(feats, valid, PREFIX, weight_quant="int4")
+
+
+@pytest.mark.parametrize("kind", ["asr", "av"])
+def test_a_dropped_net_is_freed_without_the_collector(kind, wavs):
+    """A net and its programs (``encode_program`` and ``decode_programs``,
+    each with its graph pool on the card) form no reference cycle: after a
+    decode through both, dropping the net's last name frees it with the
+    collector off, as a JAX net holds no device state that outlives it."""
+    import gc
+    import weakref
+
+    if kind == "asr":
+        net = _asr()
+        decode = lambda: _decode(net, wavs, beam_size=2)  # noqa: E731
+    else:
+        net = AVWhisperNet(modelargs=(64, 2, 2, 3000, 128, 0.0), vocab_size=VOCAB,
+                           device="cpu", whisper_config=WhisperConfig(**TINY))
+        load_jax_params(net, random_jax_params(net, 0))
+        batch = (torch.randn(1, 80, 32), torch.ones((1, 32), dtype=torch.bool),
+                 torch.randn(1, 4, 3, 32, 32), torch.ones((1, 4), dtype=torch.bool),
+                 torch.tensor([4]))
+        decode = lambda: net.beam(batch, PREFIX, beam_size=2, max_len=MAX_LEN,  # noqa: E731
+                                  eos_id=EOS)
+    decode()
+    assert net.decode_programs.prepared  # the programs ran and hold a prepared decoder
+    ref = weakref.ref(net)
+    gc.collect()
+    gc.disable()
+    try:
+        del net, decode
+        assert ref() is None
+    finally:
+        gc.enable()

@@ -40,6 +40,7 @@ from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncode
 from mocov2_whisper_flamingo_tpu.tools import evaluate as J
 
 from test_torch_datamodule import _one_jax_device, _overrides, _write_dataset
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 VOCAB = 262  # ByteTokenizer

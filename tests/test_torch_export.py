@@ -28,6 +28,7 @@ from mocov2_whisper_flamingo_tpu.models.av_whisper import AVWhisperNet as JAVWNe
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperDecoder as JDecoder
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 64
 MODELARGS = (32, 4, 2, 3000, 128, 0.0)

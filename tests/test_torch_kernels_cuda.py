@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
+from mocov2_whisper_flamingo_torch.ops import losses as TL
 
 
 @pytest.mark.cuda
@@ -832,14 +833,14 @@ def _train_twins(precision, dropout, remat, augment, loss_mode, accum=1, seed=0)
 
 
 def _train_batch(rng, augmentable, b=2, tv=8, n_target=5):
-    """A batch on the card and its lengths on the host. Each row's targets
-    are distinct: ``F.ctc_loss``'s CUDA backward adds a repeated label's
-    gradients atomically, in no fixed order."""
+    """A batch on the card. Each row repeats a label, next to itself and two
+    places on, as real transcripts do: the CTC kernel sums a repeated
+    label's terms in a fixed order, so the steps still repeat bit for bit."""
     import numpy as np
 
     video = rng.integers(0, 256, (b, tv, 3, 32, 32))
-    lengths = {"audio_lengths": torch.full((b,), 1500, dtype=torch.int32),
-               "target_lengths": torch.tensor([n_target, n_target - 2], dtype=torch.int32)}
+    ids = rng.integers(1, TRAIN_VOCAB, (b, n_target))
+    ids[:, 1] = ids[:, 3] = ids[:, 0]
     batch = {
         "audio": torch.from_numpy(rng.standard_normal((b, 3000, 80)).astype(np.float32)),
         "audio_mask": torch.ones((b, 3000), dtype=torch.bool),
@@ -847,10 +848,10 @@ def _train_batch(rng, augmentable, b=2, tv=8, n_target=5):
                   torch.from_numpy((video / 255.0 - 0.4).astype(np.float32))),
         "video_mask": torch.ones((b, tv), dtype=torch.bool),
         "video_lengths": torch.tensor([tv, tv - 2], dtype=torch.int32),
-        "target_ids": torch.from_numpy(np.stack([rng.permutation(TRAIN_VOCAB - 1)[:n_target] + 1
-                                                 for _ in range(b)])),
-        **lengths}
-    return {k: v.cuda() for k, v in batch.items()}, lengths
+        "target_ids": torch.from_numpy(ids),
+        "audio_lengths": torch.full((b,), 1500, dtype=torch.int32),
+        "target_lengths": torch.tensor([n_target, n_target - 1], dtype=torch.int32)}
+    return {k: v.cuda() for k, v in batch.items()}
 
 
 def _same_state(a, b) -> bool:
@@ -865,9 +866,9 @@ def _same_state(a, b) -> bool:
 @pytest.mark.parametrize("case", sorted(TRAIN_CASES))
 def test_train_program_replays_the_eager_step_bit_for_bit(case, precision):
     """Three micro-batches through ``TrainProgram.train_step`` (a capture of
-    F and B, then replays) and through ``AVSRTask.train_step`` on a twin:
-    losses, parameters, moments, counts and the generator bit for bit, K1
-    counted per step as the eager step launches it."""
+    the whole step, then replays) and through ``AVSRTask.train_step`` on a
+    twin: losses, parameters, moments, counts and the generator bit for bit,
+    K1 and the CTC kernels counted per step as the eager step launches them."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import numpy as np
@@ -877,21 +878,23 @@ def test_train_program_replays_the_eager_step_bit_for_bit(case, precision):
     dropout, remat, augment, loss_mode, k1 = TRAIN_CASES[case]
     program_side, eager_side = _train_twins(precision, dropout, remat, augment, loss_mode)
     program = TrainProgram(*program_side, {"case": case})
+    ctc = {"ctc_forward": 1, "ctc_backward": 1} if loss_mode == "ctc_ce" else {}
     rng = np.random.default_rng(1)
     for step in range(3):
-        batch, lengths = _train_batch(rng, augment)
-        fa.reset_launches()
-        got = program.train_step(batch, lengths)
-        torch.cuda.synchronize()
-        assert fa.launches == k1, step
-        fa.reset_launches()
-        want = eager_side[0].train_step(eager_side[1], batch, eager_side[2], lengths=lengths)
-        torch.cuda.synchronize()
-        assert fa.launches == k1, step
+        batch = _train_batch(rng, augment)
+        results = []
+        for run in (lambda: program.train_step(batch),
+                    lambda: eager_side[0].train_step(eager_side[1], batch, eager_side[2])):
+            fa.reset_launches()
+            TL.reset_launches()
+            results.append(run())
+            torch.cuda.synchronize()
+            assert fa.launches == k1 and dict(TL.launches_by_kernel) == ctc, step
+        got, want = results
         assert sorted(got) == sorted(want)
         assert all(torch.equal(got[k], want[k]) for k in got), (step, got, want)
         assert _same_state(program_side, eager_side), step
-    assert len(program.captures) == 2 and program.replays == 6 and len(program.pairs) == 1
+    assert len(program.captures) == 1 and program.replays == 3 and len(program.steps) == 1
     assert program_side[1].count == 3
 
 
@@ -910,13 +913,13 @@ def test_train_program_poisoned_micro_batch_changes_nothing_at_accum_2():
     program = TrainProgram(*program_side, {})
     rng = np.random.default_rng(2)
     for step in range(5):
-        batch, lengths = _train_batch(rng, False)
+        batch = _train_batch(rng, False)
         if step == 3:
             batch["audio"] = torch.full_like(batch["audio"], float("nan"))
             before = [t.clone() for t in (*program_side[1].params,
                                           *program_side[1].state_tensors())]
-        got = program.train_step(batch, lengths)
-        want = eager_side[0].train_step(eager_side[1], batch, eager_side[2], lengths=lengths)
+        got = program.train_step(batch)
+        want = eager_side[0].train_step(eager_side[1], batch, eager_side[2])
         assert float(got["skipped"]) == float(want["skipped"]) == float(step == 3)
         if step == 3:
             after = (*program_side[1].params, *program_side[1].state_tensors())
@@ -938,12 +941,14 @@ def test_eval_graph_equals_the_eager_eval_step(precision):
     program = TrainProgram(task, opt, gen, {})
     rng = np.random.default_rng(3)
     for _ in range(2):
-        batch, lengths = _train_batch(rng, False)
+        batch = _train_batch(rng, False)
         fa.reset_launches()
-        losses, preds = program.eval_step(batch, lengths)
+        TL.reset_launches()
+        losses, preds = program.eval_step(batch)
         torch.cuda.synchronize()
         assert fa.launches == 3  # 1 encoder layer + 2 fusion blocks
-        want_losses, want_preds = task.eval_step(batch, lengths)
+        assert dict(TL.launches_by_kernel) == {"ctc_forward": 1}  # inside the eval graph
+        want_losses, want_preds = task.eval_step(batch)
         assert torch.equal(preds, want_preds)
         assert all(torch.equal(losses[k], want_losses[k]) for k in losses)
     assert len(program.eval_program.captures) == 1 and program.eval_program.replays == 2
@@ -951,10 +956,9 @@ def test_eval_graph_equals_the_eager_eval_step(precision):
 
 @pytest.mark.cuda
 def test_replayed_train_step_reads_nothing_back_outside_the_losses():
-    """A replayed step under ``set_sync_debug_mode("error")``, the eager
-    losses between the graphs exempted (``F.ctc_loss`` syncs on its own
-    host copies): the batch's copies, both replays, the guard and the
-    update never wait for the device."""
+    """A replayed step under ``set_sync_debug_mode("error")``, nothing
+    exempted: the batch's copies, the replay (the CTC kernels inside), the
+    guard and the update never wait for the device."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     import numpy as np
@@ -964,22 +968,94 @@ def test_replayed_train_step_reads_nothing_back_outside_the_losses():
     side, _ = _train_twins("bf16", 0.1, False, False, "ctc_ce")
     program = TrainProgram(*side, {})
     rng = np.random.default_rng(4)
-    program.train_step(*_train_batch(rng, False))  # the captures
-    batch, lengths = _train_batch(rng, False)
+    program.train_step(_train_batch(rng, False))  # the capture
+    batch = _train_batch(rng, False)
     torch.cuda.synchronize()
-    losses_fn = program._losses
-
-    def exempt(*args):
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            return losses_fn(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode("error")
-
-    program._losses = exempt
     torch.cuda.set_sync_debug_mode("error")
     try:
-        losses = program.train_step(batch, lengths)
+        losses = program.train_step(batch)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert program.replays == 4 and np.isfinite(float(losses["loss"]))
+    assert program.replays == 2 and np.isfinite(float(losses["loss"]))
+
+
+# -- the CTC kernels (csrc/ctc.cu) -----------------------------------------------------------
+
+CTC_KERNEL_CASES = {  # B, T, V, label width L, label lengths, input lengths
+    # the train path's shape: 64 labels, one row with none
+    "train_shape": (4, 400, 51865, 64, (64, 55, 17, 0), (400, 400, 400, 400)),
+    # Whisper's longest target: S = 2 * 448 + 1 = 897 lattice positions
+    "longest_target": (2, 600, 512, 448, (448, 301), (600, 560)),
+    # a row whose input is shorter than its target, and a short input
+    "infeasible_row": (3, 40, 64, 16, (16, 16, 5), (40, 12, 9)),
+}
+
+
+def _ctc_labels(gen, b, l, v):
+    """Labels with repeats, as transcripts have them: every fourth label
+    next to itself, and again two places on."""
+    labels = torch.randint(1, v, (b, l), generator=gen)
+    labels[:, 1::4] = labels[:, 0::4][:, :labels[:, 1::4].shape[1]]
+    labels[:, 3::4] = labels[:, 0::4][:, :labels[:, 3::4].shape[1]]
+    return labels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CTC_KERNEL_CASES))
+def test_ctc_kernels_match_the_recursion_and_repeat_bit_for_bit(case):
+    """The kernel pair through ``ctc_nll`` against autograd through the
+    recursion (``ctc_forward_log_probs``) on the card, the NLL masked as
+    ``zero_infinity`` masks it: the NLL, and the logits' gradient through
+    the log-softmax. Two kernel runs give the same bits (repeated labels);
+    an infeasible row's gradient is exactly 0. The NLL is thousands in fp32
+    (ulp ~4e-4 at 4000), and an occupancy of size 1 carries alpha's and
+    beta's rounding into the gradient: NLL within 2e-2 + 1e-5 of its size,
+    the gradient within 1e-2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    b, t, v, l, lab_lens, in_lens = CTC_KERNEL_CASES[case]
+    gen = torch.Generator().manual_seed(0)
+    logits = torch.randn((b, t, v), generator=gen).cuda()
+    labels = _ctc_labels(gen, b, l, v).cuda()
+    in_len = torch.tensor(in_lens, dtype=torch.int32).cuda()
+    lab_len = torch.tensor(lab_lens, dtype=torch.int32).cuda()
+
+    def run(fn):
+        x = logits.clone().requires_grad_()
+        nll = fn(torch.log_softmax(x, dim=-1), labels, in_len, lab_len)
+        (grad,) = torch.autograd.grad(torch.where(nll >= TL.INFEASIBLE, 0.0, nll).sum(), x)
+        return nll.detach(), grad
+
+    TL.reset_launches()
+    nll, grad = run(TL.ctc_nll)
+    torch.cuda.synchronize()
+    assert dict(TL.launches_by_kernel) == {"ctc_forward": 1, "ctc_backward": 1}
+    again = run(TL.ctc_nll)
+    assert torch.equal(nll, again[0]) and torch.equal(grad, again[1])
+    want_nll, want_grad = run(TL.ctc_forward_log_probs)
+    feasible = want_nll < TL.INFEASIBLE
+    assert torch.equal(nll < TL.INFEASIBLE, feasible)
+    if case == "infeasible_row":
+        assert not feasible[1] and feasible[0] and feasible[2]
+    torch.testing.assert_close(nll[feasible], want_nll[feasible], rtol=1e-5, atol=2e-2)
+    assert (grad - want_grad).abs().max().item() <= 1e-2
+    assert not grad[~feasible].any()
+
+
+@pytest.mark.cuda
+def test_ctc_on_the_card_raises_on_what_the_kernels_do_not_take():
+    """A CUDA tensor's CTC launches the kernel or raises: no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lp = torch.log_softmax(torch.randn((2, 8, 5), device="cuda"), dim=-1)
+    labels = torch.ones((2, 3), dtype=torch.long, device="cuda")
+    lengths = torch.full((2,), 3, device="cuda")
+    before = TL.launches
+    with pytest.raises(ValueError, match="on the card"):
+        TL.ctc_nll(lp, labels.cpu(), lengths, lengths)
+    with pytest.raises(TypeError):
+        TL.ctc_nll(lp.double(), labels, lengths, lengths)
+    with pytest.raises(ValueError, match="labels"):
+        TL.ctc_nll(lp, torch.ones((2, TL.MAX_LABELS + 1), dtype=torch.long, device="cuda"),
+                   lengths, lengths)
+    assert TL.launches == before

@@ -2,8 +2,9 @@
 optimizer on the CPU, at a tiny size: the optimizer against optax's
 ``MultiSteps`` + AdamW + the JAX step's non-finite guard, the schedule read
 from a device count against the host's and optax's, the program's eager
-parts against ``AVSRTask.train_step`` bit for bit, the CTC with host
-lengths, and the program's key."""
+step against ``AVSRTask.train_step`` bit for bit, the capture's sequence,
+the losses' CTC through its wrapper with the batch's own lengths, and the
+program's key."""
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from mocov2_whisper_flamingo_torch.training.task import AVSRTask as TTask
 from mocov2_whisper_flamingo_torch.training.trainer import Trainer
 from mocov2_whisper_flamingo_torch.utils.tokenizer import ByteTokenizer
 from mocov2_whisper_flamingo_tpu.training import optim as JO
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 48
 TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4, d_ff=64,
@@ -235,17 +237,13 @@ def _t(batch):
     return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
-def _host_lengths(batch):
-    return {k: torch.from_numpy(batch[k].copy()) for k in ("audio_lengths", "target_lengths")}
-
-
 @pytest.mark.parametrize("dropout,remat,accum", [(0.3, False, 1), (0.3, True, 2)])
 def test_program_eager_parts_equal_the_eager_step_bit_for_bit(dropout, remat, accum, tree):
     """Three micro-batches (at ``accum`` 2 the second poisoned, between the
-    halves of an update): ``TrainProgram.train_step`` on the CPU (F, the
-    losses and B run eagerly) against ``AVSRTask.train_step`` on a twin
-    net: losses, parameters, every optimizer state tensor and the
-    generator, bit for bit."""
+    halves of an update): ``TrainProgram.train_step`` on the CPU (the
+    program's plain version) against ``AVSRTask.train_step`` on a twin net:
+    losses, parameters, every optimizer state tensor and the generator, bit
+    for bit."""
     cfg = dict(TRAINING, accumulate_grad_batches=accum)
     batches = _batches(3)
     if accum > 1:
@@ -260,9 +258,9 @@ def test_program_eager_parts_equal_the_eager_step_bit_for_bit(dropout, remat, ac
         history = []
         for batch in batches:
             if use_program:
-                losses = program.train_step(_t(batch), _host_lengths(batch))
+                losses = program.train_step(_t(batch))
             else:
-                losses = task.train_step(opt, _t(batch), gen, lengths=_host_lengths(batch))
+                losses = task.train_step(opt, _t(batch), gen)
             history.append(losses)
         runs.append((history, [p.detach() for p in net.parameters()], opt, gen.get_state()))
     (h_prog, p_prog, o_prog, g_prog), (h_eager, p_eager, o_eager, g_eager) = runs
@@ -277,24 +275,34 @@ def test_program_eager_parts_equal_the_eager_step_bit_for_bit(dropout, remat, ac
     assert not torch.equal(g_prog, torch.Generator().manual_seed(7).get_state())
 
 
-def test_ctc_with_host_lengths_equals_the_device_lengths_path():
-    """``compute_losses`` with the lengths given on the host against the
-    batch's own lengths: the same losses; ``F.ctc_loss`` (the card's CTC)
-    takes host lengths as they are and agrees with the recursion."""
+def test_compute_losses_take_the_ctc_wrapper_with_the_batch_s_own_lengths(monkeypatch):
+    """``compute_losses`` hands the CTC wrapper the batch's lengths as they
+    lie (the audio lengths clamped to the frames), the labels and the
+    log-softmaxed logits, and its losses are the wrapper's NLL reduced as
+    the JAX task reduces it; ``F.ctc_loss`` (the library yardstick) agrees
+    with the recursion."""
     rng = np.random.default_rng(3)
     batch = _batches(1, b=3)[0]
     batch["target_lengths"][2] = 0
     logits = torch.from_numpy(rng.standard_normal((3, 40, VOCAB)).astype(np.float32))
-    task = TTask(None)
-    want = task.compute_losses(logits, _t(batch))
-    got = task.compute_losses(logits, _t(batch), _host_lengths(batch))
-    assert all(torch.equal(want[k], got[k]) for k in want)
+    calls = []
+    wrapped = TL.ctc_nll
+
+    def recording(log_probs, labels, input_lengths, label_lengths, blank_id=0):
+        calls.append((labels, input_lengths, label_lengths))
+        return wrapped(log_probs, labels, input_lengths, label_lengths, blank_id)
+
+    monkeypatch.setattr(TL, "ctc_nll", recording)
+    got = TTask(None).compute_losses(logits, _t(batch))
+    (labels, in_len, lab_len), = calls
+    assert torch.equal(labels, torch.from_numpy(batch["target_ids"]))
+    assert torch.equal(in_len, torch.full((3,), 40, dtype=torch.int32))
+    assert torch.equal(lab_len, torch.from_numpy(batch["target_lengths"]))
     lp = torch.log_softmax(logits, dim=-1)
-    labels, in_len = torch.from_numpy(batch["target_ids"]), torch.full((3,), 40, dtype=torch.int32)
-    lab_len = torch.from_numpy(batch["target_lengths"])
+    nll = TL.ctc_forward_log_probs(lp, labels, in_len, lab_len)
+    assert torch.equal(got["ctc_loss"], (nll / torch.clamp(lab_len, min=1)).sum() / 3)
     native = TL.ctc_native_nll(lp, labels, in_len, lab_len, zero_infinity=True)
-    recursion = TL.ctc_forward_log_probs(lp, labels, in_len, lab_len)
-    torch.testing.assert_close(native, recursion, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(native, nll, atol=1e-3, rtol=1e-5)
 
 
 # -- the key and the trainer's choice ---------------------------------------------------------
@@ -320,7 +328,7 @@ def test_program_key_follows_settings_shapes_and_parameter_addresses(tree):
     assert program.key(one) == key
 
 
-def test_one_process_trainer_runs_the_program_and_keeps_host_lengths(tmp_path, tree):
+def test_one_process_trainer_runs_the_program(tmp_path, tree):
     config = t_get_config({"output.checkpoint_dir": str(tmp_path / "ckpt"),
                            "output.log_dir": str(tmp_path / "logs"),
                            "precision.compute_dtype": "float32", "model.dropout": 0.0})
@@ -330,33 +338,38 @@ def test_one_process_trainer_runs_the_program_and_keeps_host_lengths(tmp_path, t
     assert isinstance(trainer.program, TrainProgram)
     assert dict(trainer.program.settings)["loss_mode"] == "ctc_ce"
     batch = _batches(1)[0]
-    placed = trainer._put_batch(batch)
-    assert sorted(placed.lengths) == ["audio_lengths", "target_lengths"]
-    assert np.array_equal(placed.lengths["target_lengths"].numpy(), batch["target_lengths"])
-    assert trainer._put_batch(_t(batch)).lengths is not None  # CPU tensors are host lengths too
+    placed = trainer._ready(trainer._put_batch(batch))
+    assert sorted(placed) == sorted([*batch, "target_text"])
+    assert np.array_equal(placed["target_lengths"].numpy(), batch["target_lengths"])
+    losses = trainer.program.train_step({k: v for k, v in placed.items() if k != "target_text"})
+    assert sorted(losses) == ["ce_loss", "ctc_loss", "loss", "skipped"]
+    assert (trainer.optimizer.count, trainer.optimizer.mini_step) != (0, 0)  # a step was taken
 
 
 @pytest.mark.parametrize("remat", [False, True])
-def test_capture_sequence_backward_twice_over_one_forward(remat, tree):
-    """What a capture of graph B does, on the CPU: B's eager run, its update
-    undone (``restore=``: the parameters through ``.data`` and every state
-    tensor), then B again over the same forward's autograd graph. The
-    optimizer writes the parameters without bumping their version counters,
-    so the second backward is allowed, and it leaves what one step leaves."""
+def test_capture_sequence_a_step_undone_then_taken_again(remat, tree):
+    """What a capture does before it records, on the CPU: the step's eager
+    run, its update undone (``restore=``: the parameters through ``.data``
+    and every state tensor) and the generator put back, then the step again.
+    The optimizer writes the parameters without bumping their version
+    counters, and the second step leaves what one step leaves."""
     batch = _batches(1)[0]
     states = []
     for twice in (True, False):
         net = _torch_net(0.3, tree, remat)
         opt, _ = TO.make_optimizer(dict(TRAINING), 6, net.trainable_parameters())
-        program = TrainProgram(TTask(net), opt, torch.Generator().manual_seed(1), {})
-        outputs = program._forward(_t(batch))
-        losses, grads = program._losses(outputs, _t(batch), _host_lengths(batch))
+        gen = torch.Generator().manual_seed(1)
+        program = TrainProgram(TTask(net), opt, gen, {})
         if twice:
             restore = (*(p.data for p in opt.params), *opt.state_tensors())
-            saved = [t.clone() for t in restore]
-            program._backward(list(outputs), grads, losses["loss"], retain=True)
+            saved, start = [t.clone() for t in restore], gen.get_state()
+            versions = [p._version for p in opt.params]
+            program._step(_t(batch))
+            assert [p._version for p in opt.params] == versions
             for t, s in zip(restore, saved):
                 t.copy_(s)
-        program._backward(list(outputs), grads, losses["loss"], retain=twice)
-        states.append([*(p.detach().clone() for p in net.parameters()), *opt.state_tensors()])
+            gen.set_state(start)
+        losses = program._step(_t(batch))
+        states.append([losses["loss"], *(p.detach().clone() for p in net.parameters()),
+                       *opt.state_tensors(), gen.get_state()])
     assert all(torch.equal(a, b) for a, b in zip(*states))

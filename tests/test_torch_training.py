@@ -4,6 +4,7 @@ gradients), optimizer steps through the task, and the trainer's own rules
 (non-finite guard, checkpoints, resume, top-k, early stopping, scalars)."""
 
 import copy
+import functools
 import json
 import os
 
@@ -28,6 +29,7 @@ from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
 from mocov2_whisper_flamingo_tpu.training import optim as JO
 from mocov2_whisper_flamingo_tpu.training.task import AVSRTask as JTask
+from torch_threads import two_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 48
 TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4, d_ff=64,
@@ -59,9 +61,11 @@ def _torch_net(dropout, tree=None, remat=False):
     return load_jax_params(net, tree if tree is not None else _tree())
 
 
+@functools.lru_cache(maxsize=2)
 def _tree(seed=0):
     """Random weights in the JAX layout, fusion gates at 0.5 so that every
-    trainable leaf has a gradient."""
+    trainable leaf has a gradient. Made once per seed (the last two kept):
+    callers read the tree and never write it."""
     probe = TNet("audiovisual", None, 96, _modelargs(0.0), VOCAB, device="cpu",
                  whisper_config=TConfig(**TINY))
     tree = random_avnet_params(probe, seed)
