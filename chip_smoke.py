@@ -82,10 +82,14 @@ times; and ``Trainer.fit`` with the frozen encoder in int8 beside bf16 storage.
 Then multi-rank training (phase 16): ``Trainer.fit`` at full width on a
 ``("data", "model")`` mesh of two gloo processes sharing the card, at data=2
 and at model=2, each held in fp32 against one process on the same global
-batch, with K1 launched on each rank's heads; ``initialize_distributed``
-under torchrun's variables with one process (NCCL), one step bit for bit
-against no process group; and bf16 ms per step of each leg beside one
-process (two ranks share one card: not a scaling number).
+batch, with K1 launched on each rank's heads (gloo cannot be captured: these
+ranks run the eager step, and say so); ``initialize_distributed`` under
+torchrun's variables with one process (NCCL) and size-1 data and model
+groups set on its mesh, whose step runs through the train program with its
+NCCL collectives captured in the graph: bit for bit against its own eager
+step and against no process group, with no synchronising call and no
+host-side collective call in a replayed step; and bf16 ms per step of each
+leg beside one process (two ranks share one card: not a scaling number).
 
 Then the model and data tools (phase 17): ``tools/verify_model.py``'s
 stability, memory and shape checks at full width with K1's launches counted
@@ -166,7 +170,7 @@ from mocov2_whisper_flamingo_torch.serving import (
     make_continuous_av_engine, pad_rows, trim_at_eos)
 from mocov2_whisper_flamingo_torch.serving import continuous
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
-from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+from mocov2_whisper_flamingo_torch.training.programs import TrainProgram, step_kind
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.tools import (
     convert_checkpoint, export_model, max_frame_count, smoke_test, verify_model)
@@ -3381,12 +3385,16 @@ class _MeshDataModule:
 
 
 def multicard_fit(seed: int, batches: list[dict], tree, mesh: tuple, precision: str,
-                  steps: int, workdir: str, overrides: dict | None = None, probe=None):
+                  steps: int, workdir: str, overrides: dict | None = None, probe=None,
+                  eager: bool = False):
     """``Trainer.fit`` at full width (whisper-small, MoCo ResNet-50, the
     fusion at phase 7's settings with dropout 0, gates at 0.5) on the mesh
     ``(data, model)`` of this process's run. ``tree``: the weights (None:
     drawn from ``seed``); ``probe(trainer)`` runs before the fit, and its
-    result is kept as ``trainer.probe``. Returns (trainer, tree)."""
+    result is kept as ``trainer.probe``; ``eager``: the eager step (set
+    after the probe: the comparison). The fit must run the step its groups
+    decide: the program on NCCL or without a group, eager on gloo. Returns
+    (trainer, tree)."""
     fp32 = precision == "float32"
     config = get_config({
         "training.epochs": 1, "training.accumulate_grad_batches": 2 if fp32 else 1,
@@ -3408,13 +3416,14 @@ def multicard_fit(seed: int, batches: list[dict], tree, mesh: tuple, precision: 
         trainer.writer = _RecordingWriter(trainer.writer.path)
     trainer.step_timestamps = []
     trainer.probe = probe(trainer) if probe else None
+    expected = "eager" if eager else step_kind(trainer.device, trainer.mesh.backends())
+    if eager:
+        trainer.step_kind = "eager"
     trainer.fit(_MeshDataModule(batches, trainer.mesh, steps), max_steps=steps)
     torch.cuda.synchronize()
-    # several ranks: the eager step (gloo collectives are not captured); one: the program
-    ranks = trainer.mesh.shape["data"] * trainer.mesh.shape["model"]
-    if (trainer.step_kind, trainer.program is None) != (("eager", True) if ranks > 1
-                                                        else ("program", False)):
-        raise AssertionError(f"a fit on {ranks} ranks ran the {trainer.step_kind} step")
+    if (trainer.step_kind, trainer.program is None) != (expected, expected == "eager"):
+        raise AssertionError(f"a fit on groups {trainer.mesh.backends()} ran the "
+                             f"{trainer.step_kind} step, expected the {expected} step")
     return trainer, tree
 
 
@@ -3530,6 +3539,7 @@ def multicard_rank(spec_path: str, rank: int) -> int:
     trainer, tree = multicard_fit(spec["seed"], batches, None, mesh, "float32",
                                   MULTI_FP32_STEPS, os.path.join(spec["workdir"], "fp32"),
                                   probe=probe)
+    out["step_kind"] = trainer.step_kind
     out["fp32"] = {"mesh_index": [trainer.mesh.data_index, trainer.mesh.model_index],
                    "k1_launches": fa.launches,
                    "k1_by_kernel": dict(fa.launches_by_kernel), "k1_by_shape": dict(shapes),
@@ -3556,29 +3566,87 @@ def multicard_rank(spec_path: str, rank: int) -> int:
     return 0
 
 
+def size_one_groups(trainer) -> None:
+    """The NCCL world-1 child's arrangement: a data and a model group of its
+    one rank (``dist.new_group([0])`` each) set on the trainer's mesh and its
+    task before the fit, so that the step makes the data group's collectives
+    (the flat gradient reduce, the global counts and losses) on NCCL; the
+    step kind is decided again from the groups."""
+    mesh = trainer.mesh
+    mesh.data_group, mesh.model_group = dist.new_group([0]), dist.new_group([0])
+    trainer.task.data_group = mesh.data_group
+    trainer.step_kind = step_kind(trainer.device, mesh.backends())
+
+
 def nccl_world_one(spec_path: str) -> int:
     """``--nccl-world-one SPEC``: under torchrun's variables with one
-    process, ``initialize_distributed()`` joins an NCCL group; one fp32 step
-    of the joint CTC + CE loss (the CTC kernels sum in a fixed order, so
-    this compares bits) is saved for the parent."""
+    process, ``initialize_distributed()`` joins an NCCL group, and the mesh
+    takes size-1 data and model groups (``size_one_groups``). One fp32 step
+    of the joint CTC + CE loss through the train program, its collectives
+    captured in the graph (the CTC kernels sum in a fixed order, so this
+    compares bits), is saved for the parent and held against the eager step
+    on the same groups; then one replayed step's synchronising calls (none
+    allowed), the host's collective calls (none: the graph makes them) and
+    the NCCL device operations that the profiler sees."""
     spec = json.load(open(spec_path))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = train_entry.rank_device("cuda")
     torch.cuda.set_device(torch.device(device))
     initialize_distributed()
-    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": device}
-    trainer, _ = multicard_fit(spec["seed"], multicard_batches(spec["seed"]), None, (-1, 1),
-                               "float32", 1, os.path.join(spec["workdir"], "nccl"),
-                               NCCL_OVERRIDES)
-    torch.save(_trainable(trainer), os.path.join(spec["workdir"], "nccl_params.pt"))
-    with open(os.path.join(spec["workdir"], "nccl.json"), "w") as f:
+    calls = collections.Counter()
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            calls[fn.__name__] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    dist.all_reduce, dist.all_gather = counted(dist.all_reduce), counted(dist.all_gather)
+    batches = multicard_batches(spec["seed"])
+    workdir = spec["workdir"]
+    trainer, tree = multicard_fit(spec["seed"], batches, None, (-1, 1), "float32", 1,
+                                  os.path.join(workdir, "nccl"), NCCL_OVERRIDES,
+                                  probe=size_one_groups)
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(), "device": device,
+           "groups": trainer.mesh.backends(), "step_kind": trainer.step_kind,
+           "collective_calls_in_fit": sum(calls.values()),
+           "expected_collective_calls_in_fit": 2 * (NCCL_TRAIN_COLLECTIVES
+                                                    + NCCL_EVAL_COLLECTIVES),
+           "captures": len(trainer.program.captures),
+           "eval_captures": len(trainer.program.eval_program.captures)}
+    params = _trainable(trainer)
+    torch.save(params, os.path.join(workdir, "nccl_params.pt"))
+    twin, _ = multicard_fit(spec["seed"], batches, tree, (-1, 1), "float32", 1,
+                            os.path.join(workdir, "nccl_eager"), NCCL_OVERRIDES,
+                            probe=size_one_groups, eager=True)
+    eager = _trainable(twin)
+    out["eager_step_kind"] = twin.step_kind
+    out["differ_from_eager"] = [n for n in params if not torch.equal(params[n], eager[n])]
+    out["losses_equal_eager"] = (_train_scalars(trainer.writer.scalars)
+                                 == _train_scalars(twin.writer.scalars))
+    del twin, eager
+    placed = trainer._ready(trainer._put_batch(shard_batch(trainer.mesh, batches[0])))
+    placed.pop("target_text", None)
+    out["syncs_per_replayed_step"] = sync_report(trainer, placed)["syncs"]
+    calls.clear()
+    _, records, _, _ = traced(lambda: trainer.program.train_step(placed), cpu=False)
+    out["collective_calls_per_replay"] = sum(calls.values())
+    out["collectives_per_train_step"] = NCCL_TRAIN_COLLECTIVES
+    out["nccl_device_ops_per_replay"] = sum(1 for ev in records if "nccl" in ev.name.lower())
+    out["nccl_note"] = ("NCCL enqueues no kernel for an in-place sum over one rank, so the "
+                        "captured collectives of a world of one may show no device operation")
+    with open(os.path.join(workdir, "nccl.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
     return 0
 
 
 NCCL_OVERRIDES = {"training.accumulate_grad_batches": 1}
+# The collectives one train step makes on the data group (the flat gradient reduce, the
+# global counts, the global losses; the clip norm reduces over the model group only where
+# a parameter is split), and one eval step (the counts, the losses).
+NCCL_TRAIN_COLLECTIVES, NCCL_EVAL_COLLECTIVES = 3, 2
 
 
 def _spawn(args: list[str], workdir: str, name: str, env: dict | None = None):
@@ -3623,9 +3691,12 @@ def run_multicard(seed: int) -> dict:
     fp32: each leg's gradient at the starting weights, its parameters after
     two updates and its losses, within the ``MULTI_*`` tolerances; the
     data=2 gradient equals the mean of the two halves' gradients in one
-    process bit for bit; each rank launches K1 at its shard shapes. The NCCL
-    world-1 step equals the step without a process group bit for bit. bf16
-    ms per step of the legs and of one process, in turns."""
+    process bit for bit; each rank launches K1 at its shard shapes, and runs
+    the eager step (gloo). The NCCL world-1 step, size-1 groups on its mesh,
+    runs through the train program with its collectives captured: it equals
+    its eager step and the step without a process group bit for bit, and a
+    replayed step synchronises nothing. bf16 ms per step of the legs and of
+    one process, in turns."""
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     # fp32 products as the child processes take them (no TF32 in cuBLAS or cuDNN)
@@ -3681,10 +3752,17 @@ def run_multicard(seed: int) -> dict:
         nccl_info = json.load(open(os.path.join(workdir, "nccl.json")))
         nccl_params = torch.load(os.path.join(workdir, "nccl_params.pt"), weights_only=True)
         differ = [n for n in plain_params if not torch.equal(plain_params[n], nccl_params[n])]
-        if nccl_info["backend"] != "nccl" or differ:
-            raise AssertionError(f"NCCL world-1 step: backend {nccl_info['backend']}, "
-                                 f"parameters that differ from no process group: {differ[:5]}")
-        out["nccl_world_one"] = dict(nccl_info, bit_equal=True, params=len(plain_params))
+        if (nccl_info["backend"] != "nccl" or nccl_info["groups"] != ["nccl", "nccl"]
+                or nccl_info["step_kind"] != "program" or differ
+                or nccl_info["differ_from_eager"] or not nccl_info["losses_equal_eager"]
+                or nccl_info["syncs_per_replayed_step"] != 0
+                or nccl_info["collective_calls_per_replay"] != 0
+                or nccl_info["collective_calls_in_fit"]
+                != nccl_info["expected_collective_calls_in_fit"]):
+            raise AssertionError(f"NCCL world-1 step: {nccl_info}; parameters that differ "
+                                 f"from no process group: {differ[:5]}")
+        out["nccl_world_one"] = dict(nccl_info, bit_equal_no_group=True,
+                                     bit_equal_eager=True, params=len(plain_params))
         log(f"multicard NCCL world 1: {json.dumps(out['nccl_world_one'])}")
 
         timed = {}
@@ -3722,8 +3800,13 @@ def run_multicard(seed: int) -> dict:
                 if r["fp32"]["k1_by_shape"] != want:
                     raise AssertionError(f"leg {leg} rank {r['rank']}: K1 launches by shape "
                                          f"{r['fp32']['k1_by_shape']}, expected {want}")
+            kinds = [r["step_kind"] for r in ranks]
+            if kinds != ["eager", "eager"]:
+                raise AssertionError(f"leg {leg}: the gloo ranks ran the {kinds} steps")
             out[leg] = {
                 "mesh": {"data": mesh[0], "model": mesh[1]},
+                "step_kind_per_rank": kinds,
+                "step_kind_why": "gloo groups: their collectives cannot be captured",
                 "fp32_params_vs_one_process": params, "fp32_grad_vs_one_process": grads,
                 "fp32_max_loss_diff": loss_err,
                 "fp32_k1_by_shape_per_rank": [r["fp32"]["k1_by_shape"] for r in ranks],

@@ -290,6 +290,7 @@ class AVDataset:
         self.audio_transform = audio_transform
         self.video_transform = video_transform
         self._rng = np.random.default_rng(seed)
+        self._target_lengths: dict[int, int] = {}
 
         self.video_dir = os.path.join(root_dir, split, f"{split}_video_seg12s")
         self.text_dir = os.path.join(root_dir, split, f"{split}_text_seg12s")
@@ -318,6 +319,16 @@ class AVDataset:
                         "text": text,
                     })
         return samples
+
+    def target_length(self, idx: int) -> int:
+        """The length of sample ``idx``'s token ids, as ``fetch`` encodes
+        them (kept after the first call)."""
+        if idx not in self._target_lengths:
+            text = self.samples[idx]["text"]
+            self._target_lengths[idx] = (
+                len(self.tokenizer.encode(text, max_length=448, truncation=True))
+                if self.tokenizer else 1)
+        return self._target_lengths[idx]
 
     def probe_num_frames(self, idx: int) -> int:
         return min(probe_video_frames(self.samples[idx]["video_path"],

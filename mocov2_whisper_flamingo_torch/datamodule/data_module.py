@@ -30,7 +30,7 @@ import numpy as np
 from mocov2_whisper_flamingo_torch.datamodule.av_dataset import AVDataset
 from mocov2_whisper_flamingo_torch.datamodule.samplers import (
     ByFrameCountSampler, QuantizedBatchSampler, RandomSamplerWrapper,
-    ShardedSampler)
+    ShardedSampler, StepBatch)
 from mocov2_whisper_flamingo_torch.datamodule.transforms import AudioTransform, VideoTransform
 from mocov2_whisper_flamingo_torch.utils.tokenizer import load_tokenizer
 
@@ -51,16 +51,18 @@ def _data_shard(n_model: int = 1) -> tuple[int, int]:
     return 1, 0
 
 
-def collate_fn(batch: list[dict], target_len_buckets=None) -> dict:
+def collate_fn(batch: list[dict], target_len_buckets=None, target_len: int = 0) -> dict:
     """Pad target_ids to the batch max **with 0** — conscious replication of
     the reference quirk Q3 (data_module.py:134-137 pads with 0 while CE
     ignores only -100); stack all modality tensors; keep raw texts.
 
+    ``target_len``: a length to pad to at least (several ranks: the longest
+    target of the step over every rank, ``ShardedSampler``'s ``StepBatch``).
     ``target_len_buckets``: optional ascending lengths; the batch max is
     rounded UP to the smallest bucket that fits, so the step sees a handful
     of target shapes instead of one per batch (the JAX package's batches,
     whose compiled step specialises per shape)."""
-    max_target_len = max(item["target_ids"].shape[0] for item in batch)
+    max_target_len = max(target_len, *(item["target_ids"].shape[0] for item in batch))
     if target_len_buckets:
         for bucket in sorted(target_len_buckets):
             if bucket >= max_target_len:
@@ -174,6 +176,11 @@ class DataLoader:
         if hasattr(self.batch_sampler, "set_epoch"):
             self.batch_sampler.set_epoch(epoch)
 
+    def _collate(self, indices, samples) -> dict:
+        if isinstance(indices, StepBatch):  # the target length of its step on every rank
+            return self.collate(samples, target_len=indices.target_len)
+        return self.collate(samples)
+
     def _batches(self) -> Iterator[dict]:
         """Synchronous fetch+collate (+device_put) stream."""
         if self.num_workers > 0:
@@ -185,11 +192,11 @@ class DataLoader:
                     else:
                         turns = [order.ticket() for _ in indices]
                         samples = list(pool.map(self.dataset.fetch, indices, turns))
-                    batch = self.collate(samples)
+                    batch = self._collate(indices, samples)
                     yield self.device_put(batch) if self.device_put else batch
         else:
             for indices in self.batch_sampler:
-                batch = self.collate([self.dataset[i] for i in indices])
+                batch = self._collate(indices, [self.dataset[i] for i in indices])
                 yield self.device_put(batch) if self.device_put else batch
 
     def __iter__(self) -> Iterator[dict]:
@@ -308,8 +315,9 @@ class DataModule:
             self.test_dataset = self._make_dataset("test", "test", self.max_frames_val)
             logger.info("test dataset: %d samples", len(self.test_dataset))
 
-    def _collate(self, batch):
-        return collate_fn(batch, target_len_buckets=self.target_len_buckets)
+    def _collate(self, batch, target_len: int = 0):
+        return collate_fn(batch, target_len_buckets=self.target_len_buckets,
+                          target_len=target_len)
 
     def _get_sampler(self, dataset, batch_size: int, shuffle: bool = True,
                      max_frames: int | None = None):
@@ -337,7 +345,8 @@ class DataModule:
             base = QuantizedBatchSampler(base, batch_size, min_size=1,
                                          pad_remainder=multi_rank or shuffle)
         if multi_rank:
-            return ShardedSampler(base, world, rank, shuffle=shuffle, seed=self.seed)
+            return ShardedSampler(base, world, rank, shuffle=shuffle, seed=self.seed,
+                                  target_length=dataset.target_length)
         return RandomSamplerWrapper(base, seed=self.seed) if shuffle else base
 
     def train_dataloader(self) -> DataLoader:

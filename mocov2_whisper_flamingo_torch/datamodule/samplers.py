@@ -13,7 +13,8 @@ datamodule/data_module.py:18-120, duplicated in datamodule/samplers.py):
   ``DistributedSamplerWrapper`` (reference: data_module.py:84-106), shards
   the batch list across the ranks of ``torch.distributed`` (pad-to-even by
   wrapping, seeded shuffle, ``set_epoch``), with the same batch size on
-  every rank at every step.
+  every rank at every step and, given the targets' lengths, the same
+  padded target length (``StepBatch``).
 - ``RandomSamplerWrapper``: shuffles the batch order for the single-host
   case (reference: data_module.py:108-120).
 """
@@ -142,6 +143,16 @@ class QuantizedBatchSampler:
             self.sampler.set_epoch(epoch)
 
 
+class StepBatch(list):
+    """A rank's batch of dataset indices, with ``target_len``: the longest
+    target of its step's batches on every rank, which the collate pads to
+    (``DataLoader`` passes it on)."""
+
+    def __init__(self, indices, target_len: int):
+        super().__init__(indices)
+        self.target_len = target_len
+
+
 class ShardedSampler:
     """Shard a batch sampler's output across ranks with **per-step size
     agreement**: at every iteration position, all ranks hold a batch of the
@@ -155,10 +166,18 @@ class ShardedSampler:
 
     Requires the wrapped sampler to be deterministic and identically seeded
     on every rank (true for ByFrameCountSampler/QuantizedBatchSampler:
-    same dataset walk, same seed + epoch)."""
+    same dataset walk, same seed + epoch).
+
+    ``target_length(idx)``: the length of a sample's target. Where given,
+    each batch comes out as a ``StepBatch`` that carries the longest target
+    of its step over every rank's batch, so every rank pads its targets to
+    one length, as the JAX step pads its one global batch: the trainer's
+    compiled step captures its graphs by batch shape, and ranks whose
+    shapes differed would capture at different steps and wait on each
+    other's collectives."""
 
     def __init__(self, sampler, num_replicas: int, rank: int, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, target_length=None):
         if not 0 <= rank < num_replicas:
             raise ValueError(f"rank {rank} out of range for {num_replicas} replicas")
         self.sampler = sampler
@@ -166,6 +185,7 @@ class ShardedSampler:
         self.rank = rank
         self.shuffle = shuffle
         self.seed = seed
+        self.target_length = target_length
         self.epoch = 0
 
     def _sharded(self) -> list:
@@ -187,7 +207,13 @@ class ShardedSampler:
                 pad = self.num_replicas - remainder
                 reps = -(-pad // len(group))
                 group = group + (group * reps)[:pad]
-            mine.extend(group[self.rank :: self.num_replicas])
+            for start in range(0, len(group), self.num_replicas):
+                step = group[start:start + self.num_replicas]
+                if self.target_length is None:
+                    mine.append(step[self.rank])
+                else:
+                    longest = max(self.target_length(int(i)) for b in step for i in b)
+                    mine.append(StepBatch(step[self.rank], longest))
         if self.shuffle:
             rng = np.random.default_rng(self.seed + self.epoch)
             perm = rng.permutation(len(mine))  # identical on every rank

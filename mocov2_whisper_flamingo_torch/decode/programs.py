@@ -59,8 +59,8 @@ inside it: its TMA tensor maps are kernel parameters, so a graph holds the
 static buffers' addresses, which every replay fills.
 
 The train and eval steps are programs of this kind too
-(``training/programs.py``: a forward graph and a backward-and-update graph
-with the losses run eagerly between them). ``tools/export_model.py``'s
+(``training/programs.py``: one graph per batch shape that replays the whole
+step, on a mesh of NCCL groups its collectives included). ``tools/export_model.py``'s
 ``BeamProgram`` is no graph: ``torch.export`` traces its prefix and its
 search, a ``while_loop`` each over ``decode/beam.py::BeamLoop.prefix_step``
 and ``BeamLoop.step``, into a ``.pt2``, and cannot trace a replay.

@@ -97,6 +97,11 @@ class Mesh:
     def rank(self) -> int:
         return self.data_index * self.shape[MODEL_AXIS] + self.model_index
 
+    def backends(self) -> list[str]:
+        """The backend of each of this rank's groups (none for one process)."""
+        return [dist.get_backend(g) for g in (self.data_group, self.model_group)
+                if g is not None]
+
 
 def make_mesh(n_data: int = -1, n_model: int = 1) -> Mesh:
     """The mesh over the processes of ``torch.distributed`` (the 1 x 1 mesh

@@ -17,7 +17,10 @@ one the matching slice of the input features. Between them:
 
 Each is the identity when ``group`` is None (a model axis of 1). Only
 ``all_reduce``, ``broadcast`` and the list form of ``all_gather`` are used,
-which gloo also runs on CUDA tensors.
+which gloo also runs on CUDA tensors. None reads the card back, so on NCCL
+groups the train program's graphs capture them with the rest of the step
+(``training/programs.py``); the list form's buffers are then allocated from
+the graph's pool.
 """
 
 from __future__ import annotations

@@ -46,18 +46,57 @@ Nothing in a replayed step reads the card back.
   the programs. On the card a capture or replay error raises; nothing runs
   eagerly behind a program.
 
-Only one process: a mesh of several ranks runs ``AVSRTask.train_step``
-eagerly, since its gloo collectives cannot be captured (``Trainer``).
+**Meshes** (``step_kind``). The step's collectives are device calls that
+read nothing back: the tensor-parallel reduces and gathers of the forward
+and the backward (``parallel/tensor_parallel.py``), the data group's flat
+gradient reduce and the clip norm's model-group reduce
+(``training/optim.py``), the global counts and losses and so the guard's
+global decision (``training/task.py``). On NCCL groups a graph captures them
+with the rest of the step, so a mesh of any ``(data, model)`` shape replays
+its step as one process does, as the JAX step is one program on any mesh:
+
+- every communicator the step uses is made by the capture's eager run,
+  which goes through every group the step reduces over;
+- every rank captures and replays the same graphs in the same order, since
+  its keys change with the batch's shape, which ``DataModule`` keeps the
+  same on every rank at every step (``datamodule/samplers.py::ShardedSampler``
+  deals equal row counts and one padded target length a step), and with the weights' addresses,
+  which change on every rank at the same step;
+- a NaN row on one rank makes the global loss NaN on every rank, so the
+  guard skips the update on every rank inside the graph.
+
+Gloo's collectives cannot be captured: a gloo group (on the CPU, or on CUDA
+tensors as when two ranks share one card) runs ``AVSRTask.train_step`` and
+``eval_step`` eagerly, decided from the groups' backends before the first
+step, never by catching a failed capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Iterable
 
 import torch
 
 from mocov2_whisper_flamingo_torch.decode.programs import EncodeProgram, GraphPool
+
+
+def step_kind(device: torch.device, backends: Iterable[str]) -> str:
+    """``"program"`` where the train and eval steps on ``device`` can be
+    replayed graphs given the backends of the process groups they reduce
+    over (``torch.distributed.get_backend`` of each; none for one process),
+    ``"eager"`` where a group's collectives cannot be captured: gloo, and any
+    backend but NCCL for CUDA tensors. A backend string of several
+    (``"cpu:gloo,cuda:nccl"``) counts by ``device``'s type. On the CPU the
+    program runs the eager step anyway, so only a group moves it there."""
+    for backend in backends:
+        if ":" in backend:
+            by_device = dict(part.split(":", 1) for part in backend.split(","))
+            backend = by_device.get(device.type, backend)
+        if not (device.type == "cuda" and backend == "nccl"):
+            return "eager"
+    return "program"
 
 
 @dataclasses.dataclass

@@ -156,7 +156,8 @@ class AVSRTask:
         optimizer's parameters, and the optimizer's step. Returns the
         detached losses. This is the plain version of the train program
         (``training/programs.py::TrainProgram``), which ``Trainer.fit`` runs
-        on one process; a mesh of several ranks runs this.
+        on one process and on a mesh of NCCL groups; a mesh of gloo groups
+        runs this.
 
         ``skip_nonfinite``: a step whose loss is NaN or Inf applies nothing:
         no parameter, optimizer state, accumulation counter or accumulated

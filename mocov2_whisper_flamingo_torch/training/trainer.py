@@ -31,16 +31,19 @@ batch, this computes: the same losses, updates, checkpoints and WER.
   ranks of one model group draw the same dropout masks on their (whole)
   activations, or they would drift apart.
 
-**The step it runs.** On one process the train and eval steps are the
-compiled programs of ``training/programs.py::TrainProgram`` (``program``):
-on the card one graph per batch shape that replays the whole step
-(forward, losses with the CTC kernel, backward, guard and update, the
-optimizer's state on the card) and reads nothing back; on the CPU the eager
-step. A mesh of more than one rank runs the
-eager ``AVSRTask.train_step`` / ``eval_step``: its collectives (gloo; NCCL
-across cards) are not captured, which waits for a machine with more than one
-card. ``step_kind`` names the step (``"program"`` or ``"eager"``), and
-``setup`` logs it.
+**The step it runs.** The train and eval steps are the compiled programs
+of ``training/programs.py::TrainProgram`` (``program``): on the card one
+graph per batch shape that replays the whole step (forward, losses with the
+CTC kernel, backward, guard and update, the optimizer's state on the card,
+and on a mesh every collective of the step) and reads nothing back; on the
+CPU the eager step. That holds on one process and on a mesh of any
+``(data, model)`` shape whose groups are NCCL on the card: the graphs
+capture the NCCL collectives, as the JAX step is one program on any mesh. A
+mesh whose groups are gloo (on the CPU, or two ranks sharing one card) runs
+the eager ``AVSRTask.train_step`` / ``eval_step``, since gloo's collectives
+cannot be captured. ``step_kind`` names the step (``"program"`` or
+``"eager"``); it is decided from the groups' backends when the trainer is
+made (``training/programs.py::step_kind``), and ``setup`` logs it.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ from mocov2_whisper_flamingo_torch.device import resolve_device
 from mocov2_whisper_flamingo_torch.parallel.mesh import (
     gather_state_dict, load_whole_state_dict, make_mesh, shard_module, sharded_dims)
 from mocov2_whisper_flamingo_torch.training.optim import make_optimizer, no_decay_mask
-from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+from mocov2_whisper_flamingo_torch.training.programs import TrainProgram, step_kind
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask
 from mocov2_whisper_flamingo_torch.utils.tb_writer import SummaryWriter
 from mocov2_whisper_flamingo_torch.utils.wer import wer as corpus_wer
@@ -210,9 +213,8 @@ class Trainer:
         self.optimizer = None
         self.schedule = None
         self.generator = None
-        self.program = None  # TrainProgram on one process (setup)
-        ranks = self.mesh.shape["data"] * self.mesh.shape["model"]
-        self.step_kind = "program" if ranks == 1 else "eager"
+        self.program = None  # the TrainProgram (setup) where step_kind is "program"
+        self.step_kind = step_kind(self.device, self.mesh.backends())
         self.global_step = 0
         # Optional per-step wall-clock trace (set to [] before fit to
         # enable): one timestamp after each step, taken on the host. A step

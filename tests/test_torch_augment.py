@@ -17,7 +17,7 @@ from mocov2_whisper_flamingo_torch.ops import video as TV
 from mocov2_whisper_flamingo_tpu.ops import augment as JA
 from mocov2_whisper_flamingo_tpu.ops import mel as JM
 from mocov2_whisper_flamingo_tpu.ops import video as JV
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # fp32 elementwise chains
 

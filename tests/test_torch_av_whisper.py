@@ -16,7 +16,7 @@ from mocov2_whisper_flamingo_tpu.models.av_whisper import AVWhisperNet as JNet
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperDecoder as JDecoder
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 64
 EOS = 20  # a token the random decoder below emits mid-sequence

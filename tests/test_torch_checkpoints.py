@@ -22,7 +22,7 @@ from mocov2_whisper_flamingo_tpu.models.visual_frontend import MoCoVisualFronten
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperDecoder as JDecoder
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # fp32 modules (the frontend parity test's tolerance, scaled by the output's size)
 VOCAB = 64

@@ -43,7 +43,7 @@ from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncode
 from mocov2_whisper_flamingo_tpu.ops import mel as JM
 from mocov2_whisper_flamingo_tpu.training.trainer import Trainer as JTrainer
 from mocov2_whisper_flamingo_tpu.utils.tokenizer import ByteTokenizer as JByteTokenizer
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 MAX_FRAMES = 16
 MODES = {"host": {}, "on_device": {"augmentation.on_device": True},

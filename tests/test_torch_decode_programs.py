@@ -26,7 +26,7 @@ from mocov2_whisper_flamingo_torch.models.av_whisper import AVWhisperNet
 from mocov2_whisper_flamingo_torch.models.convert import (
     load_jax_params, random_asr_params, random_jax_params)
 from mocov2_whisper_flamingo_torch.models.whisper import WhisperConfig, WhisperDecoder
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 VOCAB, EOS = 96, 20  # EOS: a token the random decoder emits mid-sequence
 PREFIX = [1, 2]

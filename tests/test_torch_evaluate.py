@@ -13,6 +13,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import jax
@@ -40,7 +41,7 @@ from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncode
 from mocov2_whisper_flamingo_tpu.tools import evaluate as J
 
 from test_torch_datamodule import _one_jax_device, _overrides, _write_dataset
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 VOCAB = 262  # ByteTokenizer
@@ -48,6 +49,7 @@ MODELARGS = (32, 4, 2, 3000, 128, 0.0)
 TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4, d_ff=64,
             vocab_size=VOCAB, max_source_positions=1500, max_target_positions=32)
 MAX_LEN = 12
+RANKS_LIMIT_S = 120  # the two-rank command line, both ranks together
 CLI_FLAGS = ["--set", "model.d_model=32", "--set", "model.n_heads=4",
              "--set", "model.fc_hidden_size=128", "--set", "whisper.model_name=whisper-tiny",
              "--set", "data.test_batch_size=1", "--set", "precision.compute_dtype=float32",
@@ -144,9 +146,10 @@ def test_two_ranks_report_what_one_reports(data, tmp_path, capsys):
     assert one["mode"] == "ctc-greedy" and one["split"] == "test" and one["n"] == 2
     assert open(preds).read().count("Pred: ") == 2
     outs = []
+    deadline = time.monotonic() + RANKS_LIMIT_S  # one limit for both ranks
     try:
         for proc in procs:
-            out, err = proc.communicate(timeout=120)
+            out, err = proc.communicate(timeout=max(deadline - time.monotonic(), 1))
             assert proc.returncode == 0, err[-3000:]
             outs.append(out)
     finally:

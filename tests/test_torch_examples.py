@@ -9,14 +9,14 @@ import sys
 
 import pytest
 import torch
-from torch_threads import THREADS, two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import THREADS, capped_torch_threads  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EXAMPLES = ("torch_end_to_end.py", "torch_serving_demo.py", "torch_transcribe_demo.py")
 
 
 def _run(name: str, *args: str, timeout: float = 500) -> subprocess.CompletedProcess:
-    """The example in a child process, its torch ops on two threads (see
+    """The example in a child process, its torch ops on ``THREADS`` threads (see
     ``torch_threads.py``)."""
     return subprocess.run([sys.executable, os.path.join(REPO, "examples", name), *args],
                           capture_output=True, text=True, timeout=timeout,

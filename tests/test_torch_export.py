@@ -28,7 +28,7 @@ from mocov2_whisper_flamingo_tpu.models.av_whisper import AVWhisperNet as JAVWNe
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperDecoder as JDecoder
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import THREADS, capped_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 64
 MODELARGS = (32, 4, 2, 3000, 128, 0.0)
@@ -199,9 +199,13 @@ def test_beam_artifact_tokens_equal_the_jax_beam(beam_setup, artifacts):
     np.testing.assert_allclose(got_scores.numpy(), scores, atol=ATOL, rtol=0)
 
 
-def test_both_artifacts_verify_in_a_fresh_process(forward_setup, beam_setup, artifacts):
+def test_both_artifacts_verify_in_a_fresh_process(forward_setup, beam_setup, artifacts,
+                                                  monkeypatch):
     """Each artifact loads, runs and matches the JAX outputs in a fresh
-    interpreter that never traced it (the forward at an unseen B=3)."""
+    interpreter that never traced it (the forward at an unseen B=3). The
+    child runs its torch ops on this module's threads (``torch_threads.py``),
+    through its environment."""
+    monkeypatch.setenv("OMP_NUM_THREADS", str(THREADS))
     _, jax_forward = forward_setup
     _, bbatch, (seqs, scores) = beam_setup
     paths, _ = artifacts

@@ -17,7 +17,7 @@ from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops.attention import multi_head_attention
 from mocov2_whisper_flamingo_tpu.ops.attention import _xla_attention
 from mocov2_whisper_flamingo_tpu.ops.flash_attention import _flash_attention_fwd_impl
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ATOL = 1e-5  # fp32: same algorithm, different summation order
 BF16_ATOL = 2e-2  # bf16 output rounding (ulp 2^-8 at 1) and p rounding points

@@ -21,7 +21,7 @@ from mocov2_whisper_flamingo_tpu.training.task import AVSRTask as JTask
 
 from test_torch_training import (
     LOSS_ATOL, PARAM_ATOL, TINY, _DataModule, _j, _jax_net, _named, _torch_net, _trainer, _tree)
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 # bf16 storage of the frozen trees (see test_int8_frozen_fit_matches_jax)
 BF16_FROZEN_LOSS_ATOL = 1e-3

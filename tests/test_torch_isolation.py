@@ -9,7 +9,7 @@ from pathlib import Path
 
 import pytest
 import torch
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mocov2_whisper_flamingo_torch").rglob("*.py")) + [

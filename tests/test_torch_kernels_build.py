@@ -8,7 +8,7 @@ import time
 import pytest
 
 from mocov2_whisper_flamingo_torch.ops import kernels
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 WAIT = 60
 

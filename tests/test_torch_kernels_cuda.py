@@ -1059,3 +1059,60 @@ def test_ctc_on_the_card_raises_on_what_the_kernels_do_not_take():
         TL.ctc_nll(lp, torch.ones((2, TL.MAX_LABELS + 1), dtype=torch.long, device="cuda"),
                    lengths, lengths)
     assert TL.launches == before
+
+
+MULTIRANK_PROGRAM_MESHES = [(2, 1), (1, 2), (2, 2)]
+MULTIRANK_PROGRAM_LIMIT_S = 900  # one torchrun at full width, every rank's building included
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("data,model", MULTIRANK_PROGRAM_MESHES)
+def test_multirank_program_equals_the_eager_step(data, model, tmp_path):
+    """``torchrun`` with one process per card on a ``(data, model)`` mesh of
+    NCCL groups (tests/torch_multirank_program_worker.py): at full width the
+    train program, its graphs holding the step's NCCL collectives, equals
+    the eager step on the same mesh bit for bit in fp32 over 2 updates at
+    accumulation 2 (losses, parameters, optimizer state, generator, one eval
+    step), at dropout 0 and at dropout 0.1 with the fusion rematerialised; a
+    NaN row on one data index skips the micro-batch on every rank, in the
+    graph as in the eager step; a replayed step makes no synchronising call
+    and no host-side collective call; at model=2 K1 runs at each rank's
+    heads. In bf16 both step in turns, timed, with equal losses and state.
+    Prints each rank's report. Needs ``data * model`` cards."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < data * model:
+        pytest.skip(f"needs {data * model} CUDA cards")
+    from mocov2_whisper_flamingo_torch.ops import kernels
+
+    kernels.build_all()  # once, before the ranks load them
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    worker = os.path.join(root, "tests", "torch_multirank_program_worker.py")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(data * model), worker, "--data", str(data), "--model",
+         str(model), "--out", str(tmp_path)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="4"),
+        capture_output=True, text=True, timeout=MULTIRANK_PROGRAM_LIMIT_S)
+    assert proc.returncode == 0, proc.stderr[-6000:]
+    ranks = [json.load(open(tmp_path / f"rank{r}.json")) for r in range(data * model)]
+    for rank in ranks:
+        print(f"multirank program {data}x{model}: " + json.dumps(rank))
+        for fp32 in (rank["fp32"], rank["fp32_dropout"]):  # dropout 0; dropout 0.1, remat
+            assert fp32["step_kind"] == "program" and fp32["twin_step_kind"] == "eager"
+            assert all(fp32["losses_equal"]) and fp32["state_after"]["equal"]
+            assert fp32["eval_equal"] and fp32["count"] == [2, 2]
+            assert fp32["nan_skipped"] == [1.0, 1.0] and fp32["nan_losses_equal"]
+            assert fp32["nan_state_unchanged"]
+            assert fp32["syncs_per_replayed_step"] == []
+            assert fp32["collective_calls_per_replay"] == 0
+        fp32 = rank["fp32"]
+        assert fp32["k1_launches_per_replay"] == 15
+        rows = 4 // data  # a data index's rows, a model index's heads (encoder, fusion)
+        assert fp32["k1_shapes_per_capture"] == {str([rows, 1500, 1500, 12 // model, 64]): 12,
+                                                 str([rows, 400, 400, 8 // model, 64]): 3}
+        bf16 = rank["bf16_ms_per_step"]
+        assert all(bf16["losses_equal"]) and bf16["state_after"]["equal"]

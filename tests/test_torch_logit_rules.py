@@ -23,7 +23,7 @@ from mocov2_whisper_flamingo_tpu.decode.greedy import greedy_decode as jgreedy
 from mocov2_whisper_flamingo_tpu.decode.logit_rules import LogitRules as JRules
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperDecoder as JDecoder
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 # A toy vocabulary in the real Whisper order: text < eos < specials < timestamps.
 VOCAB, EOS, NO_TS, TS0 = 96, 60, 69, 70

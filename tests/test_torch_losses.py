@@ -12,7 +12,7 @@ import torch
 
 from mocov2_whisper_flamingo_torch.ops import losses as TL
 from mocov2_whisper_flamingo_tpu.ops import losses as JL
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ATOL = 2e-5  # fp32 log-sum-exp chains of up to 20 steps, other summation orders
 GRAD_ATOL = 2e-6  # gradients are probabilities / B / L: small numbers

@@ -14,7 +14,7 @@ import torch
 
 from mocov2_whisper_flamingo_torch.ops import mel as tmel
 from mocov2_whisper_flamingo_tpu.ops import mel as jmel
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 POWER_RTOL = 1e-4
 LOG_MEL_ATOL = 2e-4

@@ -37,7 +37,7 @@ from mocov2_whisper_flamingo_tpu.utils.tokenizer import ByteTokenizer as JByteTo
 
 from test_torch_training import (
     LOSS_ATOL, PARAM_ATOL, VOCAB, TNet, _batches, _jax_net, _named, _tree)
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).with_name("torch_multicard_worker.py")

@@ -10,7 +10,7 @@ import pytest
 
 from mocov2_whisper_flamingo_torch.datamodule import native as T
 from mocov2_whisper_flamingo_tpu.datamodule import native as J
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 RESAMPLE_ATOL = 1e-5  # float64 sums of 49 taps in another order, rounded to float32
 

@@ -27,7 +27,7 @@ from mocov2_whisper_flamingo_tpu.parallel import param_sharding as j_param_shard
 from test_torch_multicard import (
     Ranks, assert_matches_jax, case_named, global_batches, jax_fit, same_on_every_rank)
 from test_torch_training import LOSS_ATOL, VOCAB, _t, _torch_net, _tree
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 
 def _mesh(d, m, data_index=0, model_index=0) -> Mesh:

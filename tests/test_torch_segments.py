@@ -27,7 +27,7 @@ from mocov2_whisper_flamingo_tpu.models.asr import WhisperASR as JASR
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 
 from longform_helpers import JaxDraws, lively, window_mel
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 TS0 = 100
 HYPOTHESIS = settings(max_examples=300, deadline=None, derandomize=True, database=None)

@@ -25,7 +25,7 @@ from mocov2_whisper_flamingo_torch.ops.video import eval_video_pipeline
 from mocov2_whisper_flamingo_torch.serving import (
     DEFAULT_BUCKETS, MicroBatcher, Plan, ServeResult, ServingEngine, TranscriptionServer,
     canonical_wav, make_audio_engine, make_av_engine, pad_rows, quantize_bucket, trim_at_eos)
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 TINY = dict(n_mels=80, d_model=64, encoder_layers=1, decoder_layers=1, n_heads=2, d_ff=96,
             vocab_size=64, max_source_positions=16, max_target_positions=32)

@@ -26,7 +26,7 @@ from mocov2_whisper_flamingo_tpu.decode.streaming import (
 from mocov2_whisper_flamingo_tpu.models.asr import WhisperASR as JASR
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperDecoder as JDecoder
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 CFG = dict(n_mels=80, d_model=48, encoder_layers=1, decoder_layers=2, n_heads=4, d_ff=96,
            vocab_size=50, max_source_positions=16, max_target_positions=32)

@@ -17,7 +17,7 @@ from test_torch_multicard import (
     Ranks, _GlobalDataModule, _Writer, assert_matches_jax, case_named, global_batches, jax_fit,
     same_on_every_rank)
 from test_torch_training import PARAM_ATOL, VOCAB, _torch_net, _tree
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 CASES = [
     {"name": "tp", "mesh": (1, 2), "batches": "half", "epochs": 2, "max_steps": 4},

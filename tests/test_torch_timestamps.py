@@ -33,7 +33,7 @@ from mocov2_whisper_flamingo_tpu.tools.transcribe import default_group_fn as jax
 from mocov2_whisper_flamingo_tpu.utils.tokenizer import ByteTokenizer as JTok
 
 from longform_helpers import JaxDraws, lively
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 MATRIX_ATOL = 1e-12
 LOGPROB_ATOL = 1e-5

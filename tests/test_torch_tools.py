@@ -25,7 +25,7 @@ from mocov2_whisper_flamingo_tpu.models.av_net import AVNet as JNet
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
 from mocov2_whisper_flamingo_tpu.tools import verify_model as jvm
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 64
 MODELARGS = (32, 4, 2, 3000, 128, 0.0)

@@ -18,12 +18,12 @@ from mocov2_whisper_flamingo_torch.models.convert import load_jax_params, random
 from mocov2_whisper_flamingo_torch.models.whisper import WhisperConfig as TConfig
 from mocov2_whisper_flamingo_torch.ops import losses as TL
 from mocov2_whisper_flamingo_torch.training import optim as TO
-from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+from mocov2_whisper_flamingo_torch.training.programs import TrainProgram, step_kind
 from mocov2_whisper_flamingo_torch.training.task import AVSRTask as TTask
 from mocov2_whisper_flamingo_torch.training.trainer import Trainer
 from mocov2_whisper_flamingo_torch.utils.tokenizer import ByteTokenizer
 from mocov2_whisper_flamingo_tpu.training import optim as JO
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 48
 TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4, d_ff=64,
@@ -344,6 +344,48 @@ def test_one_process_trainer_runs_the_program(tmp_path, tree):
     losses = trainer.program.train_step({k: v for k, v in placed.items() if k != "target_text"})
     assert sorted(losses) == ["ce_loss", "ctc_loss", "loss", "skipped"]
     assert (trainer.optimizer.count, trainer.optimizer.mini_step) != (0, 0)  # a step was taken
+
+
+@pytest.mark.parametrize("device,backends,kind", [
+    ("cpu", [], "program"),  # one process: the program object, eager on the CPU
+    ("cuda", [], "program"),
+    ("cuda", ["nccl"], "program"),
+    ("cuda", ["nccl", "nccl"], "program"),  # a (data, model) mesh of NCCL groups
+    ("cuda", ["cpu:gloo,cuda:nccl", "cpu:gloo,cuda:nccl"], "program"),
+    ("cuda", ["gloo", "gloo"], "eager"),  # two ranks sharing one card: gloo cannot be captured
+    ("cuda", ["nccl", "gloo"], "eager"),
+    ("cuda", ["cpu:gloo,cuda:gloo"], "eager"),
+    ("cpu", ["gloo"], "eager"),
+    ("cpu", ["cpu:gloo,cuda:nccl"], "eager"),
+])
+def test_step_kind_follows_the_device_and_the_groups_backends(device, backends, kind):
+    assert step_kind(torch.device(device), backends) == kind
+
+
+def test_trainer_decides_its_step_from_the_mesh_groups(monkeypatch, tmp_path, tree):
+    """``Trainer`` reads its mesh's groups' backends when it is made: a
+    gloo group on the CPU steps eagerly (no program), as a gloo mesh on the
+    card does, and no group runs the program."""
+    from mocov2_whisper_flamingo_torch.parallel import mesh as mesh_mod
+    from mocov2_whisper_flamingo_torch.training import trainer as trainer_mod
+
+    group = object()
+    monkeypatch.setattr(mesh_mod.dist, "get_backend", lambda g: "gloo" if g is group else None)
+    assert mesh_mod.Mesh({"data": 1, "model": 1}).backends() == []
+    assert mesh_mod.Mesh({"data": 2, "model": 2}, data_group=group,
+                         model_group=group).backends() == ["gloo", "gloo"]
+
+    def one_group_mesh(data, model):
+        return mesh_mod.Mesh({"data": 1, "model": 1}, data_group=group)
+
+    monkeypatch.setattr(trainer_mod, "make_mesh", one_group_mesh)
+    config = t_get_config({"output.checkpoint_dir": str(tmp_path / "ckpt"),
+                           "output.log_dir": str(tmp_path / "logs"),
+                           "precision.compute_dtype": "float32", "model.dropout": 0.0})
+    trainer = Trainer(config, _torch_net(0.0, tree), ByteTokenizer(), device="cpu")
+    assert trainer.step_kind == "eager"
+    trainer.setup(4)
+    assert trainer.program is None
 
 
 @pytest.mark.parametrize("remat", [False, True])

@@ -29,7 +29,7 @@ from mocov2_whisper_flamingo_tpu.models.whisper import WhisperConfig as JConfig
 from mocov2_whisper_flamingo_tpu.models.whisper import WhisperEncoder as JEncoder
 from mocov2_whisper_flamingo_tpu.training import optim as JO
 from mocov2_whisper_flamingo_tpu.training.task import AVSRTask as JTask
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 VOCAB = 48
 TINY = dict(n_mels=80, d_model=32, encoder_layers=1, decoder_layers=1, n_heads=4, d_ff=64,

@@ -17,7 +17,7 @@ from mocov2_whisper_flamingo_torch.tools import transcribe as cli
 from mocov2_whisper_flamingo_torch.utils import writers as T
 from mocov2_whisper_flamingo_tpu.decode.timestamps import WordTiming as JWord
 from mocov2_whisper_flamingo_tpu.utils import writers as J
-from torch_threads import two_torch_threads  # noqa: F401  (autouse)
+from torch_threads import capped_torch_threads  # noqa: F401  (autouse)
 
 
 def _result(word_cls, hours: float = 0.0) -> dict:
