@@ -36,6 +36,7 @@ from mocov2_whisper_flamingo_torch.models.fusion import GatedCrossModalFusion
 from mocov2_whisper_flamingo_torch.models.visual_frontend import MoCoVisualFrontend
 from mocov2_whisper_flamingo_torch.models.whisper import (
     WhisperConfig, WhisperEncoder, config_for)
+from mocov2_whisper_flamingo_torch.utils.profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -180,12 +181,15 @@ class AVNet(nn.Module):
 
     def frozen_features(self, input_batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         """The frozen part of the forward, without a graph: Whisper encoder
-        output ``[B, 1500, d_w]`` and MoCo features ``[B, T, 2048]``."""
+        output ``[B, 1500, d_w]`` and MoCo features ``[B, T, 2048]``, in the
+        spans ``frozen_audio`` and ``frozen_video``."""
         audio, _audio_mask, video, _video_mask, video_len = input_batch
         mel = audio.transpose(1, 2) if audio.shape[1] == 3000 and audio.shape[2] == 80 else audio
         with torch.no_grad():
-            whisper_out = self.whisper_encoder(mel)
-            video_raw = self.visual_frontend(self.precision.cast(video), video_len)
+            with span("frozen_audio", mel.device):
+                whisper_out = self.whisper_encoder(mel)
+            with span("frozen_video", video.device):
+                video_raw = self.visual_frontend(self.precision.cast(video), video_len)
         return whisper_out, video_raw
 
     def fuse(self, whisper_out: torch.Tensor, video_raw: torch.Tensor, video_len: torch.Tensor,
@@ -230,18 +234,25 @@ class AVNet(nn.Module):
                 generator: torch.Generator | None = None, return_gates: bool = False):
         """Frame-wise CTC logits ``[B, T', vocab]`` (fp32); with
         ``return_gates`` also ``tanh`` of every fusion gate. ``train`` with a
-        ``generator`` on the model's device turns the fusion dropout on."""
-        out = self.fuse(*self.frozen_features(input_batch), input_batch[4], train=train,
-                        generator=generator, return_gates=return_gates)
-        logits = self.decoder(out["features"]).float()
+        ``generator`` on the model's device turns the fusion dropout on.
+        After the frozen part, the span ``trainable_forward``: the fusion,
+        the head and the logits' cast."""
+        whisper_out, video_raw = self.frozen_features(input_batch)
+        with span("trainable_forward", whisper_out.device):
+            out = self.fuse(whisper_out, video_raw, input_batch[4], train=train,
+                            generator=generator, return_gates=return_gates)
+            logits = self.decoder(out["features"]).float()
         return (logits, out["gates"]) if return_gates else logits
 
     def forward_features(self, input_batch: tuple, train: bool = False,
                          generator: torch.Generator | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor]:
         """Pre-head fused features and the audio-stream features, both
-        ``[B, T', D]`` (the surface of the feature-alignment objective)."""
-        out = self.fuse(*self.frozen_features(input_batch), input_batch[4], train=train,
-                        generator=generator)
+        ``[B, T', D]`` (the surface of the feature-alignment objective);
+        the fusion in the span ``trainable_forward``."""
+        whisper_out, video_raw = self.frozen_features(input_batch)
+        with span("trainable_forward", whisper_out.device):
+            out = self.fuse(whisper_out, video_raw, input_batch[4], train=train,
+                            generator=generator)
         return out["features"], out["audio"]
 

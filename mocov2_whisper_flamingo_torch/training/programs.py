@@ -19,7 +19,11 @@ graph per key, which replays ``AVSRTask.train_step`` whole:
   from the loss (``torch.where``: a poisoned micro-batch changes no state),
   the clip, the schedule read on the card from the update count, and AdamW.
 
-Nothing in a replayed step reads the card back.
+Nothing in a replayed step reads the card back. The step's spans
+(``utils/profiling.py::span``: ``train_step`` and, inside it,
+``frozen_audio``, ``frozen_video``, ``trainable_forward``, ``losses``,
+``backward`` and ``optimizer``) launch their marker kernels while the graph
+is captured, so each replay puts its 14 markers on the device trace.
 
 - **The key** of a graph: the batch's names, shapes and dtypes, the device,
   the train settings that change the kernels (the trainer passes them:
@@ -80,6 +84,7 @@ from typing import Iterable
 import torch
 
 from mocov2_whisper_flamingo_torch.decode.programs import EncodeProgram, GraphPool
+from mocov2_whisper_flamingo_torch.utils.profiling import span
 
 
 def step_kind(device: torch.device, backends: Iterable[str]) -> str:
@@ -138,22 +143,34 @@ class TrainProgram(GraphPool):
 
     def train_step(self, batch: dict) -> dict:
         """One micro-batch; returns the detached global losses (and
-        ``skipped``, a tensor), as ``AVSRTask.train_step`` does."""
-        if self.optimizer.params[0].device.type != "cuda":
-            return self._step(batch)
-        stream = torch.cuda.current_stream(self.optimizer.params[0].device)
-        key = self.key(batch)
-        step = self.steps.get(key)
-        if step is None:
-            for stale in [k for k in self.steps if k[-1] != key[-1]]:
-                del self.steps[stale]
-            step = self.steps[key] = self._capture(batch, stream)
-        else:
-            for name, dst in step.inputs.items():
-                if dst is not None:
-                    dst.copy_(batch[name], non_blocking=True)
-        self.replay(step.graph)
-        return {k: v.clone() for k, v in step.losses.items()}
+        ``skipped``, a tensor), as ``AVSRTask.train_step`` does.
+
+        Host spans (``utils/profiling.py::span``), inside
+        ``train_program.step``: ``train_program.key``, then
+        ``train_program.capture`` (the eager run, the capture and the
+        instantiation) or ``train_program.inputs`` (the batch's copies),
+        then ``train_program.replay``. The step's own spans are device
+        markers inside the graph."""
+        with span("train_program.step"):
+            if self.optimizer.params[0].device.type != "cuda":
+                return self._step(batch)
+            with span("train_program.key"):
+                stream = torch.cuda.current_stream(self.optimizer.params[0].device)
+                key = self.key(batch)
+            step = self.steps.get(key)
+            if step is None:
+                for stale in [k for k in self.steps if k[-1] != key[-1]]:
+                    del self.steps[stale]
+                with span("train_program.capture"):
+                    step = self.steps[key] = self._capture(batch, stream)
+            else:
+                with span("train_program.inputs"):
+                    for name, dst in step.inputs.items():
+                        if dst is not None:
+                            dst.copy_(batch[name], non_blocking=True)
+            with span("train_program.replay"):
+                self.replay(step.graph)
+            return {k: v.clone() for k, v in step.losses.items()}
 
     def eval_step(self, batch: dict) -> tuple[dict, torch.Tensor]:
         """``(losses, predictions)`` as ``AVSRTask.eval_step``: on the card a

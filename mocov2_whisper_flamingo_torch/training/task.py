@@ -37,6 +37,7 @@ import torch
 
 from mocov2_whisper_flamingo_torch.ops.losses import ctc_loss, label_smoothed_cross_entropy
 from mocov2_whisper_flamingo_torch.parallel.tensor_parallel import all_reduce_sum
+from mocov2_whisper_flamingo_torch.utils.profiling import span
 
 
 def _inputs(batch: dict) -> tuple:
@@ -136,10 +137,12 @@ class AVSRTask:
         return (self.net(_inputs(batch), train=train, generator=generator),)
 
     def losses_of(self, outputs: tuple, batch: dict) -> dict:
-        """The losses of ``forward_outputs``' outputs (rank-local shares)."""
-        if self.loss_mode == "feature_mse":
-            return self.feature_losses(*outputs)
-        return self.compute_losses(outputs[0], batch)
+        """The losses of ``forward_outputs``' outputs (rank-local shares),
+        in the span ``losses``."""
+        with span("losses", outputs[0].device):
+            if self.loss_mode == "feature_mse":
+                return self.feature_losses(*outputs)
+            return self.compute_losses(outputs[0], batch)
 
     def loss_fn(self, batch: dict, generator: torch.Generator | None = None,
                 train: bool = True) -> tuple[torch.Tensor, dict]:
@@ -163,18 +166,27 @@ class AVSRTask:
         no parameter, optimizer state, accumulation counter or accumulated
         gradient changes, and ``losses["skipped"]`` is 1. The decision is a
         device tensor that the optimizer applies with ``torch.where``, as the
-        JAX step does, so nothing is read back."""
-        loss, losses = self.loss_fn(batch, generator, train=True)
-        grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for g, p in zip(grads, optimizer.params)]
-        losses = self.global_losses(losses)
-        ok = None
-        if skip_nonfinite:
-            ok = torch.isfinite(losses["loss"])
-            losses["skipped"] = (~ok).float()
-        with torch.no_grad():
-            optimizer.step(grads, ok)
+        JAX step does, so nothing is read back.
+
+        Spans (``utils/profiling.py::span``): ``train_step`` around it all,
+        and inside it, after the forward's own, ``backward`` (the gradients
+        and the zeros of unused ones) and ``optimizer`` (the global losses,
+        the guard and ``Optimizer.step``)."""
+        device = optimizer.params[0].device
+        with span("train_step", device):
+            loss, losses = self.loss_fn(batch, generator, train=True)
+            with span("backward", device):
+                grads = torch.autograd.grad(loss, optimizer.params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for g, p in zip(grads, optimizer.params)]
+            with span("optimizer", device):
+                losses = self.global_losses(losses)
+                ok = None
+                if skip_nonfinite:
+                    ok = torch.isfinite(losses["loss"])
+                    losses["skipped"] = (~ok).float()
+                with torch.no_grad():
+                    optimizer.step(grads, ok)
         return losses
 
     @torch.no_grad()

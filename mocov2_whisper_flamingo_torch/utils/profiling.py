@@ -1,16 +1,18 @@
-"""Tracing and profiling helpers (counterpart of ``utils/profiling.py``).
+"""Tracing helpers (counterpart of ``utils/profiling.py``).
 
-``torch.profiler`` traces, one per rank, viewable in TensorBoard's profiler
-plugin or in Perfetto / ``chrome://tracing``; named regions that show on the
-trace's host timeline and, on a card, as NVTX ranges; a step timer; and the
-card's memory counters under the JAX package's key names.
+``trace``: ``torch.profiler`` traces, one per rank, viewable in TensorBoard's
+profiler plugin or in Perfetto / ``chrome://tracing``. ``span``: the
+program's one way to name a stretch of its work on that trace, as a host
+range and, where the work runs on a card, as a pair of marker kernels on
+the device's own clock (``csrc/spans.cu``), which a replayed CUDA graph
+keeps.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import os
-import time
 from typing import Iterator
 
 import torch
@@ -44,55 +46,52 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
 
 
 @contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named region on the trace's timeline (``record_function``), and an
-    NVTX range where CUDA is available."""
+def span(name: str, device: torch.device | None = None) -> Iterator[None]:
+    """A named stretch of the program's work:
+
+    - on the host, a ``record_function`` range (a ``user_annotation`` event
+      of the trace) and, where CUDA is available, an NVTX range;
+    - with a CUDA ``device``, the marker kernels ``span_open_<name>`` at
+      entry and ``span_close_<name>`` at a normal exit, one thread each, on
+      the device's current stream (``csrc/spans.cu`` has a pair for each
+      span it names; another name raises). Launched while a CUDA graph is
+      captured they become nodes of the graph, so every replay puts the
+      span on the device trace. Nothing here synchronises, reads the card
+      back or allocates.
+
+    Without a device, or on another device, it is the host range alone.
+    While ``torch.compile`` or ``torch.export`` traces (``torch.compiler.
+    is_compiling()``) it is nothing at all, so a traced program holds no
+    marker and no profiler op."""
+    if torch.compiler.is_compiling():
+        yield
+        return
+    marked = device is not None and torch.device(device).type == "cuda"
     nvtx = torch.cuda.is_available()
     if nvtx:
         torch.cuda.nvtx.range_push(name)
     try:
         with torch.profiler.record_function(name):
+            if marked:
+                _launch_marker(name, False, device)
             yield
+            if marked:
+                _launch_marker(name, True, device)
     finally:
         if nvtx:
             torch.cuda.nvtx.range_pop()
 
 
-class StepTimer:
-    """Wall-clock step timing with an exponential moving average, for
-    throughput logs. Times the host's clock: synchronise the card inside the
-    block where the step's kernels must count."""
+def _launch_marker(name: str, close: bool, device) -> None:
+    """Queue ``span``'s open or close marker of ``name`` on ``device``'s
+    current stream."""
+    from mocov2_whisper_flamingo_torch.ops import kernels
 
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.ema: float | None = None
-        self._t0: float | None = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.ema = dt if self.ema is None else (1 - self.alpha) * self.ema + self.alpha * dt
-
-    @property
-    def seconds(self) -> float:
-        return self.ema or 0.0
-
-
-def device_memory_report() -> dict:
-    """Per-card memory counters from ``torch.cuda.memory_stats`` under the
-    JAX package's keys: ``bytes_in_use`` (allocated now), ``peak_bytes_in_use``
-    and ``bytes_limit`` (the card's total memory). Empty without CUDA."""
-    report = {}
-    if not torch.cuda.is_available():
-        return report
-    for index in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(index)
-        report[f"cuda:{index}"] = {
-            "bytes_in_use": int(stats.get("allocated_bytes.all.current", 0)),
-            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak", 0)),
-            "bytes_limit": int(torch.cuda.get_device_properties(index).total_memory),
-        }
-    return report
+    fn = kernels.load("spans").span_mark
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rc = fn(name.encode(), int(close), torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        why = "csrc/spans.cu has no markers of that name" if rc == -1 else f"CUDA error {rc}"
+        raise RuntimeError(f"span {name!r}: its marker failed to launch: {why}")

@@ -1,0 +1,8 @@
+"""The frozen Whisper encoder (``AVNet.frozen_features``, span ``frozen_audio``): device ms per traced
+step, from its open to its close marker (``portbench/spans.py``)."""
+
+from portbench.spans import phase_ms
+
+
+def read(record):
+    return phase_ms(record, "frozen_audio")

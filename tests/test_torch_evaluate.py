@@ -1,4 +1,4 @@
-"""The port's evaluation tool (``tools/evaluate.py``) and profiling helpers
+"""The port's evaluation tool (``tools/evaluate.py``) and tracing helpers
 (``utils/profiling.py``).
 
 ``evaluate_ctc_greedy`` and ``evaluate_beam`` run on a tiny dataset that the
@@ -6,8 +6,9 @@ test writes (tests/test_torch_datamodule.py's), through each package's data
 module, with the same weights: the WER, the row count and every hypothesis
 equal the JAX tool's (the JAX side on one device, as the data module tests
 take it). The command line run by two gloo processes prints the report that
-one process prints. The profiling helpers, and ``train.py --profile`` under
-torchrun at model=2."""
+one process prints. The trace and the spans: a train step's spans in order
+and nesting on the CPU, their markers with the launcher stubbed; and
+``train.py --profile`` under torchrun at model=2."""
 
 import json
 import os
@@ -195,32 +196,121 @@ def test_train_entry_point_under_torchrun_at_model_2(tmp_path):
 
 # -- profiling ---------------------------------------------------------------------------------
 
+# The train step's spans with device markers, in the order a step opens them.
+STEP_SPANS = ("train_step", "frozen_audio", "frozen_video", "trainable_forward", "losses",
+              "backward", "optimizer")
+
 
 def test_trace_writes_a_trace_holding_the_annotated_region(tmp_path):
     with profiling.trace(str(tmp_path / "prof")):
-        with profiling.annotate("avsr_step"):
+        with profiling.span("avsr_step"):
             torch.ones(8) @ torch.ones(8)
     path = tmp_path / "prof" / "rank0.pt.trace.json"
     events = json.load(open(path))["traceEvents"]
     assert any(ev.get("name") == "avsr_step" for ev in events)
 
 
-def test_step_timer_keeps_a_moving_average():
-    timer = profiling.StepTimer(alpha=0.5)
-    assert timer.seconds == 0.0
-    for _ in range(2):
-        with timer:
+def _host_spans(path) -> list[tuple[str, float, float]]:
+    """The trace's ``record_function`` ranges, ``(name, start, end)`` in
+    trace us, outer before inner."""
+    events = json.load(open(path))["traceEvents"]
+    spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    return sorted(spans, key=lambda s: (s[1], -s[2]))
+
+
+@pytest.fixture
+def launched(monkeypatch):
+    """The markers ``span`` launches, as ``(name, close, device)``; none
+    reaches a card."""
+    out = []
+    monkeypatch.setattr(profiling, "_launch_marker",
+                        lambda name, close, device: out.append((name, close, str(device))))
+    return out
+
+
+def test_cpu_train_step_spans_open_and_close_in_order_and_nesting(tmp_path, launched):
+    """A step through ``TrainProgram`` on the CPU: ``train_program.step``
+    holds ``train_step``, which holds the six phases, in turn and none
+    inside another; on the CPU every span is a host range and launches no
+    marker."""
+    from mocov2_whisper_flamingo_torch.training.optim import make_optimizer
+    from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+    from mocov2_whisper_flamingo_torch.training.task import AVSRTask
+
+    from test_torch_train_programs import TINY as PROGRAM_TINY
+    from test_torch_train_programs import TRAINING, VOCAB as PROGRAM_VOCAB, _batches, _t
+
+    net = TNet("audiovisual", None, 96, MODELARGS, PROGRAM_VOCAB, device="cpu",
+               whisper_config=TConfig(**PROGRAM_TINY))
+    opt, _ = make_optimizer(dict(TRAINING), 6, net.trainable_parameters())
+    program = TrainProgram(AVSRTask(net), opt, None, {})
+    with profiling.trace(str(tmp_path / "prof")):
+        program.train_step(_t(_batches(1)[0]))
+    spans = _host_spans(tmp_path / "prof" / "rank0.pt.trace.json")
+    assert [name for name, _, _ in spans] == ["train_program.step", *STEP_SPANS]
+    (_, p0, p1), (_, s0, s1), *phases = spans
+    assert p0 <= s0 and s1 <= p1
+    assert all(s0 <= a and b <= s1 for _, a, b in phases)
+    assert all(a[2] <= b[1] for a, b in zip(phases, phases[1:]))
+    assert launched == []
+
+
+def test_span_on_a_cuda_device_launches_open_and_close_in_order(launched):
+    cuda = torch.device("cuda", 0)
+    with profiling.span("train_step", cuda):
+        with profiling.span("losses", cuda):
             pass
-    assert 0.0 < timer.seconds < 1.0
+        with profiling.span("train_program.key"):  # no device: a host range only
+            pass
+        with profiling.span("backward", torch.device("cpu")):
+            pass
+    assert launched == [("train_step", False, "cuda:0"), ("losses", False, "cuda:0"),
+                        ("losses", True, "cuda:0"), ("train_step", True, "cuda:0")]
 
 
-def test_device_memory_report_keeps_the_jax_keys(monkeypatch):
-    assert profiling.device_memory_report() == {}  # no card here
-    stats = {"allocated_bytes.all.current": 5, "allocated_bytes.all.peak": 9}
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    monkeypatch.setattr(torch.cuda, "memory_stats", lambda index: stats)
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda index: type("Props", (), {"total_memory": 80})())
-    assert profiling.device_memory_report() == {
-        "cuda:0": {"bytes_in_use": 5, "peak_bytes_in_use": 9, "bytes_limit": 80}}
+def test_span_that_raises_launches_no_close_marker(launched):
+    with pytest.raises(ValueError):
+        with profiling.span("optimizer", torch.device("cuda")):
+            raise ValueError("step failed")
+    assert launched == [("optimizer", False, "cuda")]
+
+
+def test_span_launches_nothing_while_compiling(tmp_path, launched, monkeypatch):
+    """Under ``torch.compile`` or ``torch.export`` a span is no host range
+    and no marker, so a traced program holds neither."""
+    monkeypatch.setattr(torch.compiler, "is_compiling", lambda: True)
+    with profiling.trace(str(tmp_path / "prof")):
+        with profiling.span("frozen_video", torch.device("cuda")):
+            torch.ones(8) @ torch.ones(8)
+    assert launched == []
+    assert _host_spans(tmp_path / "prof" / "rank0.pt.trace.json") == []
+
+
+@pytest.mark.parametrize("rc", [0, -1, 700])
+def test_marker_launcher_passes_name_edge_and_stream_and_raises_on_failure(rc, monkeypatch):
+    """``_launch_marker`` hands ``csrc/spans.cu``'s ``span_mark`` the span's
+    name, the edge and the device's current stream, and raises where the
+    launch failed (-1: no markers of that name; else a CUDA error)."""
+    from mocov2_whisper_flamingo_torch.ops import kernels
+
+    calls = []
+
+    class SpanMark:
+        argtypes = restype = None
+
+        def __call__(self, name, close, stream):
+            calls.append((name, close, stream))
+            return rc
+
+    lib = type("Lib", (), {"span_mark": SpanMark()})()
+    monkeypatch.setattr(kernels, "load", lambda name: lib if name == "spans" else None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: type("Stream", (), {"cuda_stream": 1234})())
+    if rc == 0:
+        profiling._launch_marker("losses", True, torch.device("cuda"))
+    else:
+        with pytest.raises(RuntimeError, match="losses"):
+            profiling._launch_marker("losses", True, torch.device("cuda"))
+    assert calls == [(b"losses", 1, 1234)]
+    assert lib.span_mark.restype is not None and len(lib.span_mark.argtypes) == 3

@@ -152,6 +152,14 @@ def test_forward_artifact_matches_jax_at_an_unseen_batch_size(forward_setup, art
                                 atol=ATOL)
 
 
+def test_forward_artifact_holds_no_span_or_profiler_op(artifacts):
+    """The trunk's spans (``utils/profiling.py::span``) are nothing while
+    ``torch.export`` traces: the artifact holds aten ops alone."""
+    exported = torch.export.load(artifacts[0]["forward"])
+    targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
 @pytest.fixture(scope="module")
 def time_program(forward_setup, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("export_time") / "m.pt2")

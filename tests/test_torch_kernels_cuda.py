@@ -979,6 +979,63 @@ def test_replayed_train_step_reads_nothing_back_outside_the_losses():
     assert program.replays == 2 and np.isfinite(float(losses["loss"]))
 
 
+SPAN_ORDER = ("train_step", "frozen_audio", "frozen_video", "trainable_forward", "losses",
+              "backward", "optimizer")
+
+
+def _replay_markers(prof_path) -> list[tuple[float, str]]:
+    """The span markers of a ``torch.profiler`` Chrome trace, ``(start us,
+    name)`` in device order."""
+    import json
+
+    with open(prof_path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((float(e["ts"]), e["name"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "kernel"
+                  and e["name"].startswith(("span_open_", "span_close_")))
+
+
+@pytest.mark.cuda
+def test_replayed_train_step_puts_its_span_markers_on_the_device_trace(tmp_path, monkeypatch):
+    """Each replay of a captured ``TrainProgram`` step leaves its 14 markers
+    on the device trace in order, the six phases inside ``train_step``; and
+    the markers change no number: losses, parameters, moments and the
+    generator bit-equal to a twin captured with the marker launcher
+    stubbed out."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from mocov2_whisper_flamingo_torch.training.programs import TrainProgram
+    from mocov2_whisper_flamingo_torch.utils import profiling
+
+    marked_side, bare_side = _train_twins("bf16", 0.1, False, False, "ctc_ce")
+    marked, bare = TrainProgram(*marked_side, {}), TrainProgram(*bare_side, {})
+    rng = np.random.default_rng(6)
+    batches = [_train_batch(rng, False) for _ in range(3)]
+    launch = profiling._launch_marker
+    monkeypatch.setattr(profiling, "_launch_marker", lambda *args: None)
+    want = [bare.train_step(batch) for batch in batches]  # its capture holds no marker
+    monkeypatch.setattr(profiling, "_launch_marker", launch)
+    got = [marked.train_step(batches[0])]  # the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got += [marked.train_step(batch) for batch in batches[1:]]
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    one_step = (*(f"span_open_{s}" for s in SPAN_ORDER[:1]),
+                *(f"span_{edge}_{s}" for s in SPAN_ORDER[1:] for edge in ("open", "close")),
+                "span_close_train_step")
+    markers = _replay_markers(tmp_path / "trace.json")
+    assert [name for _, name in markers] == list(one_step) * 2
+    assert len({t for t, _ in markers}) == 28  # one after another on the device's clock
+    assert len(marked.captures) == len(bare.captures) == 1 and marked.replays == 3
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w) and all(torch.equal(g[k], w[k]) for k in g)
+    assert _same_state(marked_side, bare_side)
+
+
 # -- the CTC kernels (csrc/ctc.cu) -----------------------------------------------------------
 
 CTC_KERNEL_CASES = {  # B, T, V, label width L, label lengths, input lengths
