@@ -5,7 +5,8 @@
 
 Builds the hand-written kernels from ``mocov2_whisper_flamingo_torch/csrc``,
 holds each against its plain PyTorch version on the card (K1 at every shape a
-path launches) and times it at the main path's shapes (device time per call
+path launches, the ResNet's 1x1 GEMM at the train cell's 16 shapes beside its
+fp32 function and cuDNN's fused calls) and times it at the main path's shapes (device time per call
 from ``torch.profiler``, beside the wall time per call), checks the port end to end against its own CPU run, then
 times the serving path: full audio-visual beam-5 decoding (whisper-small +
 MoCo ResNet-50 + gated fusion, BF16, B=4, 30 s mel, 400 uint8 88x88 lip
@@ -155,6 +156,7 @@ from mocov2_whisper_flamingo_torch.models.convert import (
     load_jax_params, random_asr_params, random_avnet_params, random_jax_params,
     resnet50_from_moco)
 from mocov2_whisper_flamingo_torch.models.whisper import WhisperDecoder, config_for
+from mocov2_whisper_flamingo_torch.ops import bottleneck_gemm as BG
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import kernels
 from mocov2_whisper_flamingo_torch.ops import losses
@@ -517,8 +519,8 @@ def check_kernel(gen) -> dict:
 
 def ptxas_report(log_path) -> list[str]:
     """Registers, spills and warnings that ptxas printed for each
-    instantiation of the Hopper kernel and for the CTC kernels (``-Xptxas
-    -v`` in the build log)."""
+    instantiation of the Hopper kernel, for the CTC kernels and for the
+    ResNet's 1x1 GEMM (``-Xptxas -v`` in the build log)."""
     lines, current = [], None
     for line in open(log_path).read().splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
@@ -526,13 +528,108 @@ def ptxas_report(log_path) -> list[str]:
             name = entry.group(1)
             args = re.search(r"attention_fwd_wgmmaILi(\d+)ELi(\d+)ELb(\d)ELb(\d)E", name)
             ctc = re.search(r"(ctc_alpha|ctc_grad)", name)
+            gemm = re.search(r"bottleneck_gemm_kernelILi(\d+)E", name)
             current = (f"attention_fwd_wgmma<Dh={args[1]}, consumers={args[2]}, "
-                       f"mask={args[3]}, causal={args[4]}>" if args else ctc and ctc[1])
+                       f"mask={args[3]}, causal={args[4]}>" if args else
+                       f"bottleneck_gemm<{gemm[1]}>" if gemm else ctc and ctc[1])
         elif current and ("spill" in line or "Used" in line):
             lines.append(f"{current}: {line.strip()}")
         elif "warning" in line.lower() or "C75" in line:
             lines.append(line.strip())
     return lines
+
+
+GEMM_PER_ENCODE = 36  # the ResNet's 1x1 GEMM launches a bf16 AV encode (16 blocks)
+
+# The train cell's 1x1 convolutions (6,400 frames of 64 x 64 a step): (C_in, C_out, input
+# side, stride, residual, ReLU) and how many of the step's 36 have that shape.
+GEMM_FRAMES = 6400
+GEMM_SHAPES = [
+    ((64, 64, 17, 1, False, True), 1), ((64, 256, 17, 1, False, False), 1),
+    ((64, 256, 17, 1, True, True), 3), ((256, 64, 17, 1, False, True), 2),
+    ((256, 128, 17, 1, False, True), 1), ((256, 512, 17, 2, False, False), 1),
+    ((128, 512, 9, 1, True, True), 4), ((512, 128, 9, 1, False, True), 3),
+    ((512, 256, 9, 1, False, True), 1), ((512, 1024, 9, 2, False, False), 1),
+    ((256, 1024, 5, 1, True, True), 6), ((1024, 256, 5, 1, False, True), 5),
+    ((1024, 512, 5, 1, False, True), 1), ((1024, 2048, 5, 2, False, False), 1),
+    ((512, 2048, 3, 1, True, True), 3), ((2048, 512, 3, 1, False, True), 2)]
+
+
+def gemm_bound(c_in, c_out, side, stride, residual, frames=GEMM_FRAMES) -> tuple[float, str]:
+    """The least time of one 1x1 call: its input read at the stride, its
+    output written (and the residual read) once, against its operations."""
+    m = frames * ((side - 1) // stride + 1) ** 2
+    nbytes = 2 * m * (c_in + c_out * (2 if residual else 1))
+    t_mem = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * c_in * c_out / PEAK_FLOPS[torch.bfloat16] * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def check_bottleneck_gemm(seed: int) -> dict:
+    """The ResNet's 1x1 GEMM at each of the train cell's 1x1 shapes: against
+    the function in fp32 (cuDNN without TF32) on the same bf16 inputs, two
+    runs bit for bit, and its device time beside its bound, the plain version
+    (cuDNN's convolution, then the bias, the add and the ReLU: the path
+    before the kernel) and the library's fused calls as the yardstick
+    (``torch.cudnn_convolution_relu`` / ``cudnn_convolution_add_relu``; the
+    downsample has no ReLU, and its yardstick is the plain version)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    rows, totals = [], collections.Counter()
+    for (c_in, c_out, side, stride, residual, relu), count in GEMM_SHAPES:
+        x = torch.randn((GEMM_FRAMES, c_in, side, side), generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=cl)
+        # The weight in the compute dtype, so that a call is the kernel alone (the frontend
+        # casts its fp32 weight at each call, as it did before the kernel).
+        w = (torch.randn((c_out, c_in, 1, 1), generator=gen, device="cuda") * c_in ** -0.5).to(
+            torch.bfloat16)
+        b = torch.randn((c_out,), generator=gen, device="cuda") * 0.5
+        out_side = (side - 1) // stride + 1
+        res = (torch.randn((GEMM_FRAMES, c_out, out_side, out_side), generator=gen,
+                           device="cuda").to(torch.bfloat16).contiguous(memory_format=cl)
+               if residual else None)
+        kernel = lambda: BG.bottleneck_gemm(x, w, b, stride=stride, residual=res, relu=relu)
+        plain = lambda: BG.plain_bottleneck_gemm(x, w, b, stride, res, relu)
+        out, again = kernel(), kernel()
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            ref = F.conv2d(x.float(), w.float(), b, stride=stride)
+        if res is not None:
+            ref = ref + res.float()
+        if relu:
+            ref = torch.relu(ref)
+        err = (out.float() - ref).abs()
+        plain_err = (plain().float() - ref).abs().max().item()
+        within = bool((err <= 1e-4 + 2 ** -8 * ref.abs()).all())
+        wb, bb = w.contiguous(memory_format=cl), b.to(torch.bfloat16)
+        library = None
+        if relu and res is None:
+            library = lambda: torch.cudnn_convolution_relu(x, wb, bb, (stride, stride), (0, 0),
+                                                           (1, 1), 1)
+        elif relu:
+            library = lambda: torch.cudnn_convolution_add_relu(x, wb, res, 1.0, bb,
+                                                               (stride, stride), (0, 0),
+                                                               (1, 1), 1)
+        dev_ms, per_call = device_ms(kernel)
+        bound_ms, bound_by = gemm_bound(c_in, c_out, side, stride, residual)
+        row = {"shape": [c_in, c_out, side, stride], "residual": residual, "relu": relu,
+               "per_step": count, "kernel": f"bottleneck_gemm<{BG.tile_n(c_out)}>",
+               "rows": GEMM_FRAMES * out_side ** 2, "max_abs_err": err.max().item(),
+               "plain_max_abs_err": plain_err, "within_half_ulp": within,
+               "bit_equal_runs": torch.equal(out, again), "device_ms": dev_ms,
+               "kernels_per_call": per_call, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / dev_ms, "plain_device_ms": device_ms(plain)[0],
+               "library_device_ms": device_ms(library)[0] if library else None}
+        rows.append(row)
+        for key in ("device_ms", "bound_ms", "plain_device_ms"):
+            totals[key] += count * row[key]
+        log(f"bottleneck_gemm {json.dumps(row)}")
+        del x, w, b, res, out, again, ref, err
+        if not (within and row["bit_equal_runs"] and per_call == 1
+                and row["max_abs_err"] <= plain_err):
+            raise AssertionError(f"bottleneck_gemm {row['shape']}: {row}")
+    out = {"shapes": rows, "per_step": dict(totals), "frames": GEMM_FRAMES}
+    log(f"bottleneck_gemm per step (36 calls): {json.dumps(out['per_step'])}")
+    return out
 
 
 # -- phases 3 and 4 -----------------------------------------------------------------
@@ -581,12 +678,14 @@ def check_end_to_end(seed: int) -> dict:
         batch = preprocess(mel.to(dev), raw.to(dev))
         feats, valid = net.encode(batch)
         fa.reset_launches()
+        BG.reset_launches()
         res = net.beam(batch, PREFIX, beam_size=BEAM, max_len=48, eos_id=EOS)
         if dev == "cuda":
             torch.cuda.synchronize()
-            if fa.launches != 15:
+            if fa.launches != 15 or BG.launches != 0:
                 raise AssertionError(f"fp32 card run launched K1 {fa.launches} times, "
-                                     "expected 15 (12 encoder + 3 fusion)")
+                                     "expected 15 (12 encoder + 3 fusion), and the 1x1 GEMM "
+                                     f"{BG.launches}, expected 0 (fp32 takes cuDNN)")
             # The card's decode is a replayed graph: against the eager loop.
             eager = beam_search(net.decoder.prepare_decode_params(), feats, PREFIX,
                                 beam_size=BEAM, max_len=48, eos_id=EOS, encoder_valid=valid)
@@ -594,7 +693,7 @@ def check_end_to_end(seed: int) -> dict:
                                and torch.equal(res.scores, eager.scores))
             # The encode graph against the eager encode at the main path's B=4.
             mel4, raw4 = make_batch(rng, B, T_VIDEO, dev)
-            encode_equal = encode_graph_equal(net, preprocess(mel4, raw4))
+            encode_equal = encode_graph_equal(net, preprocess(mel4, raw4), gemm=0)
             del mel4, raw4
         results[dev] = (feats.cpu(), res.sequences.cpu(), res.scores.cpu())
         del net
@@ -630,17 +729,19 @@ def eager_encode(net, batch):
         return net.encode_program.fn(*batch)
 
 
-def encode_graph_equal(net, batch) -> bool:
+def encode_graph_equal(net, batch, gemm: int) -> bool:
     """The replayed encode (captured here if its key is new) against the
     eager encode, features and validity bit for bit, with K1 credited 15
-    launches by the replay."""
+    launches by the replay and the ResNet's 1x1 GEMM ``gemm``."""
     want = eager_encode(net, batch)
     net.encode(batch)  # the capture, if the key is new
     fa.reset_launches()
+    BG.reset_launches()
     got = net.encode(batch)
     torch.cuda.synchronize()
-    if fa.launches != 15:
-        raise AssertionError(f"an encode replay counted {fa.launches} K1 launches, expected 15")
+    if fa.launches != 15 or BG.launches != gemm:
+        raise AssertionError(f"an encode replay counted {fa.launches} K1 launches, expected 15, "
+                             f"and {BG.launches} of the 1x1 GEMM, expected {gemm}")
     return all(torch.equal(a, b) for a, b in zip(got, want))
 
 
@@ -663,12 +764,14 @@ def run_main_path(seed: int) -> dict:
     first_call_s = time.perf_counter() - t0
 
     fa.reset_launches()
+    BG.reset_launches()
     res = decode(batches[0])
     torch.cuda.synchronize()
-    launches = fa.launches
-    log(f"main path: K1 launches per encoded batch {launches}")
-    if launches != 15:
-        raise AssertionError(f"K1 launched {launches} times on the main path, expected 15")
+    launches, gemm_launches = fa.launches, BG.launches
+    log(f"main path: K1 launches per encoded batch {launches}, the 1x1 GEMM's {gemm_launches}")
+    if launches != 15 or gemm_launches != GEMM_PER_ENCODE:
+        raise AssertionError(f"K1 launched {launches} times on the main path, expected 15, and "
+                             f"the 1x1 GEMM {gemm_launches}, expected {GEMM_PER_ENCODE}")
     seq, scores = res.sequences, res.scores
     if tuple(seq.shape) != (B, BEAM, MAX_TOKENS) or not torch.isfinite(scores).all():
         raise AssertionError(f"bad beam output: {tuple(seq.shape)}, scores {scores}")
@@ -698,6 +801,7 @@ def run_main_path(seed: int) -> dict:
         "encode_ms_each": [x * 1e3 for x in enc_s],
         "total_ms_each": [x * 1e3 for x in tot_s],
         "k1_launches_per_batch": launches,
+        "bottleneck_gemm_launches_per_batch": gemm_launches,
     }
     log("main path bf16 B=4 beam 5 160 tokens: " + json.dumps(out))
     out["encode_program"] = encode_leg(net, batches)
@@ -744,11 +848,12 @@ def encode_leg(net, batches) -> dict:
             got[name], wall_s = timed_call(fn)
             ms[name].append(wall_s * 1e3)
         equal.append(all(torch.equal(a, b) for a, b in zip(got["eager"], got["replay"])))
-    if not all(equal) or not encode_graph_equal(net, batch):
+    if not all(equal) or not encode_graph_equal(net, batch, gemm=GEMM_PER_ENCODE):
         raise AssertionError(f"bf16 B=4 encode graph against the eager encode, bit-equal: {equal}")
     (capture,) = program.captures
     out = {"eager_ms": ms["eager"], "replay_ms": ms["replay"], "bit_equal": equal,
-           "k1_launches_per_replay": 15, "capture_s": capture["capture_s"],
+           "k1_launches_per_replay": 15, "bottleneck_gemm_launches_per_replay": BG.launches,
+           "capture_s": capture["capture_s"],
            "instantiate_s": capture["instantiate_s"], "pool_bytes": pool_bytes(program),
            "replays": program.replays}
     log("encode program bf16 B=4, eager encode and replay in turns: " + json.dumps(out))
@@ -1010,21 +1115,27 @@ def check_train_steps(seed: int) -> dict:
             placed = {k: v.to(dev) for k, v in batch.items()}
             fa.reset_launches()
             losses.reset_launches()
+            BG.reset_launches()
             out = task.train_step(opt, placed, gen)
-            if dev == "cuda" and (fa.launches != 15 or losses.launches_by_kernel != CTC_PER_STEP):
+            if dev == "cuda" and (fa.launches != 15 or losses.launches_by_kernel != CTC_PER_STEP
+                                  or BG.launches != 0):
                 raise AssertionError(f"fp32 train step launched K1 {fa.launches} times, "
-                                     "expected 15 (12 encoder + 3 fusion), and the CTC "
-                                     f"{dict(losses.launches_by_kernel)}")
+                                     "expected 15 (12 encoder + 3 fusion), the CTC "
+                                     f"{dict(losses.launches_by_kernel)} and the 1x1 GEMM "
+                                     f"{BG.launches}, expected 0")
             if float(out["skipped"]):
                 raise AssertionError(f"fp32 train step on {dev} had a non-finite loss")
             if dev == "cuda":
                 fa.reset_launches()
                 losses.reset_launches()
+                BG.reset_launches()
                 got = program.train_step(placed)
                 if fa.launches != 15 or losses.launches_by_kernel != CTC_PER_STEP \
+                        or BG.launches != 0 \
                         or not all(torch.equal(got[k], out[k]) for k in out):
                     raise AssertionError(f"fp32 train program step: K1 {fa.launches} launches, "
-                                         f"CTC {dict(losses.launches_by_kernel)}, losses {got} "
+                                         f"CTC {dict(losses.launches_by_kernel)}, 1x1 GEMM "
+                                         f"{BG.launches}, losses {got} "
                                          f"against the eager step's {out}")
             step_losses.append({k: float(v) for k, v in out.items()})
         if dev == "cuda":
@@ -1106,9 +1217,9 @@ class _SyntheticDataModule:
 
             def __iter__(self):
                 for _ in range(dm.steps):
-                    dm.launch_marks.append((fa.launches, losses.launches))
+                    dm.launch_marks.append((fa.launches, losses.launches, BG.launches))
                     yield dict(dm.batch)
-                dm.launch_marks.append((fa.launches, losses.launches))
+                dm.launch_marks.append((fa.launches, losses.launches, BG.launches))
 
         return Loader()
 
@@ -1153,18 +1264,21 @@ def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launches()
     losses.reset_launches()
+    BG.reset_launches()
     t0 = time.perf_counter()
     trainer.fit(dm, max_steps=TRAIN_STEPS)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     launches, ctc_launches = fa.launches, dict(losses.launches_by_kernel)
+    gemm_launches = BG.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    per_step = sorted({(b[0] - a[0], b[1] - a[1])
+    per_step = sorted({(b[0] - a[0], b[1] - a[1], b[2] - a[2])
                        for a, b in zip(dm.launch_marks, dm.launch_marks[1:])})
-    if per_step != [(expected_launches, sum(CTC_PER_STEP.values()))]:
-        raise AssertionError(f"train path {name}: (K1, CTC) launches per step {per_step}, "
-                             f"expected {expected_launches} and {dict(CTC_PER_STEP)}")
+    if per_step != [(expected_launches, sum(CTC_PER_STEP.values()), GEMM_PER_ENCODE)]:
+        raise AssertionError(f"train path {name}: (K1, CTC, 1x1 GEMM) launches per step "
+                             f"{per_step}, expected {expected_launches}, {dict(CTC_PER_STEP)} "
+                             f"and {GEMM_PER_ENCODE}")
     step_loss = {step: v for tag, v, step in trainer.writer.scalars if tag == "train/loss"}
     step_losses = [step_loss[i] for i in range(1, TRAIN_STEPS + 1)]
     if not all(np.isfinite(step_losses)):
@@ -1186,7 +1300,8 @@ def fit_timed(name: str, seed: int, batch: dict, workdir: str, overrides: dict,
            "first_step_s": ts[0] - t0, "peak_mem_gib": peak, "losses": step_losses, "val": val,
            "k1_launches_per_step": expected_launches, "k1_launches_in_fit": launches,
            "ctc_launches_per_step": dict(CTC_PER_STEP), "ctc_launches_in_fit": ctc_launches,
-           "fit_s": fit_s}
+           "bottleneck_gemm_launches_per_step": per_step[0][2],
+           "bottleneck_gemm_launches_in_fit": gemm_launches, "fit_s": fit_s}
     if not eager:
         out["program"] = program_record(trainer.program, TRAIN_STEPS)
     log(f"train path {name} bf16 B={b}: " + json.dumps(out))
@@ -1199,7 +1314,9 @@ def program_record(program, steps: int) -> dict:
     otherwise); the captures' seconds and the pools' bytes."""
     if (program is None or program.replays != steps
             or len(program.captures) != len(program.steps)
-            or not program.eval_program.replays):
+            or not program.eval_program.replays
+            or any(c["bottleneck_gemm_launches"] != GEMM_PER_ENCODE
+                   for c in (*program.captures, *program.eval_program.captures))):
         raise AssertionError(
             f"the fit did not replay the train program at every step: "
             f"{None if program is None else (program.replays, program.captures)}")
@@ -1207,8 +1324,12 @@ def program_record(program, steps: int) -> dict:
             "keys": len(program.steps),
             "capture_s": [c["capture_s"] for c in program.captures],
             "instantiate_s": [c["instantiate_s"] for c in program.captures],
-            "launches_per_replay": [{"k1": c["k1_launches"], "ctc": c["ctc_launches"]}
+            "launches_per_replay": [{"k1": c["k1_launches"], "ctc": c["ctc_launches"],
+                                     "bottleneck_gemm": c["bottleneck_gemm_launches"]}
                                     for c in program.captures],
+            "eval_launches_per_replay": [{"k1": c["k1_launches"], "ctc": c["ctc_launches"],
+                                          "bottleneck_gemm": c["bottleneck_gemm_launches"]}
+                                         for c in program.eval_program.captures],
             "pool_bytes": pool_bytes(program), "eval_pool_bytes": pool_bytes(program.eval_program),
             "eval_captures": len(program.eval_program.captures),
             "eval_replays": program.eval_program.replays}
@@ -1221,7 +1342,7 @@ def step_breakdown(trainer: Trainer, batch: dict, iters: int = 3) -> dict:
     ``host_ms`` on the host's clock, mean of ``iters`` steps; ``profile``:
     one whole replayed step under ``torch.profiler`` (device busy share; a
     replayed kernel carries no PyTorch op name), with K1's 15 launches and
-    the CTC kernels' two credited to it."""
+    the CTC kernels' two and the 1x1 GEMM's 36 credited to it."""
     program = trainer.program
     out = {"step_ms": 0.0, "host_ms": 0.0}
     for _ in range(iters):
@@ -1236,13 +1357,16 @@ def step_breakdown(trainer: Trainer, batch: dict, iters: int = 3) -> dict:
         out["step_ms"] += start.elapsed_time(end) / iters
     fa.reset_launches()
     losses.reset_launches()
+    BG.reset_launches()
     out["profile"] = profile(lambda: program.train_step(batch), top=8, cpu=False)
     out["ctc_launches"] = dict(losses.launches_by_kernel)
+    out["bottleneck_gemm_launches"] = BG.launches
     if sum(out["profile"]["k1_launches_by_kernel"].values()) != 15 \
-            or losses.launches_by_kernel != CTC_PER_STEP:
+            or losses.launches_by_kernel != CTC_PER_STEP or BG.launches != GEMM_PER_ENCODE:
         raise AssertionError(f"profiled replayed train step ran K1 "
-                             f"{out['profile']['k1_launches_by_kernel']}, expected 15, and "
-                             f"the CTC {out['ctc_launches']}")
+                             f"{out['profile']['k1_launches_by_kernel']}, expected 15, the "
+                             f"CTC {out['ctc_launches']} and the 1x1 GEMM {BG.launches}, "
+                             f"expected {GEMM_PER_ENCODE}")
     log("replayed train step, one graph: " + json.dumps(out))
     return out
 
@@ -1458,18 +1582,25 @@ def run_train_path(seed: int) -> dict:
         out["sync_report"] = sync_report(trainer, batch)
         fa.reset_launches()
         losses.reset_launches()
+        BG.reset_launches()
         trainer.program.eval_step(batch)
         torch.cuda.synchronize()
-        out["eval_step_launches"] = {"k1": fa.launches, "ctc": dict(losses.launches_by_kernel)}
-        if out["eval_step_launches"] != {"k1": 15, "ctc": {"ctc_forward": 1}}:
+        out["eval_step_launches"] = {"k1": fa.launches, "ctc": dict(losses.launches_by_kernel),
+                                     "bottleneck_gemm": BG.launches}
+        if out["eval_step_launches"] != {"k1": 15, "ctc": {"ctc_forward": 1},
+                                         "bottleneck_gemm": GEMM_PER_ENCODE}:
             raise AssertionError(f"a replayed eval step launched {out['eval_step_launches']}")
         out["turns"] = program_turns(trainer, batch, seed, workdir)
         fa.reset_launches()
+        BG.reset_launches()
         out["eager_profile"] = profile(lambda: trainer.task.train_step(
             trainer.optimizer, batch, trainer.generator), top=10)
-        if sum(out["eager_profile"]["k1_launches_by_kernel"].values()) != 15:
+        out["eager_bottleneck_gemm_launches"] = BG.launches
+        if sum(out["eager_profile"]["k1_launches_by_kernel"].values()) != 15 \
+                or BG.launches != GEMM_PER_ENCODE:
             raise AssertionError(f"profiled eager train step ran K1 "
-                                 f"{out['eager_profile']['k1_launches_by_kernel']}, expected 15")
+                                 f"{out['eager_profile']['k1_launches_by_kernel']}, expected 15, "
+                                 f"and the 1x1 GEMM {BG.launches}, expected {GEMM_PER_ENCODE}")
         del trainer
         for name, overrides, launches, eager in (
                 ("dropout_0_eager", {"model.dropout": 0.0}, 15, True),
@@ -1581,11 +1712,13 @@ def run_av_engine(seed: int) -> dict:
         out["encode_pool_bytes"] = pool_bytes(net.encode_program)
         eng.batch_log.clear()
         fa.reset_launches()
+        BG.reset_launches()
         t0 = time.perf_counter()
         futures = [eng.submit(*p) for p in payloads]
         results = [f.result(timeout=WAIT_S) for f in futures]
         wall_s = time.perf_counter() - t0
         launches, by_kernel = fa.launches, dict(fa.launches_by_kernel)
+        gemm_launches = BG.launches
         stats, batches = eng.stats(), list(eng.batch_log)
     out["reserved_gib_after_traffic"] = torch.cuda.memory_reserved() / 2**30
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1606,9 +1739,11 @@ def run_av_engine(seed: int) -> dict:
                              f"{net.decode_programs.captures} and {net.encode_program.captures};"
                              " traffic must only replay")
     by_mask = launches_by_mask(by_kernel)
-    if launches != 45 or by_mask != {"unmasked": 36, "masked": 9}:
+    if launches != 45 or by_mask != {"unmasked": 36, "masked": 9} \
+            or gemm_launches != 3 * GEMM_PER_ENCODE:
         raise AssertionError(f"AV engine launched K1 {launches} times over 3 batches "
-                             f"({by_kernel}), expected 3 x (12 encoder + 3 fusion)")
+                             f"({by_kernel}), expected 3 x (12 encoder + 3 fusion), and the "
+                             f"1x1 GEMM {gemm_launches}, expected 3 x {GEMM_PER_ENCODE}")
     # Each row against the eager loop of the same padded bucket (timed, as
     # this run's yardstick for the engine's decode_ms).
     start = 0
@@ -1643,6 +1778,7 @@ def run_av_engine(seed: int) -> dict:
         "device_tail_ms_per_batch": [(b["t_ready"] - b["t_launched"]) * 1e3 for b in batches],
         "collate_ms_hidden_under_previous_batch": hidden,
         "k1_launches_per_batch": launches // 3, "k1_launches_by_kernel": by_kernel,
+        "bottleneck_gemm_launches_per_batch": gemm_launches // 3,
         "bucket_counts": stats["bucket_counts"], "rows_equal_eager_loop": True})
     for b in batches:
         out["decode_ms_by_bucket"][str(b["bucket"])].append((b["t_ready"] - b["t_dispatch"]) * 1e3)
@@ -1654,13 +1790,15 @@ def run_av_engine(seed: int) -> dict:
     for device in ("cuda", "cpu"):
         net = small_av_net(seed, device)
         fa.reset_launches()
+        BG.reset_launches()
         with make_av_engine(net, PREFIX, beam_size=BEAM, max_len=24, eos_id=EOS, buckets=(4,),
                             max_wait_s=0.2) as eng:
             futures = [eng.submit(*p) for p in payloads[:3]]
             rows[device] = [f.result(timeout=WAIT_S) for f in futures]
-        if device == "cuda" and fa.launches != 5:
+        if device == "cuda" and (fa.launches != 5 or BG.launches != 0):
             raise AssertionError(f"the shallow fp32 engine launched K1 {fa.launches} times, "
-                                 "expected 5 (2 encoder + 3 fusion)")
+                                 "expected 5 (2 encoder + 3 fusion), and the 1x1 GEMM "
+                                 f"{BG.launches}, expected 0")
         del net
     same = all(a.bucket == b.bucket == 4 and np.array_equal(a.tokens, b.tokens)
                for a, b in zip(rows["cuda"], rows["cpu"]))
@@ -1980,6 +2118,7 @@ def run_streaming(seed: int) -> dict:
     for i in range(2, 5):
         torch.cuda.synchronize()
         fa.reset_launches()
+        BG.reset_launches()
         t0 = time.perf_counter()
         feats, valid = net.encode(preprocess(*chunks[i % len(chunks)]))
         torch.cuda.synchronize()
@@ -1988,10 +2127,11 @@ def run_streaming(seed: int) -> dict:
         torch.cuda.synchronize()
         encode_ms.append((t1 - t0) * 1e3)
         decode_ms.append((time.perf_counter() - t1) * 1e3)
-        launches.append((fa.launches, launches_by_mask(fa.launches_by_kernel)))
-    if any(n != 15 or by != {"unmasked": 12, "masked": 3} for n, by in launches):
-        raise AssertionError(f"a streamed chunk launched K1 {launches}, expected 12 encoder + "
-                             "3 fusion")
+        launches.append((fa.launches, launches_by_mask(fa.launches_by_kernel), BG.launches))
+    if any(n != 15 or by != {"unmasked": 12, "masked": 3} or gemm != GEMM_PER_ENCODE
+           for n, by, gemm in launches):
+        raise AssertionError(f"a streamed chunk launched (K1, K1 by mask, 1x1 GEMM) {launches}, "
+                             f"expected 12 encoder + 3 fusion and {GEMM_PER_ENCODE}")
 
     legs = {}
     for name, n_chunks in (("5min", STREAM_CHUNKS), ("longform", LONGFORM_CHUNKS)):
@@ -2022,7 +2162,8 @@ def run_streaming(seed: int) -> dict:
            "longform_audio_s_per_s": legs["longform"]["audio_s_per_s"], "legs": legs,
            "encode_ms_per_chunk": encode_ms, "decode_ms_per_chunk": decode_ms,
            "decode_ms_per_step": [x / STREAM_TOKENS for x in decode_ms],
-           "k1_launches_per_chunk": launches[0][0], "graphs": warmup,
+           "k1_launches_per_chunk": launches[0][0],
+           "bottleneck_gemm_launches_per_chunk": launches[0][2], "graphs": warmup,
            "encode_graphs": graph_summary(net.encode_program),
            "reserved_gib_after_traffic": torch.cuda.memory_reserved() / 2**30,
            "replays": stream.graphs.replays}
@@ -2212,9 +2353,9 @@ def run_continuous(seed: int) -> dict:
         homes = {k: v.data_ptr() for k, v in eng.state.items() if isinstance(v, torch.Tensor)}
 
         def counted_encode(batch):
-            before = fa.launches
+            before = fa.launches, BG.launches
             res = encode(batch)
-            encodes.append((len(batch), fa.launches - before))
+            encodes.append((len(batch), fa.launches - before[0], BG.launches - before[1]))
             return res
 
         def timed_segment(state):
@@ -2240,20 +2381,23 @@ def run_continuous(seed: int) -> dict:
                 or len(net.encode_program.captures) != len(CONT_BUCKETS):
             raise AssertionError(f"warm-up captured the encode {net.encode_program.captures}, "
                                  f"expected one graph a bucket {CONT_BUCKETS}")
-        by_bucket = {n: k for n, k in encodes[:len(CONT_BUCKETS)]}
-        if sorted(by_bucket) != list(CONT_BUCKETS) or set(by_bucket.values()) != {15}:
-            raise AssertionError(f"admission encodes launched K1 {encodes}, expected 15 at each "
-                                 f"bucket {CONT_BUCKETS}")
+        by_bucket = {n: (k, g) for n, k, g in encodes[:len(CONT_BUCKETS)]}
+        if sorted(by_bucket) != list(CONT_BUCKETS) \
+                or set(by_bucket.values()) != {(15, GEMM_PER_ENCODE)}:
+            raise AssertionError(f"admission encodes launched (K1, 1x1 GEMM) {encodes}, expected "
+                                 f"15 and {GEMM_PER_ENCODE} at each bucket {CONT_BUCKETS}")
         eng.segment_program = timed_segment  # the loop's segment, timed
         encodes.clear()
         segments_before = eng.stats()["segments_run"]
         replays_before = program.replays
         fa.reset_launches()
+        BG.reset_launches()
         t0 = time.perf_counter()
         futures = [eng.submit(*payloads[i % len(payloads)]) for i in range(CONT_REQUESTS)]
         results = [f.result(timeout=WAIT_S) for f in futures]
         wall_s = time.perf_counter() - t0
         traffic_launches, traffic_encodes = fa.launches, list(encodes)
+        traffic_gemm_launches = BG.launches
         traffic_segments = eng.stats()["segments_run"] - segments_before
         traffic_replays = program.replays - replays_before
         traffic_segment_ms = list(segment_ms)
@@ -2276,9 +2420,12 @@ def run_continuous(seed: int) -> dict:
            if r.bucket != CONT_CAPACITY or list(r.tokens[:len(PREFIX)]) != PREFIX]
     if bad or stats["live_rows"] or stats["pending"]:
         raise AssertionError(f"continuous engine: bad results {bad[:2]}, stats {stats}")
-    if sorted({k for _, k in encodes}) != [15] or traffic_launches != 15 * len(traffic_encodes):
-        raise AssertionError(f"the traffic launched K1 {traffic_launches} times over admission "
-                             f"encodes {traffic_encodes}, expected 15 each")
+    if sorted({(k, g) for _, k, g in encodes}) != [(15, GEMM_PER_ENCODE)] \
+            or traffic_launches != 15 * len(traffic_encodes) \
+            or traffic_gemm_launches != GEMM_PER_ENCODE * len(traffic_encodes):
+        raise AssertionError(f"the traffic launched K1 {traffic_launches} and the 1x1 GEMM "
+                             f"{traffic_gemm_launches} times over admission encodes "
+                             f"{traffic_encodes}, expected 15 and {GEMM_PER_ENCODE} each")
     # Each row against a B=1 net.beam of its payload (its decode program):
     # reported, not held (bf16 rows are reproducible per batch shape, not
     # across shapes).
@@ -2299,9 +2446,12 @@ def run_continuous(seed: int) -> dict:
         "middecode_admission_ms": probe.queue_ms, "middecode_total_ms": probe.total_ms,
         "segment_ms_mean": seg_mean, "segment_ms_max": float(np.max(traffic_segment_ms)),
         "step_ms_mean": seg_mean / CONT_SEG_STEPS, "segments_run": traffic_segments,
-        "admission_encodes": [n for n, _ in traffic_encodes],
+        "admission_encodes": [n for n, _, _ in traffic_encodes],
         "k1_launches_in_traffic": traffic_launches,
-        "k1_launches_per_admission_by_bucket": {str(b): by_bucket[b] for b in CONT_BUCKETS},
+        "bottleneck_gemm_launches_in_traffic": traffic_gemm_launches,
+        "k1_launches_per_admission_by_bucket": {str(b): by_bucket[b][0] for b in CONT_BUCKETS},
+        "bottleneck_gemm_launches_per_admission_by_bucket": {
+            str(b): by_bucket[b][1] for b in CONT_BUCKETS},
         "tokens_generated": [len(r.tokens) - len(PREFIX) for r in results[:4]],
         "share_equal_to_b1_beam": equal / len(served), "segment_replays": traffic_replays,
         "state_in_place": True})
@@ -2437,9 +2587,9 @@ def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
         step = trainer.program.train_step
 
         def counted_step(*args, **kwargs):
-            before = fa.launches
+            before = fa.launches, BG.launches
             out = step(*args, **kwargs)
-            per_step.append(fa.launches - before)
+            per_step.append((fa.launches - before[0], BG.launches - before[1]))
             return out
 
         trainer.program.train_step = counted_step
@@ -2457,9 +2607,10 @@ def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
     metrics = trainer.test(dm)
     launches = fa.launches
 
-    if len(per_step) != steps or set(per_step) != {expected_launches}:
-        raise AssertionError(f"data path {name}: K1 launches per train step {per_step}, "
-                             f"expected {expected_launches} each")
+    if len(per_step) != steps or set(per_step) != {(expected_launches, GEMM_PER_ENCODE)}:
+        raise AssertionError(f"data path {name}: (K1, 1x1 GEMM) launches per train step "
+                             f"{per_step}, expected {expected_launches} and {GEMM_PER_ENCODE} "
+                             "each")
     step_loss = {st: v for tag, v, st in trainer.writer.scalars if tag == "train/loss"}
     losses = [step_loss[i] for i in range(1, steps + 1)]
     if not all(np.isfinite(losses)):
@@ -2485,7 +2636,7 @@ def fit_on_data(name: str, data: dict, workdir: str, seed: int, overrides: dict,
            "timed_steps": [i + 1 for i in timed], "steps_per_epoch": steps_per_epoch,
            "peak_mem_gib": peak, "losses": losses, "test_wer": metrics["wer"],
            "k1_launches_per_step": expected_launches, "k1_launches_in_fit_and_test": launches,
-           "fit_s": fit_s, "probe_s": probe_s,
+           "bottleneck_gemm_launches_per_step": per_step[0][1], "fit_s": fit_s, "probe_s": probe_s,
            "program": program_record(trainer.program, steps)}
     log(f"data path {name} bf16 B={B}: " + json.dumps(out))
     return out, trainer, dm
@@ -3222,11 +3373,13 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
         capture = net.decode_programs.captures[-1]
         torch.cuda.reset_peak_memory_stats()
         fa.reset_launches()
+        BG.reset_launches()
         res, wall_s = timed_call(decode)
         launches = fa.launches
         seq = res.sequences
-        if launches != 15:
-            raise AssertionError(f"int8 mode {name}: K1 launched {launches} times, expected 15")
+        if launches != 15 or BG.launches != GEMM_PER_ENCODE:
+            raise AssertionError(f"int8 mode {name}: K1 launched {launches} times, expected 15, "
+                                 f"and the 1x1 GEMM {BG.launches}, expected {GEMM_PER_ENCODE}")
         if tuple(seq.shape) != (B, BEAM, INT8_MAX_TOKENS) or not torch.isfinite(res.scores).all() \
                 or not bool((seq[:, :, :len(PREFIX)] == torch.tensor(PREFIX, device=seq.device))
                             .all()):
@@ -3240,7 +3393,8 @@ def time_int8_decodes(net, batch, feats, valid) -> dict:
                "device_ms_per_step": per_step[0], "device_ops_per_step": per_step[1],
                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                "decoder_bytes": decoder_bytes, "cache_bytes": cache,
-               "k1_launches_per_batch": launches, "trace_s": trace_s,
+               "k1_launches_per_batch": launches,
+               "bottleneck_gemm_launches_per_batch": BG.launches, "trace_s": trace_s,
                "window_top_kernels_ms": top}
         log(f"int8 mode {name}: " + json.dumps(row))
         out[name] = row
@@ -3868,12 +4022,15 @@ TOOLS_BEAM_LOOPS = 2
 TOOLS_BEAM_DECODER_LAYERS = 2
 
 
-def launched(fn, expected: int, what: str):
-    """Run ``fn`` with the K1 counts at 0 and hold the count to ``expected``."""
+def launched(fn, expected: int, what: str, gemm: int):
+    """Run ``fn`` with the K1 and 1x1 GEMM counts at 0 and hold them to
+    ``expected`` and ``gemm``."""
     fa.reset_launches()
+    BG.reset_launches()
     out, s = timed_call(fn)
-    if fa.launches != expected:
-        raise AssertionError(f"{what} launched K1 {fa.launches} times, expected {expected}")
+    if fa.launches != expected or BG.launches != gemm:
+        raise AssertionError(f"{what} launched K1 {fa.launches} times, expected {expected}, "
+                             f"and the 1x1 GEMM {BG.launches}, expected {gemm}")
     return out, s
 
 
@@ -3884,13 +4041,16 @@ def run_verify_model(net, seed: int) -> dict:
     shapes = collections.Counter()
     with k1_shapes(shapes):
         stability, stab_s = launched(lambda: verify_model.test_model_stability(net),
-                                     3 * TOOLS_FORWARD_LAUNCHES, "verify_model stability")
+                                     3 * TOOLS_FORWARD_LAUNCHES, "verify_model stability",
+                                     gemm=3 * GEMM_PER_ENCODE)
         torch.cuda.synchronize()
         allocated_before = torch.cuda.memory_allocated()  # what earlier phases left behind
         memory, mem_s = launched(lambda: verify_model.test_memory_usage(net),
-                                 TOOLS_GRAD_LAUNCHES, "verify_model forward+backward")
+                                 TOOLS_GRAD_LAUNCHES, "verify_model forward+backward",
+                                 gemm=GEMM_PER_ENCODE)
         in_shapes, shapes_s = launched(lambda: verify_model.test_input_shapes(net),
-                                       3 * TOOLS_FORWARD_LAUNCHES, "verify_model shapes")
+                                       3 * TOOLS_FORWARD_LAUNCHES, "verify_model shapes",
+                                       gemm=3 * GEMM_PER_ENCODE)
     if not all(r["finite"] for r in stability.values()):
         raise AssertionError(f"verify_model: non-finite logits {stability}")
     if not memory["grads_finite"] or not 0 < memory["bytes_in_use"] <= memory["peak_bytes_in_use"]:
@@ -3913,6 +4073,9 @@ def run_verify_model(net, seed: int) -> dict:
            "k1_launches": {"stability": 3 * TOOLS_FORWARD_LAUNCHES,
                            "forward_backward": TOOLS_GRAD_LAUNCHES,
                            "shapes": 3 * TOOLS_FORWARD_LAUNCHES},
+           "bottleneck_gemm_launches": {"stability": 3 * GEMM_PER_ENCODE,
+                                        "forward_backward": GEMM_PER_ENCODE,
+                                        "shapes": 3 * GEMM_PER_ENCODE},
            "k1_by_shape": dict(shapes), "s": {"stability": stab_s, "memory": mem_s,
                                               "shapes": shapes_s},
            "k1_vs_plain_logits": {"max_abs_err": err, "logit_absmax": scale,
@@ -3926,8 +4089,9 @@ def run_verify_model(net, seed: int) -> dict:
 
 def run_export(net, workdir: str) -> dict:
     """``tools/export_model.py``'s forward on the card: exported at B=2 and
-    run at B=3, against the live net on the plain backend and with K1, in
-    process and in a fresh child, and at B=1 against the plain backend.
+    run at B=3, against the live net as the export traces it (plain attention
+    and 1x1 convolutions, ``as_traced``) and with its kernels, in process and
+    in a fresh child, and at B=1 against the live net as traced.
     Export and reload timed."""
     out = {}
     fwd_path = os.path.join(workdir, "forward.pt2")
@@ -3936,15 +4100,17 @@ def run_export(net, workdir: str) -> dict:
     out["forward_bytes"] = os.path.getsize(fwd_path)
     b3 = export_model._example_batch(3, device="cuda")
     with torch.no_grad():
-        with export_model.plain_attention(net):
+        with export_model.as_traced(net):
             plain = net(b3)
-        k1, _ = launched(lambda: net(b3), TOOLS_FORWARD_LAUNCHES, "the live B=3 forward")
+        k1, _ = launched(lambda: net(b3), TOOLS_FORWARD_LAUNCHES, "the live B=3 forward",
+                         gemm=GEMM_PER_ENCODE)
     b1 = export_model._example_batch(1, device="cuda")  # below the example's B=2
-    with torch.no_grad(), export_model.plain_attention(net):
+    with torch.no_grad(), export_model.as_traced(net):
         plain1 = net(b1)
     program, out["forward_reload_s"] = timed_call(lambda: torch.export.load(fwd_path).module())
     with torch.no_grad():
-        got, out["forward_run_s"] = launched(lambda: program(b3), 0, "the forward artifact")
+        got, out["forward_run_s"] = launched(lambda: program(b3), 0, "the forward artifact",
+                                             gemm=0)
         out["forward_b1_vs_plain_max_abs_err"] = (program(b1) - plain1).abs().max().item()
     del program
     out["forward_vs_plain_max_abs_err"] = (got - plain).abs().max().item()
@@ -3976,9 +4142,9 @@ def run_export_beam(dnet, workdir: str) -> dict:
     # it, the net's beam, which reads the keys 0 .. i where the loop reads the whole window
     # under the position mask, so bf16 may round the two apart.
     program = export_model.BeamProgram(dnet, PREFIX, BEAM, TOOLS_BEAM_LEN, EOS, 1.0)
-    with export_model.plain_attention(dnet), torch.no_grad():
+    with export_model.as_traced(dnet), torch.no_grad():
         (eager_seqs, eager_scores), out["beam_eager_s"] = launched(
-            lambda: program(bb), 0, "the eager beam program")
+            lambda: program(bb), 0, "the eager beam program", gemm=0)
         live = dnet.beam(bb, PREFIX, beam_size=BEAM, max_len=TOOLS_BEAM_LEN, eos_id=EOS)
     del program
     _, out["beam_export_s"] = timed_call(lambda: export_model.export_beam(
@@ -3992,7 +4158,7 @@ def run_export_beam(dnet, workdir: str) -> dict:
     program = exported.module()
     with torch.no_grad():
         (seqs, scores), out["beam_run_s"] = launched(lambda: program(bb), 0,
-                                                     "the beam artifact")
+                                                     "the beam artifact", gemm=0)
     del program, exported
     out["beam_tokens_equal"] = bool(torch.equal(seqs, eager_seqs))
     out["beam_score_max_abs_err"] = (scores - eager_scores).abs().max().item()
@@ -4146,6 +4312,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(args.seed)
     rows = check_kernel(gen)
+    gemm = check_bottleneck_gemm(args.seed)
     routes = {f"{dt}/{d}": fa.route(dtype, d) for dt, dtype in
               (("bfloat16", torch.bfloat16), ("float32", torch.float32)) for d in fa.HEAD_DIMS}
     done("phase 2 (kernel)")
@@ -4232,7 +4399,35 @@ def main() -> int:
                                      "bound_ms", "bound_by", "chain_steps", "library_ms",
                                      "library_device_ms", "bit_equal_runs", "infeasible_row")},
         "backward": "kernel (ctc_grad)"}
-    print(json.dumps({"kernels": [k1, ctc_kernel], "main_path": main_path,
+    gemm_kernel = {
+        "name": "bottleneck_gemm", "route": "cuda",
+        "source": "mocov2_whisper_flamingo_torch/csrc/bottleneck_gemm.cu",
+        "replaces": None, "replaces_what": "no Pallas kernel: the JAX package leaves the "
+                                           "ResNet's convolutions to XLA",
+        "launches_per_av_encode": main_path["bottleneck_gemm_launches_per_batch"],
+        "launched_in_encode_graph": main_path["encode_program"][
+            "bottleneck_gemm_launches_per_replay"],
+        "launches_per_train_step": {name: train_path[name]["bottleneck_gemm_launches_per_step"]
+                                    for name in ("dropout_0.1", "dropout_0",
+                                                 "dropout_0_remat")},
+        "launches_per_profiled_train_replay": train_path["step_parts"][
+            "bottleneck_gemm_launches"],
+        "launches_per_eval_step": train_path["eval_step_launches"]["bottleneck_gemm"],
+        "launches_per_av_batch": serve_path["av_engine"]["bottleneck_gemm_launches_per_batch"],
+        "launches_per_stream_chunk": serve_path["streaming"][
+            "bottleneck_gemm_launches_per_chunk"],
+        "launches_per_admission": serve_path["continuous"][
+            "bottleneck_gemm_launches_per_admission_by_bucket"],
+        "launches_per_data_train_step": {
+            name: data_path[name]["bottleneck_gemm_launches_per_step"] for name in DATA_MODES},
+        "launches_per_int8_batch": {name: row["bottleneck_gemm_launches_per_batch"]
+                                    for name, row in int8_path["decode"].items()
+                                    if isinstance(row, dict)},
+        "launches_per_int8_train_step": int8_path["train"]["int8"][
+            "bottleneck_gemm_launches_per_step"],
+        "launches_per_verify_model_run": tools_path["verify_model"]["bottleneck_gemm_launches"],
+        **gemm}
+    print(json.dumps({"kernels": [k1, ctc_kernel, gemm_kernel], "main_path": main_path,
                       "train_path": train_path,
                       "serve_path": serve_path, "longform_path": longform_path,
                       "data_path": data_path, "int8_path": int8_path,

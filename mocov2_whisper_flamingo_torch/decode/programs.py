@@ -41,7 +41,8 @@ that the next replay never overwrites a result that a caller holds.
   capture or replay error raises: on the card nothing runs eagerly behind a
   program.
 - **The kernels' launch counts** (K1's in ``ops/flash_attention.py``, the
-  CTC's in ``ops/losses.py``) leave out the eager run's and the capture's
+  CTC's in ``ops/losses.py``, the ResNet's 1x1 GEMM's in
+  ``ops/bottleneck_gemm.py``) leave out the eager run's and the capture's
   launches; the capture's are added at each replay, so a count stays the
   kernels sent to the card.
 - **Order.** The graphs of one object share its prepared decoders and its
@@ -77,6 +78,7 @@ from mocov2_whisper_flamingo_torch.decode.beam import BeamResult, beam_search
 from mocov2_whisper_flamingo_torch.decode.greedy import greedy_decode
 from mocov2_whisper_flamingo_torch.decode.sampling import (
     GumbelDraws, SampleResult, no_speech_probability, sample_decode, sample_noise)
+from mocov2_whisper_flamingo_torch.ops import bottleneck_gemm as BG
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import losses
 
@@ -102,11 +104,18 @@ def _pinned_prefix(prefix_ids) -> torch.Tensor:
     return torch.tensor([int(t) for t in prefix_ids], dtype=torch.long).pin_memory()
 
 
-def _uncounted(fn) -> tuple:
+# The kernels whose launches a graph's capture keeps and its replays credit, by
+# the name its capture record gives them.
+COUNTED = {"k1": fa, "ctc": losses, "bottleneck_gemm": BG}
+
+
+def _uncounted(fn, counted=tuple(COUNTED.values())) -> tuple:
     """``fn()`` with none of its kernel launches counted: ``(its result,
-    ((K1's launches, by kernel), (the CTC's launches, by kernel)))``."""
-    (out, k1, k1_by_kernel), ctc, ctc_by_kernel = losses.uncounted(lambda: fa.uncounted(fn))
-    return out, ((k1, k1_by_kernel), (ctc, ctc_by_kernel))
+    ((launches, by kernel) of each of COUNTED's kernels, in its order))``."""
+    if not counted:
+        return fn(), ()
+    (out, rest), n, by_kernel = counted[0].uncounted(lambda: _uncounted(fn, counted[1:]))
+    return out, ((n, by_kernel), *rest)
 
 
 class GraphPool:
@@ -134,8 +143,8 @@ class GraphPool:
         each is put back where the eager run found it and registered with
         the graph, so that every replay draws from the generator's state
         then and advances it as the eager function would. Neither run counts
-        the kernels' launches (K1's and the CTC's): the capture's are kept
-        with the graph and counted at each replay."""
+        the kernels' launches (K1's, the CTC's, the 1x1 GEMM's): the
+        capture's are kept with the graph and counted at each replay."""
         dev = stream.device
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
@@ -174,15 +183,16 @@ class GraphPool:
         stream.wait_stream(capture_stream)
         graph.launched = launched
         self.captures.append({**record, "capture_s": t1 - t0, "instantiate_s": t2 - t1,
-                              "k1_launches": launched[0][0], "ctc_launches": launched[1][0]})
+                              **{f"{name}_launches": n
+                                 for name, (n, _) in zip(COUNTED, launched)}})
         return graph, outputs
 
     def replay(self, graph: torch.cuda.CUDAGraph) -> None:
         """Replay a graph of this pool and count the kernel launches it holds."""
         graph.replay()
         self.replays += 1
-        fa.credit(*graph.launched[0])
-        losses.credit(*graph.launched[1])
+        for kernel, launched in zip(COUNTED.values(), graph.launched):
+            kernel.credit(*launched)
 
     def run_keyed(self, graphs: dict, key: tuple, fn, inputs: tuple, stream, keep=None,
                   **record) -> tuple:

@@ -5,8 +5,14 @@ body over the frames folded into the batch, global average pool, and
 features zeroed past ``x_len``. The backbone is frozen, so every BatchNorm
 is folded into the conv before it once, by the weight bridge
 (``models/convert.py::fold_bn``): each conv here holds a folded fp32 weight
-in torch's ``[C_out, C_in, kh, kw]`` layout and a bias. Convs go to cuDNN in
-channels-last layout; the JAX package has no kernel on this path.
+in torch's ``[C_out, C_in, kh, kw]`` layout and a bias. Convs run in
+channels-last layout. A bottleneck block's three 1x1 convs (``conv1``,
+``conv3`` with the residual add, the downsample) go through
+``ops/bottleneck_gemm.py``: on the card in bf16, a hand-written GEMM whose
+epilogue adds the bias and the residual and applies the ReLU; otherwise (the
+FP32 policy, the CPU, ``torch.export``) its plain version, cuDNN on the card.
+The stem and the 3x3 convs go to cuDNN. The JAX package has no kernel on
+this path.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mocov2_whisper_flamingo_torch.models import layers as L
+from mocov2_whisper_flamingo_torch.ops import bottleneck_gemm as BG
 
 # torchvision ResNet-50 stage spec: (blocks, mid_channels, stride).
 RESNET50_STAGES = ((3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2))
@@ -39,10 +46,20 @@ class FoldedConv2d(nn.Module):
         return F.conv2d(x, w, prec.cast(self.bias), stride=self.stride,
                         padding=self.padding)
 
+    def gemm(self, x: torch.Tensor, residual: torch.Tensor | None = None, relu: bool = False,
+             kernel: bool = False) -> torch.Tensor:
+        """A 1x1 conv with its epilogue, ``act(conv(x) + bias (+ residual))``:
+        the hand-written GEMM with ``kernel``, else its plain version."""
+        fn = BG.bottleneck_gemm if kernel else BG.plain_bottleneck_gemm
+        return fn(x, self.precision.cast(self.weight), self.bias, self.stride, residual, relu)
+
 
 class Bottleneck(nn.Module):
     def __init__(self, c_in: int, mid: int, stride: int, precision, device=None):
         super().__init__()
+        # The 1x1 convs on their plain version on any tensor, as an exported
+        # artifact holds them (tools/export_model.py::as_traced sets it).
+        self.plain_gemm = False
         c_out = mid * EXPANSION
         self.conv1 = FoldedConv2d(c_in, mid, 1, 1, 0, precision, device)
         self.conv2 = FoldedConv2d(mid, mid, 3, stride, 1, precision, device)
@@ -51,11 +68,11 @@ class Bottleneck(nn.Module):
                            if stride != 1 or c_in != c_out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.conv1(x))
+        kernel = not self.plain_gemm and BG.takes_kernel(x)
+        h = self.conv1.gemm(x, relu=True, kernel=kernel)
         h = F.relu(self.conv2(h))
-        h = self.conv3(h)
-        identity = x if self.downsample is None else self.downsample(x)
-        return F.relu(h + identity)
+        identity = x if self.downsample is None else self.downsample.gemm(x, kernel=kernel)
+        return self.conv3.gemm(h, residual=identity, relu=True, kernel=kernel)
 
 
 class ResNet50Body(nn.Module):

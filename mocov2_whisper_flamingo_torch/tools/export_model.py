@@ -33,7 +33,10 @@ Counterpart of the JAX package's ``tools/export_model.py`` (StableHLO through
 ``ctypes`` call that ``torch.export`` cannot trace, so the export runs with
 ``set_attention_backend("plain")``, the twin of the JAX package's
 ``_xla_attention``, as the JAX tool exports through XLA attention, and then
-restores the backend. **The artifact runs on the device it was exported
+restores the backend. The ResNet's 1x1 convolutions take their plain version
+under ``torch.export`` by themselves (``ops/bottleneck_gemm.py``); the live
+reference an artifact is held against runs inside ``as_traced``, which puts
+both on their plain versions. **The artifact runs on the device it was exported
 on:** the tensors the model makes (masks, position indices, the search's
 buffers) carry that device in the graph; the fresh-process check runs the
 child on it.
@@ -57,6 +60,8 @@ import tempfile
 import numpy as np
 import torch
 from torch import nn
+
+from mocov2_whisper_flamingo_torch.models.visual_frontend import Bottleneck
 
 logger = logging.getLogger("export_model")
 
@@ -85,6 +90,24 @@ def plain_attention(net):
     finally:
         for m, backend in zip(owners, old):
             m.backend = backend
+
+
+@contextlib.contextmanager
+def as_traced(net):
+    """Run ``net`` inside the block as an export traces it: its attention on
+    the plain backend and the ResNet's 1x1 convolutions on their plain
+    version (on the card in bf16 the live net runs kernels in their place),
+    restoring each block's own choice after it."""
+    blocks = [m for m in net.modules() if isinstance(m, Bottleneck)]
+    old = [m.plain_gemm for m in blocks]
+    with plain_attention(net):
+        for m in blocks:
+            m.plain_gemm = True
+        try:
+            yield
+        finally:
+            for m, plain in zip(blocks, old):
+                m.plain_gemm = plain
 
 
 def _save(exported, path: str) -> bytes:
@@ -293,10 +316,10 @@ def main(argv=None) -> int:
 
     export_forward(net, _example_batch(2, device=device), args.output, symbolic_batch=True)
     # Verify at a batch size the export never saw. The live reference runs
-    # the plain attention the artifact was traced with; the tolerance is the
+    # the plain attention and convolutions the artifact was traced with; the tolerance is the
     # JAX tool's for bf16 compute (two differently fused bf16 programs).
     batch3 = _example_batch(3, device=device)
-    with plain_attention(net), torch.no_grad():
+    with as_traced(net), torch.no_grad():
         live3 = net(batch3)
     ok = verify_export(args.output, batch3, reference_out=live3, atol=0.1)
 
@@ -322,7 +345,7 @@ def main(argv=None) -> int:
         # the loop reads the whole window under the position mask: in bf16
         # the two may round apart.
         program = BeamProgram(dnet, prefix, args.beam_size, args.max_len, 0, 1.0)
-        with plain_attention(dnet), torch.no_grad():
+        with as_traced(dnet), torch.no_grad():
             eager = program(bb)
             res = dnet.beam(bb, prefix, beam_size=args.beam_size, max_len=args.max_len,
                             eos_id=0)

@@ -38,7 +38,8 @@ is captured, so each replay puts its 14 markers on the device trace.
   and leaves the generator where the eager step leaves it. The first step
   thus makes one eager run and one capture and replays the graph; the
   capture and every replay count the kernels' launches as the eager step
-  launches them (K1's and the CTC's, credited at each replay).
+  launches them (K1's, the CTC's and the ResNet's 1x1 GEMM's, credited at
+  each replay).
 - **Draws under checkpointing:** a capture cannot rewind the generator for
   the recompute in the backward; the checkpointed block keeps its first
   run's draws (``models/fusion.py``, ``models/layers.py::KeptDraws``).

@@ -9,6 +9,7 @@ for a one-token prefix), so it is exported at two lengths and its size does
 not grow; the loops' device form is held against the eager search's int
 form."""
 
+import collections
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,6 +159,17 @@ def test_forward_artifact_holds_no_span_or_profiler_op(artifacts):
     exported = torch.export.load(artifacts[0]["forward"])
     targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
     assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
+def test_forward_artifact_holds_no_bottleneck_gemm_launch(artifacts):
+    """The ResNet's 1x1 convolutions go to ``ops/bottleneck_gemm.py``'s
+    plain version while ``torch.export`` traces: the artifact holds the
+    frontend's 53 convolutions (the stem, 16 blocks of three, 4 downsamples)
+    as aten ops and no launch of the kernel."""
+    exported = torch.export.load(artifacts[0]["forward"])
+    targets = [str(n.target) for n in exported.graph.nodes if n.op == "call_function"]
+    assert not [t for t in targets if "bottleneck" in t or "gemm" in t.lower()]
+    assert collections.Counter(targets)["aten.conv2d.default"] == 53
 
 
 @pytest.fixture(scope="module")

@@ -8,6 +8,7 @@ Skipped on hosts without a CUDA card.
 import pytest
 import torch
 
+from mocov2_whisper_flamingo_torch.ops import bottleneck_gemm as BG
 from mocov2_whisper_flamingo_torch.ops import flash_attention as fa
 from mocov2_whisper_flamingo_torch.ops import losses as TL
 
@@ -879,6 +880,7 @@ def test_train_program_replays_the_eager_step_bit_for_bit(case, precision):
     program_side, eager_side = _train_twins(precision, dropout, remat, augment, loss_mode)
     program = TrainProgram(*program_side, {"case": case})
     ctc = {"ctc_forward": 1, "ctc_backward": 1} if loss_mode == "ctc_ce" else {}
+    gemm = 36 if precision == "bf16" else 0  # the ResNet's 1x1 convs: the kernel in bf16
     rng = np.random.default_rng(1)
     for step in range(3):
         batch = _train_batch(rng, augment)
@@ -887,9 +889,11 @@ def test_train_program_replays_the_eager_step_bit_for_bit(case, precision):
                     lambda: eager_side[0].train_step(eager_side[1], batch, eager_side[2])):
             fa.reset_launches()
             TL.reset_launches()
+            BG.reset_launches()
             results.append(run())
             torch.cuda.synchronize()
             assert fa.launches == k1 and dict(TL.launches_by_kernel) == ctc, step
+            assert BG.launches == gemm, step
         got, want = results
         assert sorted(got) == sorted(want)
         assert all(torch.equal(got[k], want[k]) for k in got), (step, got, want)
@@ -944,10 +948,12 @@ def test_eval_graph_equals_the_eager_eval_step(precision):
         batch = _train_batch(rng, False)
         fa.reset_launches()
         TL.reset_launches()
+        BG.reset_launches()
         losses, preds = program.eval_step(batch)
         torch.cuda.synchronize()
         assert fa.launches == 3  # 1 encoder layer + 2 fusion blocks
         assert dict(TL.launches_by_kernel) == {"ctc_forward": 1}  # inside the eval graph
+        assert BG.launches == (36 if precision == "bf16" else 0)
         want_losses, want_preds = task.eval_step(batch)
         assert torch.equal(preds, want_preds)
         assert all(torch.equal(losses[k], want_losses[k]) for k in losses)
@@ -1173,3 +1179,141 @@ def test_multirank_program_equals_the_eager_step(data, model, tmp_path):
                                                  str([rows, 400, 400, 8 // model, 64]): 3}
         bf16 = rank["bf16_ms_per_step"]
         assert all(bf16["losses_equal"]) and bf16["state_after"]["equal"]
+
+
+# -- the ResNet's 1x1 GEMM (ops/bottleneck_gemm.py) ------------------------------------------
+
+# The train cell's 1x1 convolutions, one of each shape: (C_in, C_out, input side, stride,
+# residual, ReLU) at 64 x 64 frames (the stem and the max-pool leave 17 x 17).
+GEMM_SHAPES = [
+    (64, 64, 17, 1, False, True), (64, 256, 17, 1, False, False), (64, 256, 17, 1, True, True),
+    (256, 64, 17, 1, False, True), (256, 128, 17, 1, False, True),
+    (256, 512, 17, 2, False, False), (128, 512, 9, 1, True, True),
+    (512, 128, 9, 1, False, True), (512, 256, 9, 1, False, True),
+    (512, 1024, 9, 2, False, False), (256, 1024, 5, 1, True, True),
+    (1024, 256, 5, 1, False, True), (1024, 512, 5, 1, False, True),
+    (1024, 2048, 5, 2, False, False), (512, 2048, 3, 1, True, True),
+    (2048, 512, 3, 1, False, True)]
+GEMM_IMAGES = {"cell": 6400, "bucket1": 400, "one_frame": 1}  # 16 x 400 frames; 1 x 400; 1
+
+
+def _gemm_case(c_in, c_out, side, stride, residual, images, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn((images, c_in, side, side), generator=gen, device="cuda").to(
+        torch.bfloat16).contiguous(memory_format=cl)
+    w = torch.randn((c_out, c_in, 1, 1), generator=gen, device="cuda") * c_in ** -0.5
+    b = torch.randn((c_out,), generator=gen, device="cuda") * 0.5
+    out_side = (side - 1) // stride + 1
+    res = (torch.randn((images, c_out, out_side, out_side), generator=gen, device="cuda")
+           .to(torch.bfloat16).contiguous(memory_format=cl) if residual else None)
+    return x, w, b, res
+
+
+def _gemm_reference(x, w, b, stride, res, relu):
+    """The function in fp32 (cuDNN without TF32) on the bf16 inputs."""
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = torch.nn.functional.conv2d(x.float(), w.to(torch.bfloat16).float(), b,
+                                       stride=stride)
+    if res is not None:
+        y = y + res.float()
+    return torch.relu(y) if relu else y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", sorted(GEMM_IMAGES))
+@pytest.mark.parametrize("shape", GEMM_SHAPES, ids=lambda s: "x".join(map(str, s[:4]))
+                         + ("_res" if s[4] else "") + ("_relu" if s[5] else ""))
+def test_bottleneck_gemm_matches_its_fp32_function_and_repeats_bit_for_bit(shape, rows):
+    """The kernel at each of the cell's 1x1 shapes, at the cell's 6,400
+    frames, at serving's bucket 1 (400 frames: every layer's row count has a
+    tail past its last 128-row tile) and at one frame: against the function
+    in fp32 on the same bf16 inputs, within half a bf16 ulp of each value
+    (the kernel rounds its fp32 sum, bias and residual once: ``rtol`` 2^-8
+    leaves room for the fp32 sums' other order, ``atol`` 1e-4 for values near
+    0 where that order's error is the larger), and no further from it than
+    the plain version (cuDNN's convolution, then the bias, the add and the
+    ReLU, each rounding to bf16). Two runs give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c_in, c_out, side, stride, residual, relu = shape
+    x, w, b, res = _gemm_case(c_in, c_out, side, stride, residual, GEMM_IMAGES[rows])
+    BG.reset_launches()
+    out = BG.bottleneck_gemm(x, w, b, stride=stride, residual=res, relu=relu)
+    again = BG.bottleneck_gemm(x, w, b, stride=stride, residual=res, relu=relu)
+    torch.cuda.synchronize()
+    assert BG.launches == 2 and dict(BG.launches_by_kernel) == {
+        f"bottleneck_gemm<{BG.tile_n(c_out)}>": 2}
+    assert out.dtype == torch.bfloat16 and out.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(out, again)
+    ref = _gemm_reference(x, w, b, stride, res, relu)
+    assert out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref, rtol=2 ** -8, atol=1e-4)
+    plain = BG.plain_bottleneck_gemm(x, w, b, stride, res, relu)
+    assert (out.float() - ref).abs().max() <= (plain.float() - ref).abs().max()
+
+
+@pytest.mark.cuda
+def test_bottleneck_gemm_on_the_card_raises_on_what_the_kernel_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    x, w, b, _ = _gemm_case(64, 128, 5, 1, False, 2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        BG.bottleneck_gemm(x.float(), w, b)
+    with pytest.raises(ValueError, match="channels-last"):
+        BG.bottleneck_gemm(x.contiguous(), w, b)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        BG.bottleneck_gemm(x, w[:96], b[:96])
+    with pytest.raises(ValueError, match="no backward"):
+        BG.bottleneck_gemm(x, w.requires_grad_(), b)
+
+
+def _frontend(precision, seed=0):
+    """A MoCo frontend on the card with weights of a trained net's scale
+    (He initialisation over each conv's inputs, small biases), so that the
+    activations keep their size through the 16 blocks."""
+    from mocov2_whisper_flamingo_torch.models.visual_frontend import MoCoVisualFrontend
+
+    net = MoCoVisualFrontend(precision, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name, p in net.named_parameters():
+        if p.ndim == 4:
+            fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+            scale = 0.5 if name.endswith("conv3.weight") else 1.0  # the residual branch
+            p.data = torch.randn(p.shape, generator=gen, device="cuda") * scale * (
+                2.0 / fan_in) ** 0.5
+        else:
+            p.data = torch.randn(p.shape, generator=gen, device="cuda") * 0.01
+    return net
+
+
+@pytest.mark.cuda
+def test_frontend_through_the_kernel_against_the_former_path(monkeypatch):
+    """The whole bf16 frontend (2 clips of 16 frames of 64 x 64) with its 36
+    1x1 convolutions through the kernel against the same net on the former
+    path (every conv through cuDNN, ``takes_kernel`` false), both held to the
+    fp32 frontend (TF32 off): the kernel's path is no further from it than
+    the former one (each rounds to bf16 at every layer; the kernel rounds
+    fewer times), and both within 3 % of its norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mocov2_whisper_flamingo_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    video = torch.randn((2, 16, 3, 64, 64), generator=gen, device="cuda")
+    lengths = torch.tensor([16, 11], device="cuda")
+    BG.reset_launches()
+    with torch.no_grad():
+        got = _frontend(L.BF16)(video, lengths)
+        torch.cuda.synchronize()
+        assert BG.launches == 36
+        monkeypatch.setattr(BG, "takes_kernel", lambda x: False)
+        former = _frontend(L.BF16)(video, lengths)
+        assert BG.launches == 36
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            ref = _frontend(L.FP32)(video, lengths)
+    assert not got[1, 11:].any()  # padded frames zeroed
+    err = (got.float() - ref).norm() / ref.norm()
+    err_former = (former.float() - ref).norm() / ref.norm()
+    print(f"frontend relative error: kernel path {err:.3e}, former path {err_former:.3e}")
+    assert err <= err_former * 1.05 and err < 3e-2
